@@ -1,0 +1,137 @@
+"""The port's attention kernels, held against the JAX package's Pallas
+kernels (interpret mode), in f32 on the CPU.
+
+On a CPU tensor each wrapper runs its kernel's plain PyTorch version, so
+these tests check the plain versions' arithmetic and the wrappers' dispatch.
+The CUDA kernels themselves are checked against the same plain versions on
+the card (``chip_smoke.py`` and tests/test_torch_cuda.py).
+Tolerance 1e-5: both sides compute in f32; only summation order differs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+TOL = 1e-5
+
+
+def _flash_inputs(seed, b, tq, tk, h, dh):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, tq, h, dh)).astype(np.float32) * 0.3
+    k = rng.standard_normal((b, tk, h, dh)).astype(np.float32) * 0.3
+    v = rng.standard_normal((b, tk, h, dh)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("seed,b,tq,tk,h", [(0, 2, 96, 96, 4), (1, 1, 75, 150, 2)])
+def test_flash_attention_ref_matches_pallas(seed, b, tq, tk, h):
+    """Aligned 96x96 and the unaligned 75x150 case (tests/test_kernels.py)."""
+    from whisper_tpu.kernels.attention import flash_attention as jax_flash
+    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
+
+    q, k, v = _flash_inputs(seed, b, tq, tk, h, 64)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                q_blk=32, interpret=True))
+    tq_, tk_, tv_ = (torch.from_numpy(x) for x in (q, k, v))
+    got = flash_attention_ref(tq_, tk_, tv_).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.max(np.abs(got - want)) < TOL
+    # the wrapper, given CPU tensors, returns the plain result
+    before = flash_attention.launches
+    np.testing.assert_array_equal(flash_attention(tq_, tk_, tv_).numpy(), got)
+    assert flash_attention.launches == before
+
+
+def test_flash_attention_ref_reads_strided_views():
+    """q/k/v as views of one [B,T,H,3,Dh] tensor, the encoder's layout."""
+    from whisper_tpu_torch.kernels.attention import flash_attention
+
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal((1, 40, 2, 3, 64)).astype(np.float32) * 0.3)
+    q, k, v = qkv.unbind(3)
+    got = flash_attention(q, k, v)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _decode_inputs(seed, b, u, h, dh, s):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h * dh, 1)).astype(np.float32) * 0.3
+    kt = rng.standard_normal((u, h * dh, s)).astype(np.float32) * 0.3
+    vt = rng.standard_normal((u, h * dh, s)).astype(np.float32)
+    return q, kt, vt
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["unmasked", "valid_len", "start_and_valid_len", "kv_group"],
+)
+def test_decode_attention_ref_matches_pallas(case):
+    """Mirrors tests/test_kernels.py:85-146, plus kv_group=2."""
+    from whisper_tpu.kernels.decode_attention import decode_attention_hd as jax_dec
+    from whisper_tpu_torch.kernels.decode_attention import (
+        decode_attention_hd,
+        decode_attention_hd_ref,
+    )
+
+    H, Dh, S = 4, 64, 150
+    B, G = (4, 2) if case == "kv_group" else (3, 1)
+    q, kt, vt = _decode_inputs(5, B, B // G, H, Dh, S)
+    valid = start = None
+    if case in ("valid_len", "start_and_valid_len", "kv_group"):
+        valid = np.array([37, 150, 150, 90][:B], np.int32)
+    if case in ("start_and_valid_len", "kv_group"):
+        start = np.array([0, 12, 149, 30][:B], np.int32)
+
+    want = np.asarray(jax_dec(
+        jnp.asarray(q), jnp.asarray(kt), jnp.asarray(vt), H,
+        valid_len=None if valid is None else jnp.asarray(valid),
+        start=None if start is None else jnp.asarray(start),
+        kv_group=G, interpret=True,
+    ))
+    args = (torch.from_numpy(q), torch.from_numpy(kt), torch.from_numpy(vt), H)
+    kw = dict(
+        valid_len=None if valid is None else torch.from_numpy(valid),
+        start=None if start is None else torch.from_numpy(start),
+        kv_group=G,
+    )
+    got = decode_attention_hd_ref(*args, **kw).numpy()
+    assert got.shape == want.shape == (B, H * Dh, 1) and got.dtype == np.float32
+    assert np.max(np.abs(got - want)) < TOL
+    before = decode_attention_hd.launches
+    np.testing.assert_array_equal(decode_attention_hd(*args, **kw).numpy(), got)
+    assert decode_attention_hd.launches == before
+
+
+def test_decode_attention_ref_empty_lane_matches_pallas():
+    """A lane with start >= valid_len attends no key: every score is -1e30,
+    so the softmax weighs all S keys alike and the output is mean(V). S=256
+    is a multiple of the Pallas kernel's 128-lane padding, so its padded
+    columns do not enter that mean."""
+    from whisper_tpu.kernels.decode_attention import decode_attention_hd as jax_dec
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd_ref
+
+    H, Dh, S = 2, 64, 256
+    q, kt, vt = _decode_inputs(7, 3, 3, H, Dh, S)
+    start = np.array([0, 40, 200], np.int32)
+    valid = np.array([256, 40, 100], np.int32)          # lanes 1 and 2 are empty
+    want = np.asarray(jax_dec(jnp.asarray(q), jnp.asarray(kt), jnp.asarray(vt), H,
+                              valid_len=jnp.asarray(valid), start=jnp.asarray(start),
+                              interpret=True))
+    got = decode_attention_hd_ref(torch.from_numpy(q), torch.from_numpy(kt),
+                                  torch.from_numpy(vt), H, valid_len=torch.from_numpy(valid),
+                                  start=torch.from_numpy(start)).numpy()
+    assert np.max(np.abs(got - want)) < TOL
+    np.testing.assert_allclose(got[1:, :, 0], vt[1:].mean(axis=-1), rtol=0, atol=TOL)
+
+
+def test_decode_attention_int8_scales_raise():
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
+
+    q, kt, vt = (torch.from_numpy(x) for x in _decode_inputs(0, 1, 1, 2, 64, 8))
+    sc = torch.ones((1, 1, 8))
+    with pytest.raises(NotImplementedError, match="int8"):
+        decode_attention_hd(q, kt, vt, 2, k_scale=sc, v_scale=sc)
+

@@ -1,0 +1,123 @@
+"""Package-level checks of the PyTorch port: it stands alone (no jax, no
+whisper_tpu module), its copied host modules agree with the originals, and
+its entry points default to CUDA and refuse to fall back to the CPU."""
+
+import ast
+import io
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "whisper_tpu_torch"
+
+SLICE_MODULES = [
+    "whisper_tpu_torch",
+    "whisper_tpu_torch.hparams",
+    "whisper_tpu_torch.ggml",
+    "whisper_tpu_torch.vocab",
+    "whisper_tpu_torch.languages",
+    "whisper_tpu_torch.config",
+    "whisper_tpu_torch.model.params",
+    "whisper_tpu_torch.model.layers",
+    "whisper_tpu_torch.model.encoder",
+    "whisper_tpu_torch.model.decoder",
+    "whisper_tpu_torch.kernels.attention",
+    "whisper_tpu_torch.kernels.decode_attention",
+    "whisper_tpu_torch.runtime.sampler",
+    "whisper_tpu_torch.runtime.decode",
+    "whisper_tpu_torch.runtime.context",
+    "whisper_tpu_torch.features.mel",
+    "whisper_tpu_torch.api.params",
+    "whisper_tpu_torch.api.result",
+    "whisper_tpu_torch.api.context",
+    "whisper_tpu_torch.api.model",
+    "whisper_tpu_torch.obs.profiler",
+    "whisper_tpu_torch.audio.load",
+    "whisper_tpu_torch.cli.writers",
+    "whisper_tpu_torch.cli.main",
+]
+
+
+def test_import_leaves_out_jax_and_whisper_tpu():
+    """In a fresh interpreter (this one already imported jax in conftest)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'whisper_tpu' or m.startswith('whisper_tpu.'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_source_imports_no_jax_or_whisper_tpu(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "whisper_tpu"), f"{path}: imports {name}"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    import torch
+
+    from whisper_tpu_torch.api.model import Model, load_model
+    from whisper_tpu_torch.cli.main import build_parser, main
+    from whisper_tpu_torch.runtime.context import WhisperRuntime
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without a CUDA card")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(str(tmp_path / "missing.bin"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_model(str(tmp_path / "missing.bin"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        WhisperRuntime(None, None, None)
+    assert build_parser().parse_args(["-m", "m", "-f", "a.wav"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["-m", str(tmp_path / "missing.bin"), "-f", "a.wav"])
+
+
+def test_ggml_writer_bytes_match_jax_package():
+    """The streaming writer emits exactly the JAX package's bytes, and the
+    filterbank copy equals the original."""
+    from tests.helpers import TINY_TEST_DIMS, make_vocab_words, random_weights
+    from whisper_tpu import ggml as jg
+    from whisper_tpu.features.filters import mel_filter_bank as jax_filters
+    from whisper_tpu_torch import ggml as tg
+
+    filters = tg.mel_filter_bank(80)
+    np.testing.assert_array_equal(filters, jax_filters(80))
+    words = make_vocab_words(TINY_TEST_DIMS.n_vocab)[:300]
+    weights = random_weights(TINY_TEST_DIMS, seed=4)
+    bufs = []
+    for mod in (jg, tg):
+        buf = io.BytesIO()
+        mod.write_checkpoint(buf, TINY_TEST_DIMS, mod.MelFilters(80, 201, filters), words, weights)
+        bufs.append(buf.getvalue())
+    assert bufs[0] == bufs[1]
+
+
+def test_weights_int8_policy_raises():
+    from whisper_tpu_torch.model.params import DtypePolicy, params_from_numpy
+
+    with pytest.raises(NotImplementedError, match="int8"):
+        params_from_numpy({}, "cpu", DtypePolicy(weights_int8=True))

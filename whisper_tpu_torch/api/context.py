@@ -1,0 +1,334 @@
+"""Transcription loop: the ``whisper_full`` port.
+
+Counterpart of ``whisper_tpu.api.context`` (the reference's ``runFullImpl``,
+ContextImpl.cpp:452-794), a host-side sliding-window loop:
+
+  while seek+100 < seek_end:
+      progress / encoder-begin callbacks
+      encode(mel window at seek)                      [device]
+      prompt = [_PREV_] + tail(prompt_past) + SOT(+lang)(+task)
+      WindowResult = decode_window(...)               [device]
+      failed -> seek += 100 (1 s penalty skip)        [host]
+      segment assembly on timestamp tokens + callbacks [host]
+      seek += seek_delta
+
+Times are centiseconds (1 mel frame = 10 ms), the reference's native unit.
+
+Not in this slice of the port, each raising ``NotImplementedError`` rather
+than running something else: ``run_streamed``, ``run_capture``, beam search,
+``Flags.TOKEN_TIMESTAMPS`` and stereo (diarization) input.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from whisper_tpu_torch.api.params import Flags, FullParams, SamplingStrategy, full_default_params
+from whisper_tpu_torch.api.result import Segment, Token, TokenFlags, TranscribeResult
+from whisper_tpu_torch.languages import find_language_id
+from whisper_tpu_torch.obs.profiler import Profiler
+
+
+class _TokenData:
+    """Host mirror of the reference sTokenData (ContextImpl.h:31-43)."""
+
+    __slots__ = ("id", "p", "pt", "ptsum", "tid", "t0", "t1", "vlen")
+
+    def __init__(self, id, p, pt, ptsum, tid):
+        self.id = int(id)
+        self.p = float(p)
+        self.pt = float(pt)
+        self.ptsum = float(ptsum)
+        self.tid = int(tid)
+        self.t0 = -1
+        self.t1 = -1
+        self.vlen = 0.0
+
+
+def _not_in_slice(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to whisper_tpu_torch yet")
+
+
+class Context:
+    """Per-transcription state over a shared Model (iContext analogue)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.runtime = model.runtime
+        self.vocab = model.vocab
+        self.prompt_past: list[int] = []
+        self.result_all: list[Segment] = []
+        self.profiler = Profiler()
+        self._mel_len = 0
+        self._time_scale = 1                        # 2 under SpeedupAudio
+
+    # ------------------------------------------------------------------
+    # public entry points
+    # ------------------------------------------------------------------
+
+    def run_full(self, params: Optional[FullParams], audio: np.ndarray) -> TranscribeResult:
+        """Transcribe a full PCM clip (float32 mono 16 kHz, [N])."""
+        params = params or full_default_params()
+        if params.strategy == SamplingStrategy.BEAM_SEARCH:
+            raise _not_in_slice("beam search (SamplingStrategy.BEAM_SEARCH)")
+        if params.flag(Flags.TOKEN_TIMESTAMPS):
+            raise _not_in_slice("Flags.TOKEN_TIMESTAMPS (token-level timestamps)")
+        with self.profiler.cpu("run_complete"):
+            mono = np.asarray(audio, np.float32)
+            if mono.ndim != 1:
+                raise _not_in_slice("stereo input (diarization)")
+
+            if params.flag(Flags.SPEEDUP_AUDIO):
+                # 2x time-compress; the decode runs in compressed time and
+                # _emit_segment scales times back (whisper.cpp:3044-3045).
+                from whisper_tpu_torch.audio.load import speedup_2x
+
+                mono = speedup_2x(mono)
+
+            with self.profiler.cpu("spectrogram"):
+                mel = self.model.mel(mono).cpu().numpy()    # [n_mels, n_len]
+
+            return self._run_full_impl(params, mel)
+
+    def run_streamed(self, params, reader, total_frames=None) -> TranscribeResult:
+        raise _not_in_slice("Context.run_streamed (streaming mel)")
+
+    def run_capture(self, params, source, capture_params=None, on_status=None,
+                    should_cancel=None) -> TranscribeResult:
+        raise _not_in_slice("Context.run_capture (live capture)")
+
+    # ------------------------------------------------------------------
+    # the main loop
+    # ------------------------------------------------------------------
+
+    def _run_full_impl(self, params: FullParams, mel: np.ndarray) -> TranscribeResult:
+        dims = self.runtime.dims
+        self.result_all = []
+        self._time_scale = 2 if params.flag(Flags.SPEEDUP_AUDIO) else 1
+
+        seek_start = params.offset_ms // 10
+        seek_end = seek_start + params.duration_ms // 10 if params.duration_ms else mel.shape[1]
+        self._mel_len = mel.shape[1]
+
+        # skip clips shorter than 1 s (ContextImpl.cpp:470-473)
+        if seek_end < 100 + seek_start:
+            return TranscribeResult(segments=[])
+
+        if params.flag(Flags.NO_CONTEXT):
+            self.prompt_past = []
+        if params.prompt_tokens:
+            self.prompt_past = list(params.prompt_tokens) + self.prompt_past
+
+        audio_ctx = params.audio_ctx or dims.n_audio_ctx
+        if not (0 < audio_ctx <= dims.n_audio_ctx):
+            raise ValueError(f"audio_ctx {audio_ctx} out of range")
+
+        prompt_init = self.build_prompt_init(params)
+        window = 2 * audio_ctx
+        seek = seek_start
+        cap = self.runtime.prompt_capacity
+        device = self.runtime.device
+
+        while True:
+            with self.profiler.cpu("spectrogram"):
+                mel_win = np.zeros((mel.shape[0], window), mel.dtype)
+                avail = mel[:, seek : seek + window]
+                mel_win[:, : avail.shape[1]] = avail
+
+            if params.progress_callback:
+                with self.profiler.cpu("callbacks"):
+                    params.progress_callback(
+                        min(1.0, (seek - seek_start) / max(1, seek_end - seek_start))
+                    )
+            if seek + 100 >= seek_end:
+                break
+            if params.encoder_begin_callback:
+                with self.profiler.cpu("callbacks"):
+                    if not params.encoder_begin_callback(self):
+                        break
+
+            with self.profiler.cpu("encode"):
+                _, cross_kv = self.runtime.encode_window(mel_win[None])
+                # kernels return before the card finishes; without this sync
+                # the encode cost would be billed to the decode block
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+
+            prompt = self._build_prompt(params, prompt_init)
+            padded = np.zeros((1, cap), np.int32)
+            padded[0, : len(prompt)] = prompt
+
+            with self.profiler.cpu("decode"):
+                res = self.runtime.run_window(
+                    padded,
+                    np.full((1,), len(prompt), np.int32),
+                    cross_kv,
+                    np.full((1,), seek, np.int32),
+                    np.full((1,), seek_end, np.int32),
+                    max_tokens=params.max_tokens,
+                    single_segment=params.flag(Flags.SINGLE_SEGMENT),
+                )
+                # one host transfer per window
+                res = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+
+            seek = self.apply_window_result(params, res, seek, lane=0)
+
+        if params.progress_callback:
+            params.progress_callback(1.0)
+        return TranscribeResult(segments=list(self.result_all))
+
+    # ------------------------------------------------------------------
+    # per-window steps
+    # ------------------------------------------------------------------
+
+    def build_prompt_init(self, params: FullParams) -> list[int]:
+        """SOT (+language)(+task) head (ContextImpl.cpp:491-512)."""
+        vocab = self.vocab
+        prompt_init = [vocab.token_sot]
+        if vocab.multilingual:
+            lang_id = find_language_id(params.language)
+            if lang_id < 0:
+                raise ValueError(f"unknown language {params.language!r}")
+            if lang_id >= vocab.num_languages:
+                raise ValueError(
+                    f"language {params.language!r} requires a model with "
+                    f">{vocab.num_languages} language tokens (large-v3 family)"
+                )
+            prompt_init.append(vocab.token_sot + 1 + lang_id)
+            prompt_init.append(
+                vocab.token_translate if params.flag(Flags.TRANSLATE) else vocab.token_transcribe
+            )
+        return prompt_init
+
+    def _build_prompt(self, params: FullParams, prompt_init: list[int]) -> list[int]:
+        """[_PREV_] + tail of accumulated context + head (ContextImpl.cpp:562-576)."""
+        vocab = self.vocab
+        dims = self.runtime.dims
+        prompt: list[int] = []
+        if self.prompt_past:
+            n_take = min(params.n_max_text_ctx, dims.n_text_ctx // 2, len(self.prompt_past))
+            prompt = [vocab.token_prev] + self.prompt_past[-n_take:]
+            self.prompt_past = self.prompt_past[-n_take:]
+        return prompt + prompt_init
+
+    def apply_window_result(self, params: FullParams, res: dict, seek: int, lane: int) -> int:
+        """Consume one lane of a host-side WindowResult dict: failure skip,
+        prompt_past growth, segment assembly. Returns the advanced seek."""
+        if bool(res["failed"][lane]):
+            # "failed to generate timestamp token - skipping one second"
+            return seek + 100
+
+        result_len = int(res["result_len"][lane])
+        seek_delta = int(res["seek_delta"][lane])
+        tokens_cur = [
+            _TokenData(
+                res["tokens"][lane, i], res["p"][lane, i], res["pt"][lane, i],
+                res["ptsum"][lane, i], res["tid"][lane, i],
+            )
+            for i in range(result_len)
+        ]
+        for t in tokens_cur:
+            self.prompt_past.append(t.id)
+        self._assemble_segments(params, tokens_cur, seek, seek_delta)
+        return seek + seek_delta
+
+    # ------------------------------------------------------------------
+    # segment assembly (ContextImpl.cpp:689-784)
+    # ------------------------------------------------------------------
+
+    def _emit_segment(self, params: FullParams, t0: int, t1: int, text: bytes,
+                      tokens: list[_TokenData]):
+        vocab = self.vocab
+        seg = Segment(
+            text=text.decode("utf-8", errors="replace"),
+            t0=t0,
+            t1=t1,
+            tokens=[
+                Token(
+                    id=t.id,
+                    text=vocab.string(t.id) or "",
+                    t0=t.t0,
+                    t1=t.t1,
+                    probability=t.p,
+                    pt=t.pt,
+                    ptsum=t.ptsum,
+                    tid=t.tid,
+                    vlen=t.vlen,
+                    flags=TokenFlags.SPECIAL if t.id >= vocab.token_eot else TokenFlags.NONE,
+                )
+                for t in tokens
+            ],
+        )
+        self.result_all.append(seg)
+        if self._time_scale != 1:
+            # SpeedupAudio: decode ran in compressed time; real times are 2x
+            # (reference whisper.cpp:3044-3045, ContextImpl.cpp:708-712)
+            seg.t0 *= self._time_scale
+            seg.t1 *= self._time_scale
+            for t in seg.tokens:
+                t.t0 *= self._time_scale
+                t.t1 *= self._time_scale
+        if params.new_segment_callback:
+            with self.profiler.cpu("callbacks"):
+                params.new_segment_callback(self, 1)
+
+    def _assemble_segments(self, params: FullParams, tokens_cur: list[_TokenData],
+                           seek: int, seek_delta: int):
+        vocab = self.vocab
+        if not tokens_cur:
+            return
+        single = params.flag(Flags.SINGLE_SEGMENT)
+        i0 = 0
+        t0 = seek + 2 * (tokens_cur[0].tid - vocab.token_beg)
+        text = b""
+        i = 0
+        n = len(tokens_cur)
+        while i < n:
+            tk = tokens_cur[i]
+            if params.flag(Flags.PRINT_SPECIAL) or tk.id < vocab.token_eot:
+                text += vocab.bytes(tk.id) or b""
+            if tk.id > vocab.token_beg and not single:
+                t1 = seek + 2 * (tk.tid - vocab.token_beg)
+                if text:
+                    self._emit_segment(params, t0, t1, text, tokens_cur[i0 : i + 1])
+                text = b""
+                # skip consecutive timestamp tokens
+                while i < n and tokens_cur[i].id > vocab.token_beg:
+                    i += 1
+                i -= 1
+                t0 = t1
+                i0 = i + 1
+            i += 1
+        if text:
+            t1 = seek + seek_delta
+            self._emit_segment(params, t0, t1, text, tokens_cur[i0:])
+
+    # ------------------------------------------------------------------
+
+    @property
+    def results(self) -> TranscribeResult:
+        return TranscribeResult(segments=list(self.result_all))
+
+    def timings_print(self) -> str:
+        """timingsPrint analogue: host phases, RTF, and device memory."""
+        from whisper_tpu_torch.obs.profiler import device_memory_stats
+
+        lines = [self.profiler.report()]
+        total = self.profiler.get("run_complete")
+        if total > 0 and self._mel_len:
+            audio_s = self._mel_len / 100.0
+            lines.append(f"audio: {audio_s:.1f}s in {total:.2f}s -> RTF {audio_s/total:.2f}")
+        for dev, stats in device_memory_stats().items():
+            lines.append(
+                f"device {dev}: {stats['bytes_in_use']/1e9:.2f} GB in use, "
+                f"peak {stats['peak_bytes_in_use']/1e9:.2f} GB"
+            )
+        report = "\n".join(lines)
+        print(report)
+        return report
+
+    def timings_reset(self) -> None:
+        self.profiler.reset()

@@ -1,0 +1,83 @@
+"""Fused encoder self-attention: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Replaces ``whisper_tpu/kernels/attention.py:flash_attention`` (Pallas,
+body ``_attn_kernel``): unmasked softmax(q k^T) v over pre-scaled q, k in
+[B, T, H, Dh], softmax in f32, P cast to v.dtype, f32 PV, v.dtype output.
+The kernel is ``csrc/flash_attention.cu``; its header says what bounds it on
+an H100 (operations: 11.5 GFLOP per large-v2 layer) and how its design
+answers that (64-row q tiles, 64-key K/V tiles streamed through shared
+memory, f32 online softmax, mma.sync bf16 tensor-core products).
+
+On a CPU tensor ``flash_attention`` runs ``flash_attention_ref``. On a CUDA
+tensor it launches the kernel or raises; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from whisper_tpu_torch.kernels._build import load_library
+from whisper_tpu_torch.model.layers import attention
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Plain version: f32 scores and softmax, P cast to v.dtype, f32 PV,
+    v.dtype output [B, Tq, H, Dh]."""
+    return attention(q, k, v, compute_dtype=v.dtype).to(v.dtype)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library("flash_attention")
+    fn = lib.wtt_flash_attention_bf16
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if not (q.is_cuda and k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
+        raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise NotImplementedError(
+            f"flash_attention on CUDA takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be [B, T, H, Dh]")
+    b, _, h, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, dh):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if dh != 64:
+        raise NotImplementedError(f"flash_attention kernel is built for Dh=64, got {dh}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_attention: {name} needs unit stride along Dh, B/T/H strides "
+                f"that are multiples of 8 and a 16-byte aligned base (strides {t.stride()})"
+            )
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unmasked fused attention -> [B, Tq, H, Dh] in v.dtype."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v)
+    _check(q, k, v)
+    b, tq, h, dh = q.shape
+    tk = k.shape[1]
+    out = torch.empty((b, tq, h, dh), dtype=v.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().wtt_flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,177 @@
+"""Text decoder with a preallocated, transposed self-attention KV cache.
+
+Counterpart of ``whisper_tpu.model.decoder``:
+  - embeddings: token_embedding[ids] + positional_embedding[pos], with the
+    position clamped to [0, n_text_ctx - 1]
+  - masked self-attention writes this step's K/V into the cache at column
+    ``write_pos`` (a scalar shared by all lanes), then attends over the
+    lane's columns [attn_start_b, query column]
+  - cross-attention reads the precomputed, pre-scaled, transposed K/V
+  - logits = ln(x) @ token_embedding^T
+
+The cache is one stacked [L, B, H*Dh, C] pair per K and V. A step writes its
+new column IN PLACE by slice assignment (never a copy of the cache: on
+large-v2 at B=8 a whole-cache copy per step would cost more than the step).
+Padded prompts are LEFT-aligned, so every lane's last real token sits in
+the same column and the logits row is always the last row; lanes with
+shorter prompts hold garbage in columns < ``attn_start``, which the mask
+hides. Prompt ingest (S > 1) takes the einsum path; single-token steps take
+the decode-attention kernel, for self- and cross-attention alike.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from whisper_tpu_torch.hparams import ModelDims
+from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
+from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, qkv_proj
+from whisper_tpu_torch.model.params import Block, WhisperParams
+
+
+class SelfKV(NamedTuple):
+    """Preallocated self-attention cache, TRANSPOSED [L, B, H*Dh, C]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+
+def init_self_kv(
+    dims: ModelDims, batch: int, dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cuda", cache_len: int | None = None,
+) -> SelfKV:
+    shape = (dims.n_text_layer, batch, dims.n_text_state, cache_len or dims.n_text_ctx)
+    return SelfKV(torch.zeros(shape, dtype=dtype, device=device),
+                  torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _cache_write(cache: torch.Tensor, li: int, new: torch.Tensor, col: int) -> None:
+    """In-place column write: cache [L,B,HD,C], new [B,S,HD] at columns
+    col..col+S-1 of layer li. Where JAX's dynamic_update_slice would clamp
+    the start (and silently overwrite the last columns), this raises."""
+    s, c = new.shape[1], cache.shape[-1]
+    if col < 0 or col + s > c:
+        raise ValueError(f"cache write at columns [{col}, {col + s}) outside cache length {c}")
+    cache[li, :, :, col : col + s] = new.transpose(1, 2)
+
+
+def _cross_attention(h, blk: Block, xk, xv, n_head: int, compute_dtype, cross_group: int = 1):
+    """Cross-attention over transposed K/V [B/G, HD, Sx]; ``cross_group`` G
+    consecutive query lanes share one K/V lane. h: normalized input
+    [B, S, d]. Returns [B, S, d] f32."""
+    b, s, d = h.shape
+    q = dense(h, blk.xq_w, blk.xq_b).to(compute_dtype)              # [B, S, HD]
+    if s == 1:
+        out = decode_attention_hd(q.reshape(b, d, 1), xk, xv, n_head, kv_group=cross_group)
+        return out.reshape(b, 1, d)
+    dh = d // n_head
+    sx = xk.shape[-1]
+    u = b // cross_group
+    # grouped lanes fold into the row axis: cross-attention has no
+    # positional mask, so beams and positions are interchangeable rows
+    q4 = q.reshape(u, cross_group * s, n_head, dh).float()
+    k4 = xk.reshape(u, n_head, dh, sx).float()
+    v4 = xv.reshape(u, n_head, dh, sx).float()
+    scores = torch.einsum("bthd,bhds->bhts", q4, k4)
+    p = torch.softmax(scores, dim=-1).to(compute_dtype).float()
+    out = torch.einsum("bhts,bhds->bthd", p, v4)
+    return out.reshape(b, s, d)
+
+
+def _self_attention(q, k_cache, v_cache, write_pos: int, attn_start, valid_len,
+                    n_head: int, compute_dtype):
+    """Masked self-attention over the transposed cache [B, HD, C].
+    q [B,S,H,Dh]; queries sit at cache columns write_pos..write_pos+S-1;
+    lane b attends keys [attn_start_b, query column]. Returns [B,S,d] f32."""
+    b, s, h, dh = q.shape
+    d = h * dh
+    cache_len = k_cache.shape[-1]
+    if s == 1:
+        out = decode_attention_hd(q.reshape(b, d, 1), k_cache, v_cache, n_head,
+                                  valid_len=valid_len, start=attn_start)
+        return out.reshape(b, 1, d)
+    k4 = k_cache.reshape(b, h, dh, cache_len).float()
+    v4 = v_cache.reshape(b, h, dh, cache_len).float()
+    scores = torch.einsum("bthd,bhds->bhts", q.float(), k4)
+    key_idx = torch.arange(cache_len, device=q.device)[None, None, None, :]
+    q_pos = (write_pos + torch.arange(s, device=q.device))[None, None, :, None]
+    lo = attn_start[:, None, None, None]
+    # -1e30 (not -inf): fully-masked pad query rows (q_pos < attn_start)
+    # softmax to a harmless uniform instead of NaN
+    keep = (key_idx <= q_pos) & (key_idx >= lo)
+    scores = scores.masked_fill(~keep, -1e30)
+    p = torch.softmax(scores, dim=-1).to(compute_dtype).float()
+    out = torch.einsum("bhts,bhds->bthd", p, v4)
+    return out.reshape(b, s, d)
+
+
+def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos: int, attn_start, valid_len,
+                   xk, xv, n_head: int, compute_dtype, cross_group: int = 1):
+    """One decoder block; writes layer li's new K/V columns in place.
+    x [B,S,d]; xk/xv [B/G,HD,Sx]. Returns x."""
+    b, s, d = x.shape
+
+    h = layer_norm(x, blk.attn_ln_w, blk.attn_ln_b).to(compute_dtype)
+    q, k_new, v_new = qkv_proj(h, blk.qkv_w, blk.qkv_b, n_head, dtype=compute_dtype)
+    _cache_write(kv.k, li, k_new.reshape(b, s, d).to(kv.k.dtype), write_pos)
+    _cache_write(kv.v, li, v_new.reshape(b, s, d).to(kv.v.dtype), write_pos)
+    att = _self_attention(q, kv.k[li], kv.v[li], write_pos, attn_start, valid_len,
+                          n_head, compute_dtype)
+    x = x + dense(att.to(compute_dtype), blk.o_w, blk.o_b).to(compute_dtype)
+
+    h = layer_norm(x, blk.x_ln_w, blk.x_ln_b).to(compute_dtype)
+    att = _cross_attention(h, blk, xk, xv, n_head, compute_dtype, cross_group)
+    x = x + dense(att.to(compute_dtype), blk.xo_w, blk.xo_b).to(compute_dtype)
+
+    h = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b).to(compute_dtype)
+    h = gelu(dense(h, blk.fc1_w, blk.fc1_b)).to(compute_dtype)
+    return x + dense(h, blk.fc2_w, blk.fc2_b).to(compute_dtype)
+
+
+def decode_step(
+    params: WhisperParams,
+    dims: ModelDims,
+    tokens: torch.Tensor,        # [B, S] int (left-aligned if padded)
+    pos0: torch.Tensor,          # [B] int32: REAL position of tokens[:, 0]
+    self_kv: SelfKV,             # [L, B, HD, C] x2, written in place
+    cross_kv,                    # (k, v) [L, B/G, HD, Sx] x2
+    write_pos: int = 0,          # cache column of tokens[:, 0]
+    attn_start: torch.Tensor | None = None,  # [B] int32 first valid cache column
+    compute_dtype: torch.dtype = torch.bfloat16,
+    last_only: bool = True,
+    cross_group: int = 1,
+):
+    """Run the decoder on S tokens at cache columns write_pos..write_pos+S-1.
+
+    ``pos0`` is the real (unpadded) position used for positional embeddings;
+    for a left-padded prompt of true length n in a [B, P] buffer it is n - P
+    (pad rows clamp to position 0: their outputs are masked garbage).
+    Returns (logits, self_kv): logits [B, n_vocab] f32 when ``last_only``,
+    else [B, S, n_vocab]; self_kv is the same cache, updated in place.
+    """
+    dec = params.dec
+    b, s = tokens.shape
+    device = tokens.device
+    write_pos = int(write_pos)
+    if attn_start is None:
+        attn_start = torch.zeros((b,), dtype=torch.int32, device=device)
+    # single-token steps: keys < write_pos + 1, one [B] vector for all layers
+    valid_len = (torch.full((b,), write_pos + 1, dtype=torch.int32, device=device)
+                 if s == 1 else None)
+
+    n_ctx = dec.pos.shape[0]
+    pos_idx = (pos0.long()[:, None] + torch.arange(s, device=device)[None, :]).clamp(0, n_ctx - 1)
+    x = (dec.tok[tokens.long()] + dec.pos[pos_idx]).to(compute_dtype)
+
+    for li, blk in enumerate(dec.blocks):
+        x = _decoder_block(x, blk, self_kv, li, write_pos, attn_start, valid_len,
+                           cross_kv[0][li], cross_kv[1][li], dims.n_text_head,
+                           compute_dtype, cross_group)
+
+    x = layer_norm(x, dec.ln_w, dec.ln_b)        # [B, S, d] f32
+    if last_only:
+        x = x[:, -1]
+    logits = dense(x.to(compute_dtype), dec.tok.T.to(compute_dtype))
+    return logits, self_kv

@@ -1,0 +1,103 @@
+"""Audio encoder: conv stem + GELU + positional add, N pre-LN transformer
+blocks, final layernorm, and the cross-attention K/V precompute.
+
+Counterpart of ``whisper_tpu.model.encoder``:
+  - conv stem: conv1d(k=3,s=1,p=1) -> GELU -> conv1d(k=3,s=2,p=1) -> GELU ->
+    + positional embedding, each conv as unfold + one GEMM
+  - block: x += attn(ln(x)); x += mlp(ln(x)) with GELU MLP; the attention is
+    the fused kernel (``kernels.attention.flash_attention``)
+  - after ln_post, cross-attention K (pre-scaled by (d/h)^-0.25, folded
+    into ``xk_w`` at load) and V for ALL decoder layers, stored transposed
+    as [L, B, H*Dh, T] so decode steps stream [Dh, T] rows
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from whisper_tpu_torch.hparams import ModelDims
+from whisper_tpu_torch.kernels.attention import flash_attention
+from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, merge_heads, qkv_proj
+from whisper_tpu_torch.model.params import Block, WhisperParams
+
+
+def _unfold3(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """k=3, pad=1 temporal unfold: [B, T, C] -> [B, T//stride, 3C]
+    (tap-major concat matching the [3, in, out] kernel reshape)."""
+    xp = F.pad(x, (0, 0, 1, 1))
+    t = x.shape[1]
+    t_out = t // stride
+    taps = [xp[:, k : k + t : stride][:, :t_out] for k in range(3)]
+    return torch.cat(taps, dim=-1)
+
+
+def _conv_stem(enc, mel: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """mel [B, n_mels, 2*T] -> f32 [B, T, d].
+
+    The convs stay GEMMs ([B,T,3C] @ [3C,d]) rather than ``F.conv1d``, so
+    cuDNN's TF32 default for f32 convolutions never applies."""
+    x = mel.to(compute_dtype).transpose(1, 2)                  # [B, 2T, n_mels]
+    w1 = enc.conv1_w.reshape(-1, enc.conv1_w.shape[-1])        # [3*in, d]
+    y = dense(_unfold3(x, 1), w1.to(compute_dtype), enc.conv1_b)
+    x = gelu(y).to(compute_dtype)                              # [B, 2T, d]
+    w2 = enc.conv2_w.reshape(-1, enc.conv2_w.shape[-1])
+    y = dense(_unfold3(x, 2), w2.to(compute_dtype), enc.conv2_b)
+    return gelu(y)
+
+
+def _encoder_block(x: torch.Tensor, blk: Block, n_head: int, compute_dtype: torch.dtype) -> torch.Tensor:
+    """One pre-LN encoder block. x: [B, T, d] compute_dtype."""
+    h = layer_norm(x, blk.attn_ln_w, blk.attn_ln_b).to(compute_dtype)
+    # q, k, v: strided views of one [B, T, H, 3, Dh] tensor, read in place
+    q, k, v = qkv_proj(h, blk.qkv_w, blk.qkv_b, n_head, dtype=compute_dtype)
+    att = merge_heads(flash_attention(q, k, v)).to(compute_dtype)
+    x = x + dense(att, blk.o_w, blk.o_b).to(compute_dtype)
+
+    h = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b).to(compute_dtype)
+    h = gelu(dense(h, blk.fc1_w, blk.fc1_b)).to(compute_dtype)
+    return x + dense(h, blk.fc2_w, blk.fc2_b).to(compute_dtype)
+
+
+def encode(
+    params: WhisperParams,
+    dims: ModelDims,
+    mel: torch.Tensor,                 # [B, n_mels, 2*audio_ctx]
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Full encoder forward -> audio features [B, audio_ctx, d] (f32)."""
+    enc = params.enc
+    x = _conv_stem(enc, mel, compute_dtype)
+    t = x.shape[1]
+    x = (x + enc.pos[:t]).to(compute_dtype)
+    for blk in enc.blocks:
+        x = _encoder_block(x, blk, dims.n_audio_head, compute_dtype)
+    return layer_norm(x, enc.ln_post_w, enc.ln_post_b)
+
+
+class CrossKV(NamedTuple):
+    """Per-window cross-attention K/V for all decoder layers."""
+
+    k: torch.Tensor                  # [L, B, HD, T]
+    v: torch.Tensor
+
+
+def precompute_cross_kv(
+    params: WhisperParams,
+    dims: ModelDims,
+    audio_features: torch.Tensor,      # [B, T, d] f32 (encode output)
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> CrossKV:
+    """Cross-attention K/V for every decoder layer, K pre-scaled, stored
+    TRANSPOSED (features-major) [L, B, H*Dh, T] in compute_dtype."""
+    xf = audio_features.to(compute_dtype)
+    b, t, d = xf.shape
+    blocks = params.dec.blocks
+    k = torch.empty((len(blocks), b, d, t), dtype=compute_dtype, device=xf.device)
+    v = torch.empty_like(k)
+    for li, blk in enumerate(blocks):
+        k[li] = dense(xf, blk.xk_w).to(compute_dtype).transpose(1, 2)
+        v[li] = dense(xf, blk.xv_w, blk.xv_b).to(compute_dtype).transpose(1, 2)
+    return CrossKV(k, v)
