@@ -11,24 +11,35 @@ result line:
   1. card       name and power limit (nvidia-smi), torch and CUDA versions
   2. build      nvcc builds every kernel from whisper_tpu_torch/csrc/, one
                 process per source, all at once
-  3. kernels    each CUDA kernel against its plain PyTorch version on bf16
-                inputs at the main path's large-v2 shapes, with its time, the
+  3. kernels    each CUDA kernel against its plain PyTorch version at the main
+                path's large-v2 shapes (bf16 inputs; K2 also on int8 K/V with
+                column scales, the serving tier's caches), with its time, the
                 plain version's, one PyTorch library call's (a yardstick the
-                port never calls) and the bound (least time the card could
-                take: bytes over 3.35 TB/s or operations over 989 TFLOP/s)
+                port never calls; none takes int8 K/V with scales) and the
+                bound (least time the card could take: bytes over 3.35 TB/s
+                or operations over 989 TFLOP/s)
   4. golden     a small scripted checkpoint (head dim 64, so it runs the
                 kernels) through load_model -> run_full on the card must give
-                its known transcript; a small random model's encoder on the
-                card must agree with the CPU path
+                its known transcript, on the bf16 tier and on the serving
+                tier (DtypePolicy.serving() weights, WhisperRuntime(kv_int8=
+                True)), and the same on the CPU; a small random model's
+                encoder on the card must agree with the CPU path
   5. main path  a synthetic large-v2 GGML checkpoint (full width and depth,
-                f16 weights from a seeded generator) -> load_model ->
-                Context.run_full on a seeded 3 s clip; then the runtime's
+                f16 weights from a seeded generator), once per tier: the bf16
+                tier (load_model), then the serving tier (load_model with
+                DtypePolicy.serving(), runtime with kv_int8=True). Each runs
+                Context.run_full on a seeded 3 s clip, then the runtime's
                 encode_window + run_window(force_steps=128) at B=1 and B=8.
                 Every kernel counter is set to 0 right before each of these
                 and must show the launches the path implies (32 encoder
-                layers per encode, 2 x 32 decoder layers per token step)
-                After each timed run, one profiled run splits the card's time
-                by kernel group and gives the idle share
+                layers per encode, 2 x 32 decoder layers per token step, all
+                of them on int8 K/V in the serving tier). After each timed
+                run, one profiled run splits the card's time by kernel group
+                and gives the idle share. The serving tier also checks the
+                bytes it stores (int8 cross K/V, decoder weights, token
+                table) and profiles the two passes XLA fused and eager
+                PyTorch does not: int8 -> bf16 weight conversion and the
+                self cache's quantize-and-write
   6. report     one JSON line of every kernel's numbers, then the result line
                 {"ok": true, "device": {...}}
 
@@ -296,10 +307,13 @@ def flash_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
     )
 
 
-def decode_case(b: int, s: int, group: int = 1, masked: bool = False,
-                h: int = 20, dh: int = 64) -> dict:
-    """K2 at the decoder's shapes, bf16: cross (S=1500, whole cache) or self
-    (S=448, per-lane [start, valid_len) as in a window after prompt ingest)."""
+def decode_case(b: int, s: int, group: int = 1, masked: bool = False, int8: bool = False,
+                empty: bool = False, h: int = 20, dh: int = 64) -> dict:
+    """K2 at the decoder's shapes: cross (S=1500, whole cache) or self
+    (S=448, per-lane [start, valid_len) as in a window after prompt ingest),
+    with a bf16 query on bf16 K/V, or on int8 K/V with f32 column scales
+    that the port's quantize_cols made from seeded bf16 tensors (the serving
+    tier's caches). ``empty`` gives lanes 1 and 2 of 4 an empty interval."""
     import torch
     import torch.nn.functional as F
 
@@ -307,61 +321,83 @@ def decode_case(b: int, s: int, group: int = 1, masked: bool = False,
         decode_attention_hd,
         decode_attention_hd_ref,
     )
+    from whisper_tpu_torch.kernels.quant import quantize_cols
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     hd, u = h * dh, b // group
-    isz = 2
-    set_bytes = 2 * u * hd * s * isz
-    n = _n_sets(set_bytes)
-    sets = [((torch.randn((b, hd, 1), generator=g, device="cuda") * 0.5).bfloat16(),
-             (torch.randn((u, hd, s), generator=g, device="cuda") * 0.5).bfloat16(),
-             torch.randn((u, hd, s), generator=g, device="cuda").bfloat16()) for _ in range(n)]
-    if masked:
+    isz = 1 if int8 else 2                       # bytes per K/V element
+    n = _n_sets(2 * u * hd * s * isz)
+    sets = []
+    for _ in range(n):
+        q = (torch.randn((b, hd, 1), generator=g, device="cuda") * 0.5).bfloat16()
+        kt = (torch.randn((u, hd, s), generator=g, device="cuda") * 0.5).bfloat16()
+        vt = torch.randn((u, hd, s), generator=g, device="cuda").bfloat16()
+        if int8:
+            (kt, ks), (vt, vs) = quantize_cols(kt, axis=-2), quantize_cols(vt, axis=-2)
+            sets.append((q, kt, vt, dict(k_scale=ks, v_scale=vs)))
+        else:
+            sets.append((q, kt, vt, {}))
+    if empty:
+        start = torch.tensor([0, 300, 100, 0], dtype=torch.int32, device="cuda")
+        valid = torch.tensor([s, 300, 50, s - 100], dtype=torch.int32, device="cuda")
+    elif masked:
         # lanes at different prompt depths, 100 steps into a window
         start = torch.arange(b, dtype=torch.int32, device="cuda") * 7 % 40
         valid = torch.full((b,), 228 + 100, dtype=torch.int32, device="cuda")
     else:
         start = valid = None
     kw = dict(valid_len=valid, start=start, kv_group=group)
-    q, kt, vt = sets[0]
-    got = decode_attention_hd(q, kt, vt, h, **kw)
-    want = decode_attention_hd_ref(q, kt, vt, h, **kw)
+
+    def call(fn, i):
+        q, kt, vt, scales = sets[i]
+        return fn(q, kt, vt, h, **kw, **scales)
+
+    got, want = call(decode_attention_hd, 0), call(decode_attention_hd_ref, 0)
     torch.cuda.synchronize()
     check(got.shape == (b, hd, 1) and got.dtype == torch.float32, "decode_attention_hd shape/dtype")
     check(bool(torch.isfinite(got).all()), "decode_attention_hd output not finite")
     err = (got - want).abs().max().item()
 
     mask = None
-    if masked:
+    if start is not None:
         col = torch.arange(s, device="cuda")
         mask = ((col >= start[:, None]) & (col < valid[:, None]))[:, None, None, :]
 
     def lib(i):
         # the G lanes that share a K/V lane fold into SDPA's query-row axis
         # (no mask on the grouped cross-attention), as model/decoder.py does
-        q, kt, vt = sets[i]
+        q, kt, vt, _ = sets[i]
         k4 = kt.view(u, h, dh, s).transpose(-1, -2)
         v4 = vt.view(u, h, dh, s).transpose(-1, -2)
         q4 = q.view(u, group, h, dh).transpose(1, 2)
         return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=1.0)
 
-    keys = [s] * b if not masked else (valid - start).tolist()
-    kv_keys = s * u if not masked else sum(keys)   # masked cases here have group 1
-    bytes_ = b * hd * isz + 2 * kv_keys * hd * isz + b * hd * 4
-    flops = 4 * hd * sum(keys)
+    # What this run's data needs: K and V of the attended keys; a lane that
+    # attends none reads all of V (its mean) and no K. Cases with start or
+    # valid_len have group 1, so query lanes and K/V lanes are the same.
+    if start is None:
+        k_keys = v_keys = s * u
+        q_keys = [s] * b
+    else:
+        q_keys = (valid - start).clamp_min(0).tolist()
+        k_keys = sum(q_keys)
+        v_keys = sum(n_k or s for n_k in q_keys)
+    kv_bytes = (k_keys + v_keys) * hd * isz + ((k_keys + v_keys) * 4 if int8 else 0)
+    bytes_ = b * hd * 2 + kv_bytes + b * hd * 4     # bf16 q in, f32 out
+    flops = 2 * hd * (sum(q_keys) + sum(n_k or s for n_k in q_keys))
     bound_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     bound_flops = flops / BF16_FLOPS * 1e3
-    kind = "self" if masked else "cross"
+    kind = "self, empty lanes" if empty else "self" if masked else "cross"
     return dict(
-        case=f"{kind} B={b} S={s} G={group} H={h} Dh={dh} bf16",
+        case=f"{kind} B={b} S={s} G={group} H={h} Dh={dh} " + ("int8 K/V, bf16 q" if int8 else "bf16"),
         max_abs_err=err, tol=2e-3,
-        tol_reason="f32 output from identical bf16 inputs: only the f32 summation order "
-                   "(split-S partials, shuffle trees) and __expf differ",
-        ms=event_ms(lambda i: decode_attention_hd(*sets[i], h, **kw), n, 200),
-        device_ms=device_ms(lambda i: decode_attention_hd(*sets[i], h, **kw), n, 50,
-                            "decode_attention"),
-        plain_ms=event_ms(lambda i: decode_attention_hd_ref(*sets[i], h, **kw), n, 20),
-        library_ms=event_ms(lib, n, 50),
+        tol_reason=f"f32 output from identical {'int8 codes and scales' if int8 else 'bf16 inputs'}: "
+                   "only the f32 summation order (split-S partials, shuffle trees) and __expf differ",
+        ms=event_ms(lambda i: call(decode_attention_hd, i), n, 200),
+        device_ms=device_ms(lambda i: call(decode_attention_hd, i), n, 50, "decode_attention"),
+        plain_ms=event_ms(lambda i: call(decode_attention_hd_ref, i), n, 20),
+        # no single PyTorch call takes int8 K/V with per-column scales
+        library_ms=None if int8 else event_ms(lib, n, 50),
         bound_ms=max(bound_bytes, bound_flops),
         bound_by="bytes" if bound_bytes >= bound_flops else "operations",
     )
@@ -390,13 +426,30 @@ def counters():
 
 
 def reset_counts() -> None:
-    for k in counters():
-        k.launches = 0
-
-
-def read_counts() -> tuple[int, int]:
     k1, k2 = counters()
-    return k1.launches, k2.launches
+    k1.launches = k2.launches = k2.launches_int8 = 0
+
+
+def read_counts() -> tuple[int, int, int]:
+    """K1 launches, K2 launches, and of those the K2 launches on int8 K/V."""
+    k1, k2 = counters()
+    return k1.launches, k2.launches, k2.launches_int8
+
+
+def serving_model(path: str, device: str):
+    """The serving tier through the user's entry points: int8 decoder
+    weights from load_model(policy=DtypePolicy.serving()), and the model's
+    runtime swapped for one with int8 K/V caches (``Model`` keeps the JAX
+    package's interface, whose runtime takes the cache tier separately)."""
+    from whisper_tpu_torch.api.model import load_model
+    from whisper_tpu_torch.model.params import DtypePolicy
+    from whisper_tpu_torch.runtime.context import WhisperRuntime
+
+    model = load_model(path, policy=DtypePolicy.serving(), device=device)
+    rt = model.runtime
+    model.runtime = WhisperRuntime(rt.params, rt.dims, rt.ids, compute_dtype=rt.compute_dtype,
+                                   device=rt.device, kv_int8=True)
+    return model
 
 
 def golden_phase(tmp: str) -> None:
@@ -413,15 +466,20 @@ def golden_phase(tmp: str) -> None:
     path = os.path.join(tmp, "scripted.bin")
     write_checkpoint(path, dims, scripted_tensors(dims, script, SEED))
     audio = np.zeros(16_000 * 2, np.float32)
-    for device in ("cuda", "cpu"):
-        reset_counts()
-        res = Model(path, device=device).create_context().run_full(FullParams(language="en"), audio)
-        segs = [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in res.segments]
-        log(f"  scripted transcript on {device}: {segs}")
-        check(segs == [(" hi", 0, 192, script[:5])], f"scripted transcript on {device}")
-        k1, k2 = read_counts()
-        check((k1 > 0 and k2 > 0) if device == "cuda" else (k1 == k2 == 0),
-              f"scripted run on {device} launched K1 {k1} / K2 {k2} times")
+    for tier in ("bf16", "serving"):
+        for device in ("cuda", "cpu"):
+            model = Model(path, device=device) if tier == "bf16" else serving_model(path, device)
+            reset_counts()
+            res = model.create_context().run_full(FullParams(language="en"), audio)
+            segs = [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in res.segments]
+            log(f"  scripted transcript, {tier} tier, on {device}: {segs}")
+            check(segs == [(" hi", 0, 192, script[:5])], f"scripted transcript, {tier}, on {device}")
+            k1, k2, k2_int8 = read_counts()
+            want_int8 = k2 if tier == "serving" else 0
+            check((k1 > 0 and k2 > 0 and k2_int8 == want_int8) if device == "cuda"
+                  else (k1 == k2 == k2_int8 == 0),
+                  f"scripted run, {tier}, on {device}: launched K1 {k1} / K2 {k2} "
+                  f"({k2_int8} on int8 K/V) times")
 
     # a small random model: the card's encoder (kernels) against the CPU path
     path = os.path.join(tmp, "random.bin")
@@ -437,29 +495,23 @@ def golden_phase(tmp: str) -> None:
     check(bool(torch.isfinite(feats["cuda"]).all()) and err < 5e-2, "small encoder card vs CPU")
 
 
-def main_path_phase(tmp: str) -> dict:
+def tier_runs(model, dims, tier: str) -> dict:
+    """One tier on the synthetic large-v2 model: Context.run_full on a
+    seeded 3 s clip, then encode_window + run_window(force_steps=128) at B=1
+    and B=8, each with its kernel counts, then a profiled run of each.
+    Every tier gets the same seeded inputs."""
     import torch
 
-    from whisper_tpu_torch.api.model import load_model
     from whisper_tpu_torch.api.params import FullParams
-    from whisper_tpu_torch.hparams import KNOWN_MODELS
 
-    dims = KNOWN_MODELS["large-v2"]
     n_enc, n_dec = dims.n_audio_layer, dims.n_text_layer
+    int8 = model.runtime.kv_int8
     out = {}
 
-    t0 = time.perf_counter()
-    path = os.path.join(tmp, "ggml-large-v2-synthetic.bin")
-    write_checkpoint(path, dims, random_tensors(dims, SEED))
-    log(f"  wrote synthetic large-v2 checkpoint ({os.path.getsize(path) / 1e9:.2f} GB) in "
-        f"{time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    model = load_model(path)
-    torch.cuda.synchronize()
-    os.remove(path)
-    log(f"  load_model on {model.device}: {time.perf_counter() - t0:.1f} s, "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    def check_k2(label, k2, k2_int8, want):
+        check(k2 == want and k2_int8 == (k2 if int8 else 0),
+              f"{tier} {label}: K2 launches {k2} ({k2_int8} on int8 K/V), want {want}"
+              + (", all on int8 K/V" if int8 else ""))
 
     # --- the user's entry point: Context.run_full on a seeded 3 s clip ---
     rng = np.random.default_rng(SEED)
@@ -476,17 +528,17 @@ def main_path_phase(tmp: str) -> dict:
     ctx = model.create_context()
     reset_counts()
     ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), clip))
-    k1, k2 = read_counts()
+    k1, k2, k2_int8 = read_counts()
     model.runtime.run_window = run_window
-    log(f"  run_full (3 s clip): {ms:.1f} ms, {len(steps)} window(s), token steps {steps}, "
-        f"{len(res.segments)} segment(s); launches K1 {k1}, K2 {k2}")
+    log(f"  {tier} run_full (3 s clip): {ms:.1f} ms, {len(steps)} window(s), token steps {steps}, "
+        f"{len(res.segments)} segment(s); launches K1 {k1}, K2 {k2} ({k2_int8} on int8 K/V)")
     check(len(steps) >= 1, "run_full decoded no window")
     check(k1 == n_enc * len(steps), f"K1 launches {k1} != {n_enc} x {len(steps)} encodes")
-    check(k2 == 2 * n_dec * sum(steps), f"K2 launches {k2} != {2 * n_dec} x {sum(steps)} steps")
+    check_k2("run_full", k2, k2_int8, 2 * n_dec * sum(steps))
     for seg in res.segments:
         check(seg.t1 >= seg.t0 >= 0 and all(0 <= t.id < dims.n_vocab for t in seg.tokens),
               "run_full segment out of range")
-    out["run_full"] = dict(ms=ms, windows=len(steps), steps=steps, k1=k1, k2=k2)
+    out["run_full"] = dict(ms=ms, windows=len(steps), steps=steps, k1=k1, k2=k2, k2_int8=k2_int8)
 
     # --- the runtime at B=1 and B=8: encode ms, decode ms per token step ---
     rt = model.runtime
@@ -502,32 +554,155 @@ def main_path_phase(tmp: str) -> dict:
         sync_ms(lambda: rt.encode_window(mel))                                # warm-up
         reset_counts()
         enc_ms, (feats, cross) = sync_ms(lambda: rt.encode_window(mel))
-        k1, _ = read_counts()
+        k1, _, _ = read_counts()
         check(k1 == n_enc, f"B={b}: K1 launches {k1} != {n_enc} per encode")
         check(bool(torch.isfinite(feats).all()) and feats.shape == (b, dims.n_audio_ctx, dims.n_audio_state),
               f"B={b}: encoder output")
         check(tuple(cross.k.shape) == (n_dec, b, dims.n_text_state, dims.n_audio_ctx), f"B={b}: cross K/V")
+        check(cross.k.dtype == (torch.int8 if int8 else rt.compute_dtype), f"B={b}: cross K/V dtype")
 
         sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end, force_steps=8))  # warm-up
         reset_counts()
         dec_ms, win = sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end,
                                                     force_steps=FORCE_STEPS))
-        k1, k2 = read_counts()
+        k1, k2, k2_int8 = read_counts()
         check(int(win.steps) == FORCE_STEPS, f"B={b}: {int(win.steps)} steps")
-        check(k2 == 2 * n_dec * FORCE_STEPS and k1 == 0, f"B={b}: launches K1 {k1}, K2 {k2}")
+        check(k1 == 0, f"B={b}: K1 launched {k1} times in decode")
+        check_k2(f"B={b} decode", k2, k2_int8, 2 * n_dec * FORCE_STEPS)
         tok = win.tokens.cpu()
-        check(bool(((tok >= 0) & (tok < dims.n_vocab)).all()) and bool(torch.isfinite(win.p).all()),
-              f"B={b}: window tokens/probabilities")
-        log(f"  B={b}: encode {enc_ms:.2f} ms/window; decode {dec_ms / FORCE_STEPS:.3f} ms/token step "
-            f"({FORCE_STEPS} steps, {dec_ms:.1f} ms incl. prompt ingest); launches K2 {k2}")
+        check(bool(((tok >= 0) & (tok < dims.n_vocab)).all()) and bool(torch.isfinite(win.p).all())
+              and bool(((win.p >= 0) & (win.p <= 1)).all()), f"B={b}: window tokens/probabilities")
+        log(f"  {tier} B={b}: encode {enc_ms:.2f} ms/window; decode {dec_ms / FORCE_STEPS:.3f} ms/token "
+            f"step ({FORCE_STEPS} steps, {dec_ms:.1f} ms incl. prompt ingest); launches K2 {k2} "
+            f"({k2_int8} on int8 K/V)")
         bd_enc = breakdown(lambda: rt.encode_window(mel))
-        show_breakdown(f"B={b} encode, per window", bd_enc)
+        show_breakdown(f"{tier} B={b} encode, per window", bd_enc)
         bd_dec = breakdown(lambda: rt.run_window(prompt, plen, cross, seek, seek_end,
                                                  force_steps=PROFILE_STEPS))
-        show_breakdown(f"B={b} decode, per token step ({PROFILE_STEPS} steps)", bd_dec, PROFILE_STEPS)
+        show_breakdown(f"{tier} B={b} decode, per token step ({PROFILE_STEPS} steps)", bd_dec,
+                       PROFILE_STEPS)
         out[f"B{b}"] = dict(encode_ms=enc_ms, decode_ms_per_step=dec_ms / FORCE_STEPS, k2=k2,
-                            encode_breakdown=bd_enc, decode_breakdown=bd_dec,
+                            k2_int8=k2_int8, encode_breakdown=bd_enc, decode_breakdown=bd_dec,
                             decode_breakdown_steps=PROFILE_STEPS)
+    out["cross_kv_bytes_B8"] = cross.k.nbytes + cross.v.nbytes
+    out["cross_scale_bytes_B8"] = (cross.k_s.nbytes + cross.v_s.nbytes) if int8 else 0
+    return out
+
+
+def stored_bytes(params) -> dict:
+    """Bytes of the decoder's _QUANT_KEYS weights (and their scales) and of
+    the token table (and its scales)."""
+    from whisper_tpu_torch.model.params import _QUANT_KEYS
+
+    blocks, dec = params.dec.blocks, params.dec
+
+    def nbytes(key, where):
+        return sum(getattr(m, key).nbytes for m in where if hasattr(m, key))
+
+    return dict(weights=sum(nbytes(k, blocks) for k in _QUANT_KEYS),
+                weight_scales=sum(nbytes(k + "_s", blocks) for k in _QUANT_KEYS),
+                tok=dec.tok.nbytes, tok_scales=nbytes("tok_s", [dec]))
+
+
+def int8_pass_costs(params, dims, compute_dtype) -> dict:
+    """Profile, on the card, one decode step's worth of the two passes that
+    XLA fused into its neighbours and eager PyTorch runs apart: converting
+    every int8 decoder weight and the token table to bf16 (model/layers.py
+    dense, model/decoder.py logits), and quantizing and writing each
+    layer's new K and V cache column at B=8 (model/decoder.py)."""
+    import torch
+
+    from whisper_tpu_torch.kernels.quant import quantize_cols
+    from whisper_tpu_torch.model.decoder import _cache_write, init_self_kv
+    from whisper_tpu_torch.model.params import _QUANT_KEYS
+
+    weights = [getattr(b, k) for b in params.dec.blocks for k in sorted(_QUANT_KEYS)]
+    tok = params.dec.tok
+
+    def convert():
+        for w in weights:
+            w.to(compute_dtype)
+        tok.T.to(compute_dtype)
+
+    b = 8
+    kv = init_self_kv(dims, b, device="cuda", quant=True)
+    new = torch.randn((b, 1, dims.n_text_state), device="cuda")
+
+    def quantize_and_write():
+        for li in range(dims.n_text_layer):
+            for cache, scales in ((kv.k, kv.k_s), (kv.v, kv.v_s)):
+                codes, sc = quantize_cols(new, axis=-1)
+                _cache_write(cache, li, codes, 100)
+                _cache_write(scales, li, sc, 100)
+
+    out = {}
+    for name, fn, n_bytes in (
+        ("int8->bf16 weight conversion", convert, 3 * (sum(w.numel() for w in weights) + tok.numel())),
+        ("cache quantize-and-write, B=8", quantize_and_write, None),
+    ):
+        fn()                                                                   # warm-up
+        bd = breakdown(fn)
+        show_breakdown(f"serving, {name}, per decode step", bd)
+        out[name] = dict(busy_ms=bd["busy_ms"], wall_ms=bd["wall_ms"], launches=bd["launches"],
+                         bytes=n_bytes)
+        if n_bytes:
+            log(f"    {n_bytes / 1e9:.3f} GB moved (1 B read + 2 B written per weight): "
+                f"{n_bytes / bd['busy_ms'] / 1e6:.0f} GB/s of device time")
+    return out
+
+
+def main_path_phase(tmp: str) -> dict:
+    import gc
+
+    import torch
+
+    from whisper_tpu_torch.api.model import load_model
+    from whisper_tpu_torch.hparams import KNOWN_MODELS
+
+    dims = KNOWN_MODELS["large-v2"]
+    n_dec, d, t = dims.n_text_layer, dims.n_text_state, dims.n_audio_ctx
+    out = {}
+
+    t0 = time.perf_counter()
+    path = os.path.join(tmp, "ggml-large-v2-synthetic.bin")
+    write_checkpoint(path, dims, random_tensors(dims, SEED))
+    log(f"  wrote synthetic large-v2 checkpoint ({os.path.getsize(path) / 1e9:.2f} GB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    stored = {}
+    for tier in ("bf16", "serving"):
+        t0 = time.perf_counter()
+        model = load_model(path) if tier == "bf16" else serving_model(path, "cuda")
+        torch.cuda.synchronize()
+        log(f"  [{tier} tier] load_model on {model.device}: {time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+        out[tier] = tier_runs(model, dims, tier)
+        stored[tier] = dict(stored_bytes(model.runtime.params),
+                            cross_kv_B8=out[tier]["cross_kv_bytes_B8"],
+                            cross_scales_B8=out[tier]["cross_scale_bytes_B8"])
+        if tier == "serving":
+            out["serving_passes"] = int8_pass_costs(model.runtime.params, dims,
+                                                    model.runtime.compute_dtype)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    os.remove(path)
+
+    # stored bytes, from the shapes: cross K/V [L, 8, HD, T] x2, the decoder's
+    # _QUANT_KEYS weights (14 d^2 per layer, 11 d output columns, each with
+    # one f32 scale) and the token table [V, d] (one f32 scale per row)
+    n_cross, n_w, n_tok = 2 * n_dec * 8 * d * t, 14 * d * d * n_dec, dims.n_vocab * d
+    want = dict(
+        bf16=dict(cross_kv_B8=2 * n_cross, cross_scales_B8=0, weights=2 * n_w, weight_scales=0,
+                  tok=2 * n_tok, tok_scales=0),
+        serving=dict(cross_kv_B8=n_cross, cross_scales_B8=2 * n_dec * 8 * t * 4, weights=n_w,
+                     weight_scales=4 * 11 * d * n_dec, tok=n_tok,
+                     tok_scales=4 * dims.n_vocab),
+    )
+    for tier in stored:
+        log(f"  [{tier} tier] stored bytes: " + ", ".join(f"{k} {v:,}" for k, v in stored[tier].items()))
+        check(stored[tier] == want[tier], f"{tier} stored bytes {stored[tier]} != {want[tier]}")
+    out["stored_bytes"] = stored
     return out
 
 
@@ -559,36 +734,55 @@ def main() -> int:
         log(f"  {name}: {i['seconds']:.1f} s; " + " | ".join(notes))
 
     # phase 3: kernels vs plain versions
+    phase_s = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     log("[kernels]")
     k1_cases = [flash_case(1, 1500), flash_case(8, 1500)]
-    k2_cases = [decode_case(1, 1500), decode_case(8, 1500), decode_case(40, 1500, group=5),
-                decode_case(8, 448, masked=True)]
+    k2_cases = [decode_case(1, 1500, int8=int8) for int8 in (False, True)]
+    k2_cases += [decode_case(8, 1500, int8=int8) for int8 in (False, True)]
+    k2_cases += [decode_case(40, 1500, group=5, int8=int8) for int8 in (False, True)]
+    k2_cases += [decode_case(8, 448, masked=True, int8=int8) for int8 in (False, True)]
+    k2_cases += [decode_case(4, 448, int8=True, empty=True)]
     for c in k1_cases:
         show_case("flash_attention", c)
     for c in k2_cases:
         show_case("decode_attention_hd", c)
 
+    phase_s["kernels"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
         log("[golden]")
         golden_phase(tmp)
+        phase_s["golden"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         log("[main path] synthetic large-v2")
         main = main_path_phase(tmp)
+        phase_s["main path"] = time.perf_counter() - t0
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    def entry(name, source, replaces, cases, launches):
+    def entry(name, source, replaces, cases, runs, key):
+        """``launches``: the kernel's count over the main path's run_full
+        calls, one per tier, each counted from 0."""
         head = cases[0]
-        return dict(name=name, route="cuda", source=source, replaces=replaces, launches=launches,
+        by_path = {f"{tier} run_full": main[tier]["run_full"][key] for tier in runs}
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=sum(by_path.values()), launches_by_path=by_path,
                     max_abs_err=max(c["max_abs_err"] for c in cases), ms=head["ms"],
                     plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                     library_ms=head["library_ms"], device_ms=head["device_ms"], shape=head["case"],
                     cases=cases)
 
+    tiers = ("bf16", "serving")
+    k2 = entry("decode_attention_hd", "whisper_tpu_torch/csrc/decode_attention.cu",
+               "whisper_tpu/kernels/decode_attention.py:187", k2_cases, tiers, "k2")
+    k2["launches_int8"] = main["serving"]["run_full"]["k2_int8"]
     kernels = [
         entry("flash_attention", "whisper_tpu_torch/csrc/flash_attention.cu",
-              "whisper_tpu/kernels/attention.py:90", k1_cases, main["run_full"]["k1"]),
-        entry("decode_attention_hd", "whisper_tpu_torch/csrc/decode_attention.cu",
-              "whisper_tpu/kernels/decode_attention.py:187", k2_cases, main["run_full"]["k2"]),
+              "whisper_tpu/kernels/attention.py:90", k1_cases, tiers, "k1"),
+        k2,
     ]
-    print(json.dumps({"kernels": kernels, "main_path": main, "card": smi}), flush=True)
+    print(json.dumps({"kernels": kernels, "main_path": main, "card": smi, "phase_s": phase_s}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -128,10 +128,22 @@ def test_decode_attention_ref_empty_lane_matches_pallas():
 
 
 def test_decode_attention_int8_scales_raise():
+    """int8 K/V and their column scales come together, f32 [B/G, 1, S];
+    the wrapper and the plain version refuse anything else, on any device."""
     from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
+    from whisper_tpu_torch.kernels.quant import quantize_cols
 
     q, kt, vt = (torch.from_numpy(x) for x in _decode_inputs(0, 1, 1, 2, 64, 8))
-    sc = torch.ones((1, 1, 8))
-    with pytest.raises(NotImplementedError, match="int8"):
-        decode_attention_hd(q, kt, vt, 2, k_scale=sc, v_scale=sc)
-
+    (k8, ks), (v8, vs) = quantize_cols(kt, axis=-2), quantize_cols(vt, axis=-2)
+    assert decode_attention_hd(q, k8, v8, 2, k_scale=ks, v_scale=vs).shape == (1, 128, 1)
+    bad = [
+        (dict(k_t=kt, v_t=vt, k_scale=ks, v_scale=vs), "need int8"),     # scales without int8
+        (dict(k_t=k8, v_t=v8), "need k_scale"),                          # int8 without scales
+        (dict(k_t=k8, v_t=v8, k_scale=ks), "go together"),
+        (dict(k_t=k8, v_t=vt, k_scale=ks, v_scale=vs), "differ"),
+        (dict(k_t=k8, v_t=v8, k_scale=ks.double(), v_scale=vs), "must be f32"),
+        (dict(k_t=k8, v_t=v8, k_scale=ks, v_scale=vs[..., :4]), r"must be f32 \[1, 1, 8\]"),
+    ]
+    for kw, match in bad:
+        with pytest.raises(ValueError, match=match):
+            decode_attention_hd(q, kw.pop("k_t"), kw.pop("v_t"), 2, **kw)

@@ -27,6 +27,7 @@ SLICE_MODULES = [
     "whisper_tpu_torch.model.decoder",
     "whisper_tpu_torch.kernels.attention",
     "whisper_tpu_torch.kernels.decode_attention",
+    "whisper_tpu_torch.kernels.quant",
     "whisper_tpu_torch.runtime.sampler",
     "whisper_tpu_torch.runtime.decode",
     "whisper_tpu_torch.runtime.context",
@@ -116,8 +117,26 @@ def test_ggml_writer_bytes_match_jax_package():
     assert bufs[0] == bufs[1]
 
 
-def test_weights_int8_policy_raises():
-    from whisper_tpu_torch.model.params import DtypePolicy, params_from_numpy
+def test_weights_int8_policy_raises(tmp_path):
+    """The serving tier's entry points default to the card like the rest:
+    without one, ``DtypePolicy.serving()`` and ``kv_int8`` raise rather than
+    fall back; asked for the CPU, the decoder's weights load as int8."""
+    import torch
 
-    with pytest.raises(NotImplementedError, match="int8"):
-        params_from_numpy({}, "cpu", DtypePolicy(weights_int8=True))
+    from tests.helpers import TINY_TEST_DIMS, make_random_checkpoint
+    from whisper_tpu_torch.api.model import load_model
+    from whisper_tpu_torch.model.params import DtypePolicy
+    from whisper_tpu_torch.runtime.context import WhisperRuntime
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without a CUDA card")
+    path = str(tmp_path / "tiny.bin")
+    make_random_checkpoint(path, TINY_TEST_DIMS, seed=5)
+    with pytest.raises(RuntimeError, match="cuda"):
+        load_model(path, policy=DtypePolicy.serving())
+    with pytest.raises(RuntimeError, match="cuda"):
+        WhisperRuntime(None, None, None, kv_int8=True)
+    params = load_model(path, policy=DtypePolicy.serving(), device="cpu").runtime.params
+    assert params.dec.blocks[0].fc1_w.dtype == params.dec.tok.dtype == torch.int8
+    assert params.dec.blocks[0].fc1_w_s.shape == (1, 4 * TINY_TEST_DIMS.n_text_state)
+    assert params.enc.blocks[0].fc1_w.dtype == torch.bfloat16

@@ -6,13 +6,16 @@
 // keys outside [start_b, valid_len_b) masked, softmax in f32, output
 // sum_s p_s V[:, s] as f32 [B, H*Dh, 1]. Lane b reads K/V lane b / G
 // (kv_group: beams share one cross cache without a copy). K/V are bf16 or
-// f32; the int8 variant with per-column scales belongs to the int8 tier.
+// f32 like q, or int8 with one f32 scale per key column (k_scale, v_scale
+// [B/G, 1, S], the serving tier's caches): the raw q.K dot is multiplied by
+// k_scale[s] before masking, the softmax sum takes the weights p before the
+// V fold, and P.V sums p * v_scale[s] * V8[:, s], as the TPU body does.
 //
 // What bounds it on an H100: bytes. It does 4 flops per K/V element it
 // reads, far below the ~295 flop/byte at which the tensor cores would
 // matter, so the floor is streaming K and V once: at large-v2 cross
 // attention (S = 1500, H*Dh = 1280, bf16) 7.7 MB per lane and layer, about
-// 2.3 us at 3.35 TB/s.
+// 2.3 us at 3.35 TB/s; int8 K/V halve that (3.85 MB with the scales).
 //
 // Design: split-S flash decoding. The TPU kernel walked S-chunks in order on
 // one core, carrying the running max and sum in scratch; Hopper blocks run
@@ -33,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kChunk = 128;  // keys per block = threads per block
@@ -41,6 +46,7 @@ constexpr int kMaxDh = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ float block_max(float v, float* red) {
 #pragma unroll
@@ -66,12 +72,16 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-template <typename T>
+// TQ: the query's type; TKV: the K/V type. int8 K/V read their column
+// scales k_scale/v_scale [B/G, S]; other types ignore them (null).
+template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kChunk)
-decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const int* __restrict__ start,
+decode_attention_split(const TQ* __restrict__ q, const TKV* __restrict__ k,
+                       const TKV* __restrict__ v, const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, const int* __restrict__ start,
                        const int* __restrict__ valid_len, float* __restrict__ part_ml,
                        float* __restrict__ part_o, int HD, int S, int H, int G) {
+  constexpr bool kScaled = std::is_same<TKV, int8_t>::value;
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int n_splits = gridDim.x;
   const int dh = HD / H;
@@ -107,8 +117,10 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
   __shared__ float red[kWarps];
 
   const long long row0 = ((long long)(b / G) * HD + (long long)h * dh) * S;
-  const T* kb = k + row0 + s0;
-  const T* vb = v + row0 + s0;
+  const TKV* kb = k + row0 + s0;
+  const TKV* vb = v + row0 + s0;
+  const long long col0 = (long long)(b / G) * S + s0;  // this chunk's scale columns
+  const bool attended = tid >= j_lo && tid < j_hi;
   for (int d = tid; d < dh; d += kChunk) q_s[d] = to_f32(q[(long long)b * HD + h * dh + d]);
   __syncthreads();
 
@@ -117,22 +129,23 @@ decode_attention_split(const T* __restrict__ q, const T* __restrict__ k,
   float score = -INFINITY;
   if (s0 + tid < S) {
     score = -1e30f;
-    if (!uniform && tid >= j_lo && tid < j_hi) {
+    if (!uniform && attended) {
       float acc = 0.f;
 #pragma unroll 8
       for (int d = 0; d < dh; ++d) acc += q_s[d] * to_f32(kb[(long long)d * S + tid]);
+      if constexpr (kScaled) acc *= k_scale[col0 + tid];
       score = acc;
     }
   }
   const float m = block_max(score, red);  // finite: the chunk holds an attended key
   const float p = __expf(score - m);
-  const float l = block_sum(p, red);
-  p_s[tid] = p;
+  const float l = block_sum(p, red);      // the softmax sum takes p before the V fold
+  p_s[tid] = (kScaled && attended) ? p * v_scale[col0 + tid] : p;
   __syncthreads();
 
   const int warp = tid >> 5, lane = tid & 31;
   for (int d = warp; d < dh; d += kWarps) {
-    const T* vrow = vb + (long long)d * S;
+    const TKV* vrow = vb + (long long)d * S;
     float acc = 0.f;
     for (int j = j_lo + lane; j < j_hi; j += 32) acc += p_s[j] * to_f32(vrow[j]);
 #pragma unroll
@@ -171,26 +184,50 @@ __global__ void decode_attention_combine(const float* __restrict__ part_ml,
 
 extern "C" int wtt_decode_attention_chunk() { return kChunk; }
 
-// q: [B, HD] (HD = H * Dh), k/v: contiguous [B / G, HD, S], both bf16
-// (is_bf16 = 1) or f32 (0); start/valid_len: int32 [B] or null; out: f32
-// [B, HD]; part_ml: f32 [B, H, n_splits, 2] and part_o: f32
-// [B, H, n_splits, Dh] scratch, n_splits = ceil(S / wtt_decode_attention_chunk()).
-// Returns cudaGetLastError() after both launches.
-extern "C" int wtt_decode_attention_hd(int is_bf16, const void* q, const void* k, const void* v,
-                                       const int* start, const int* valid_len, float* out,
-                                       float* part_ml, float* part_o, int B, int HD, int S,
-                                       int H, int G, void* stream) {
+namespace {
+
+template <typename TQ, typename TKV>
+void launch_split(dim3 grid, cudaStream_t st, const void* q, const void* k, const void* v,
+                  const float* k_scale, const float* v_scale, const int* start,
+                  const int* valid_len, float* part_ml, float* part_o, int HD, int S, int H,
+                  int G) {
+  decode_attention_split<TQ, TKV><<<grid, kChunk, 0, st>>>(
+      static_cast<const TQ*>(q), static_cast<const TKV*>(k), static_cast<const TKV*>(v),
+      k_scale, v_scale, start, valid_len, part_ml, part_o, HD, S, H, G);
+}
+
+}  // namespace
+
+// Type codes: 0 f32, 1 bf16, 2 int8. q: [B, HD] (HD = H * Dh), f32 or bf16;
+// k/v: contiguous [B / G, HD, S], of q's type, or int8 (kv_type 2) with
+// k_scale/v_scale f32 [B / G, S] (null otherwise); start/valid_len: int32
+// [B] or null; out: f32 [B, HD]; part_ml: f32 [B, H, n_splits, 2] and
+// part_o: f32 [B, H, n_splits, Dh] scratch, n_splits =
+// ceil(S / wtt_decode_attention_chunk()). Returns cudaGetLastError() after
+// both launches, or cudaErrorInvalidValue for a type pair it does not take.
+extern "C" int wtt_decode_attention_hd(int q_type, int kv_type, const void* q, const void* k,
+                                       const void* v, const float* k_scale,
+                                       const float* v_scale, const int* start,
+                                       const int* valid_len, float* out, float* part_ml,
+                                       float* part_o, int B, int HD, int S, int H, int G,
+                                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_splits = (S + kChunk - 1) / kChunk;
   const dim3 grid(n_splits, H, B);
-  if (is_bf16) {
-    decode_attention_split<__nv_bfloat16><<<grid, kChunk, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), start, valid_len, part_ml, part_o, HD, S, H, G);
+  if (q_type == 1 && kv_type == 1) {
+    launch_split<__nv_bfloat16, __nv_bfloat16>(grid, st, q, k, v, nullptr, nullptr, start,
+                                               valid_len, part_ml, part_o, HD, S, H, G);
+  } else if (q_type == 0 && kv_type == 0) {
+    launch_split<float, float>(grid, st, q, k, v, nullptr, nullptr, start, valid_len, part_ml,
+                               part_o, HD, S, H, G);
+  } else if (q_type == 1 && kv_type == 2 && k_scale && v_scale) {
+    launch_split<__nv_bfloat16, int8_t>(grid, st, q, k, v, k_scale, v_scale, start, valid_len,
+                                        part_ml, part_o, HD, S, H, G);
+  } else if (q_type == 0 && kv_type == 2 && k_scale && v_scale) {
+    launch_split<float, int8_t>(grid, st, q, k, v, k_scale, v_scale, start, valid_len, part_ml,
+                                part_o, HD, S, H, G);
   } else {
-    decode_attention_split<float><<<grid, kChunk, 0, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), start, valid_len, part_ml, part_o, HD, S, H, G);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

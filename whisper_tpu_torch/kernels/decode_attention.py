@@ -5,14 +5,18 @@ Replaces ``whisper_tpu/kernels/decode_attention.py:decode_attention_hd``
 (Pallas, body ``_kernel``): per lane and head, one pre-scaled query against
 transposed K/V [B/G, H*Dh, S], keys outside [start_b, valid_len_b) masked to
 -1e30, f32 softmax, f32 output [B, H*Dh, 1]; lane b reads K/V lane b // G.
+K/V are of q's dtype, or int8 with per-column f32 scales ``k_scale`` /
+``v_scale`` [B/G, 1, S] (``kernels/quant.py``; the serving tier's caches),
+folded in where the TPU body folds them: the raw dot times k_scale before
+the mask, the softmax sum over p before the V fold, P.V over p * v_scale.
 The kernel is ``csrc/decode_attention.cu``; its header says what bounds it
-on an H100 (bytes: 7.7 MB of cross K/V per large-v2 layer and lane) and how
-its split-S design answers that.
+on an H100 (bytes: 7.7 MB of bf16 cross K/V per large-v2 layer and lane,
+3.85 MB in int8) and how its split-S design answers that.
 
 On a CPU tensor ``decode_attention_hd`` runs ``decode_attention_hd_ref``.
 On a CUDA tensor it launches the kernel or raises; it never falls back.
-The int8 K/V variant (``k_scale``/``v_scale``) waits for the int8 tier and
-raises ``NotImplementedError`` on either device.
+``decode_attention_hd.launches`` counts every launch, ``launches_int8``
+those on int8 K/V.
 """
 
 from __future__ import annotations
@@ -25,11 +29,23 @@ import torch
 from whisper_tpu_torch.kernels._build import load_library
 
 
-def _no_int8(k_scale, v_scale) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "decode_attention_hd: int8 K/V with k_scale/v_scale waits for the port's int8 tier"
-        )
+def _check_scales(k_t, v_t, k_scale, v_scale) -> bool:
+    """True for int8 K/V with their column scales, False for unscaled K/V;
+    raises on anything between. Scales are f32 [B/G, 1, S]."""
+    int8 = k_t.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("decode_attention_hd: k_scale and v_scale go together")
+    if int8 != (v_t.dtype == torch.int8):
+        raise ValueError(f"decode_attention_hd: K/V dtypes {k_t.dtype}/{v_t.dtype} differ")
+    if int8 != (k_scale is not None):
+        raise ValueError("decode_attention_hd: int8 K/V need k_scale/v_scale, and scales need int8 K/V")
+    if int8:
+        want = (k_t.shape[0], 1, k_t.shape[2])
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"decode_attention_hd: {name} must be f32 {list(want)}, "
+                                 f"got {t.dtype} {list(t.shape)}")
+    return int8
 
 
 def decode_attention_hd_ref(
@@ -39,14 +55,15 @@ def decode_attention_hd_ref(
     n_head: int,
     valid_len: torch.Tensor | None = None,  # [B] int32: keys < valid_len attended
     start: torch.Tensor | None = None,      # [B] int32: keys >= start attended
-    k_scale: torch.Tensor | None = None,
-    v_scale: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,  # [B/G, 1, S] f32: int8 K column scales
+    v_scale: torch.Tensor | None = None,  # [B/G, 1, S] f32: int8 V column scales
     kv_group: int = 1,
 ) -> torch.Tensor:
     """Plain version, the einsum formulation of the decoder's attention
-    (``model/decoder.py``) over the kernel's interface: f32 scores, masked
-    keys at -1e30, f32 softmax and f32 P.V -> [B, HD, 1] f32."""
-    _no_int8(k_scale, v_scale)
+    (``model/decoder.py``) over the kernel's interface: f32 scores (times
+    k_scale), masked keys at -1e30, f32 softmax, then P (times v_scale).V
+    in f32 -> [B, HD, 1] f32."""
+    int8 = _check_scales(k_t, v_t, k_scale, v_scale)
     b, hd, _ = q.shape
     u, _, s = k_t.shape
     if b != u * kv_group:
@@ -56,6 +73,8 @@ def decode_attention_hd_ref(
     k4 = k_t.float().reshape(u, n_head, dh, s)
     v4 = v_t.float().reshape(u, n_head, dh, s)
     scores = torch.einsum("ughd,uhds->ughs", q4, k4)           # [U, G, H, S]
+    if int8:
+        scores = scores * k_scale.reshape(u, 1, 1, s)
     if valid_len is not None or start is not None:
         col = torch.arange(s, device=q.device)
         lo = start if start is not None else torch.zeros(b, dtype=torch.int32, device=q.device)
@@ -63,15 +82,20 @@ def decode_attention_hd_ref(
         keep = (col[None, :] >= lo[:, None]) & (col[None, :] < hi[:, None])   # [B, S]
         scores = scores.masked_fill(~keep.reshape(u, kv_group, 1, s), -1e30)
     p = torch.softmax(scores, dim=-1)
+    if int8:
+        p = p * v_scale.reshape(u, 1, 1, s)
     out = torch.einsum("ughs,uhds->ughd", p, v4)
     return out.reshape(b, hd, 1)
+
+
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # csrc/decode_attention.cu
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("decode_attention")
     fn = lib.wtt_decode_attention_hd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.wtt_decode_attention_chunk.argtypes = []
     lib.wtt_decode_attention_chunk.restype = ctypes.c_int
@@ -98,14 +122,15 @@ def decode_attention_hd(
     kv_group: int = 1,
 ) -> torch.Tensor:
     """Single-query attention in flat head-major layout -> [B, HD, 1] f32."""
-    _no_int8(k_scale, v_scale)
+    int8 = _check_scales(k_t, v_t, k_scale, v_scale)
     if q.device.type == "cpu":
-        return decode_attention_hd_ref(q, k_t, v_t, n_head, valid_len, start, kv_group=kv_group)
+        return decode_attention_hd_ref(q, k_t, v_t, n_head, valid_len, start, k_scale, v_scale,
+                                       kv_group)
     if not (q.is_cuda and k_t.device == q.device and v_t.device == q.device):
         raise ValueError("decode_attention_hd: q, k_t and v_t must lie on one CUDA device")
-    if not (q.dtype == k_t.dtype == v_t.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (int8 or q.dtype == k_t.dtype == v_t.dtype):
         raise NotImplementedError(
-            f"decode_attention_hd on CUDA takes bf16 or f32 q/k/v of one dtype, "
+            f"decode_attention_hd on CUDA takes bf16 or f32 q with K/V of q's dtype or int8, "
             f"got {q.dtype}/{k_t.dtype}/{v_t.dtype}"
         )
     b, hd, one = q.shape
@@ -120,6 +145,12 @@ def decode_attention_hd(
         raise NotImplementedError(f"decode_attention_hd kernel takes Dh <= 128, got {dh}")
     if not (q.is_contiguous() and k_t.is_contiguous() and v_t.is_contiguous()):
         raise ValueError("decode_attention_hd: q, k_t and v_t must be contiguous")
+    ks_p = vs_p = 0
+    if int8:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t.device != q.device or not t.is_contiguous():
+                raise ValueError(f"decode_attention_hd: {name} must be contiguous on {q.device}")
+        ks_p, vs_p = k_scale.data_ptr(), v_scale.data_ptr()
     start_p = _check_limits(start, "start", b, q.device)
     valid_p = _check_limits(valid_len, "valid_len", b, q.device)
 
@@ -129,15 +160,18 @@ def decode_attention_hd(
     part_ml = torch.empty((b, n_head, n_splits, 2), dtype=torch.float32, device=q.device)
     part_o = torch.empty((b, n_head, n_splits, dh), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    q_type = _TYPE_CODES[q.dtype]
     rc = lib.wtt_decode_attention_hd(
-        int(q.dtype == torch.bfloat16), q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(),
+        q_type, _TYPE_CODES[k_t.dtype], q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), ks_p, vs_p,
         start_p, valid_p, out.data_ptr(), part_ml.data_ptr(), part_o.data_ptr(),
         b, hd, s, n_head, kv_group, stream,
     )
     if rc != 0:
         raise RuntimeError(f"decode_attention_hd kernel launch failed: CUDA error {rc}")
     decode_attention_hd.launches += 1
+    decode_attention_hd.launches_int8 += int8
     return out
 
 
 decode_attention_hd.launches = 0
+decode_attention_hd.launches_int8 = 0

@@ -17,6 +17,16 @@ the same column and the logits row is always the last row; lanes with
 shorter prompts hold garbage in columns < ``attn_start``, which the mask
 hides. Prompt ingest (S > 1) takes the einsum path; single-token steps take
 the decode-attention kernel, for self- and cross-attention alike.
+
+int8 caches (the serving tier): the self cache is int8 with one f32 scale
+per column [L, B, 1, C]; each new column is quantized (``quantize_cols``)
+and written, codes and scales, in place. The kernel reads codes and scales
+directly; the einsum path of prompt ingest dequantizes to compute_dtype
+first. Int8 weights carry ``<key>_s`` scales that every ``dense`` applies,
+and an int8 token embedding ``tok_s``: gathered rows are dequantized, the
+logits get a per-vocab-row scale. The int8 -> bf16 conversion of each
+weight (``dense``) and of the embedding table (logits) is a separate pass
+on every step that XLA fused into the product.
 """
 
 from __future__ import annotations
@@ -27,22 +37,32 @@ import torch
 
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
+from whisper_tpu_torch.kernels.quant import dequantize, quantize_cols
 from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, qkv_proj
 from whisper_tpu_torch.model.params import Block, WhisperParams
 
 
 class SelfKV(NamedTuple):
-    """Preallocated self-attention cache, TRANSPOSED [L, B, H*Dh, C]."""
+    """Preallocated self-attention cache, TRANSPOSED [L, B, H*Dh, C]; when
+    int8, k_s/v_s hold the per-column f32 scales [L, B, 1, C], else None."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_s: torch.Tensor | None = None
+    v_s: torch.Tensor | None = None
 
 
 def init_self_kv(
     dims: ModelDims, batch: int, dtype: torch.dtype = torch.bfloat16,
-    device: str | torch.device = "cuda", cache_len: int | None = None,
+    device: str | torch.device = "cuda", cache_len: int | None = None, quant: bool = False,
 ) -> SelfKV:
     shape = (dims.n_text_layer, batch, dims.n_text_state, cache_len or dims.n_text_ctx)
+    if quant:
+        sshape = shape[:2] + (1, shape[3])
+        return SelfKV(torch.zeros(shape, dtype=torch.int8, device=device),
+                      torch.zeros(shape, dtype=torch.int8, device=device),
+                      torch.zeros(sshape, dtype=torch.float32, device=device),
+                      torch.zeros(sshape, dtype=torch.float32, device=device))
     return SelfKV(torch.zeros(shape, dtype=dtype, device=device),
                   torch.zeros(shape, dtype=dtype, device=device))
 
@@ -57,15 +77,21 @@ def _cache_write(cache: torch.Tensor, li: int, new: torch.Tensor, col: int) -> N
     cache[li, :, :, col : col + s] = new.transpose(1, 2)
 
 
-def _cross_attention(h, blk: Block, xk, xv, n_head: int, compute_dtype, cross_group: int = 1):
-    """Cross-attention over transposed K/V [B/G, HD, Sx]; ``cross_group`` G
-    consecutive query lanes share one K/V lane. h: normalized input
-    [B, S, d]. Returns [B, S, d] f32."""
+def _cross_attention(h, blk: Block, xk, xv, xk_s, xv_s, n_head: int, compute_dtype,
+                     cross_group: int = 1):
+    """Cross-attention over transposed K/V [B/G, HD, Sx] (int8 with column
+    scales xk_s/xv_s [B/G, 1, Sx], or None); ``cross_group`` G consecutive
+    query lanes share one K/V lane. h: normalized input [B, S, d].
+    Returns [B, S, d] f32."""
     b, s, d = h.shape
-    q = dense(h, blk.xq_w, blk.xq_b).to(compute_dtype)              # [B, S, HD]
+    q = dense(h, blk.xq_w, blk.xq_b, s=getattr(blk, "xq_w_s", None)).to(compute_dtype)
     if s == 1:
-        out = decode_attention_hd(q.reshape(b, d, 1), xk, xv, n_head, kv_group=cross_group)
+        out = decode_attention_hd(q.reshape(b, d, 1), xk, xv, n_head, k_scale=xk_s,
+                                  v_scale=xv_s, kv_group=cross_group)
         return out.reshape(b, 1, d)
+    if xk_s is not None:
+        xk = dequantize(xk, xk_s, compute_dtype)
+        xv = dequantize(xv, xv_s, compute_dtype)
     dh = d // n_head
     sx = xk.shape[-1]
     u = b // cross_group
@@ -80,9 +106,10 @@ def _cross_attention(h, blk: Block, xk, xv, n_head: int, compute_dtype, cross_gr
     return out.reshape(b, s, d)
 
 
-def _self_attention(q, k_cache, v_cache, write_pos: int, attn_start, valid_len,
+def _self_attention(q, k_cache, v_cache, k_s, v_s, write_pos: int, attn_start, valid_len,
                     n_head: int, compute_dtype):
-    """Masked self-attention over the transposed cache [B, HD, C].
+    """Masked self-attention over the transposed cache [B, HD, C] (int8 with
+    column scales k_s/v_s [B, 1, C], or None).
     q [B,S,H,Dh]; queries sit at cache columns write_pos..write_pos+S-1;
     lane b attends keys [attn_start_b, query column]. Returns [B,S,d] f32."""
     b, s, h, dh = q.shape
@@ -90,8 +117,11 @@ def _self_attention(q, k_cache, v_cache, write_pos: int, attn_start, valid_len,
     cache_len = k_cache.shape[-1]
     if s == 1:
         out = decode_attention_hd(q.reshape(b, d, 1), k_cache, v_cache, n_head,
-                                  valid_len=valid_len, start=attn_start)
+                                  valid_len=valid_len, start=attn_start, k_scale=k_s, v_scale=v_s)
         return out.reshape(b, 1, d)
+    if k_s is not None:
+        k_cache = dequantize(k_cache, k_s, compute_dtype)
+        v_cache = dequantize(v_cache, v_s, compute_dtype)
     k4 = k_cache.reshape(b, h, dh, cache_len).float()
     v4 = v_cache.reshape(b, h, dh, cache_len).float()
     scores = torch.einsum("bthd,bhds->bhts", q.float(), k4)
@@ -108,26 +138,43 @@ def _self_attention(q, k_cache, v_cache, write_pos: int, attn_start, valid_len,
 
 
 def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos: int, attn_start, valid_len,
-                   xk, xv, n_head: int, compute_dtype, cross_group: int = 1):
-    """One decoder block; writes layer li's new K/V columns in place.
-    x [B,S,d]; xk/xv [B/G,HD,Sx]. Returns x."""
+                   xk, xv, xk_s, xv_s, n_head: int, compute_dtype, cross_group: int = 1):
+    """One decoder block; writes layer li's new K/V columns (and, for an
+    int8 cache, their scales) in place. x [B,S,d]; xk/xv [B/G,HD,Sx] with
+    optional scales xk_s/xv_s [B/G,1,Sx]. Returns x."""
     b, s, d = x.shape
+    quant = kv.k_s is not None
 
     h = layer_norm(x, blk.attn_ln_w, blk.attn_ln_b).to(compute_dtype)
-    q, k_new, v_new = qkv_proj(h, blk.qkv_w, blk.qkv_b, n_head, dtype=compute_dtype)
-    _cache_write(kv.k, li, k_new.reshape(b, s, d).to(kv.k.dtype), write_pos)
-    _cache_write(kv.v, li, v_new.reshape(b, s, d).to(kv.v.dtype), write_pos)
-    att = _self_attention(q, kv.k[li], kv.v[li], write_pos, attn_start, valid_len,
+    # an int8 cache quantizes the f32 projection, as the JAX package does
+    q, k_new, v_new = qkv_proj(h, blk.qkv_w, blk.qkv_b, n_head,
+                               dtype=torch.float32 if quant else compute_dtype,
+                               qkv_s=getattr(blk, "qkv_w_s", None))
+    q = q.to(compute_dtype)
+    k_new, v_new = k_new.reshape(b, s, d), v_new.reshape(b, s, d)
+    if quant:
+        for cache, scales, new in ((kv.k, kv.k_s, k_new), (kv.v, kv.v_s, v_new)):
+            codes, sc = quantize_cols(new, axis=-1)       # int8 [B,S,HD], f32 [B,S,1]
+            _cache_write(cache, li, codes, write_pos)
+            _cache_write(scales, li, sc, write_pos)
+        k_s, v_s = kv.k_s[li], kv.v_s[li]
+    else:
+        _cache_write(kv.k, li, k_new.to(kv.k.dtype), write_pos)
+        _cache_write(kv.v, li, v_new.to(kv.v.dtype), write_pos)
+        k_s = v_s = None
+    att = _self_attention(q, kv.k[li], kv.v[li], k_s, v_s, write_pos, attn_start, valid_len,
                           n_head, compute_dtype)
-    x = x + dense(att.to(compute_dtype), blk.o_w, blk.o_b).to(compute_dtype)
+    x = x + dense(att.to(compute_dtype), blk.o_w, blk.o_b,
+                  s=getattr(blk, "o_w_s", None)).to(compute_dtype)
 
     h = layer_norm(x, blk.x_ln_w, blk.x_ln_b).to(compute_dtype)
-    att = _cross_attention(h, blk, xk, xv, n_head, compute_dtype, cross_group)
-    x = x + dense(att.to(compute_dtype), blk.xo_w, blk.xo_b).to(compute_dtype)
+    att = _cross_attention(h, blk, xk, xv, xk_s, xv_s, n_head, compute_dtype, cross_group)
+    x = x + dense(att.to(compute_dtype), blk.xo_w, blk.xo_b,
+                  s=getattr(blk, "xo_w_s", None)).to(compute_dtype)
 
     h = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b).to(compute_dtype)
-    h = gelu(dense(h, blk.fc1_w, blk.fc1_b)).to(compute_dtype)
-    return x + dense(h, blk.fc2_w, blk.fc2_b).to(compute_dtype)
+    h = gelu(dense(h, blk.fc1_w, blk.fc1_b, s=getattr(blk, "fc1_w_s", None))).to(compute_dtype)
+    return x + dense(h, blk.fc2_w, blk.fc2_b, s=getattr(blk, "fc2_w_s", None)).to(compute_dtype)
 
 
 def decode_step(
@@ -135,8 +182,8 @@ def decode_step(
     dims: ModelDims,
     tokens: torch.Tensor,        # [B, S] int (left-aligned if padded)
     pos0: torch.Tensor,          # [B] int32: REAL position of tokens[:, 0]
-    self_kv: SelfKV,             # [L, B, HD, C] x2, written in place
-    cross_kv,                    # (k, v) [L, B/G, HD, Sx] x2
+    self_kv: SelfKV,             # [L, B, HD, C] x2 (+ int8 scales), written in place
+    cross_kv,                    # (k, v) [L, B/G, HD, Sx] x2, or a CrossKV (+ int8 scales)
     write_pos: int = 0,          # cache column of tokens[:, 0]
     attn_start: torch.Tensor | None = None,  # [B] int32 first valid cache column
     compute_dtype: torch.dtype = torch.bfloat16,
@@ -161,17 +208,27 @@ def decode_step(
     valid_len = (torch.full((b,), write_pos + 1, dtype=torch.int32, device=device)
                  if s == 1 else None)
 
+    xk_s = cross_kv[2] if len(cross_kv) > 2 else None
+    xv_s = cross_kv[3] if len(cross_kv) > 2 else None
+    tok_s = getattr(dec, "tok_s", None)
+
     n_ctx = dec.pos.shape[0]
     pos_idx = (pos0.long()[:, None] + torch.arange(s, device=device)[None, :]).clamp(0, n_ctx - 1)
-    x = (dec.tok[tokens.long()] + dec.pos[pos_idx]).to(compute_dtype)
+    emb = dec.tok[tokens.long()]
+    if tok_s is not None:                        # int8 embedding: dequantize the gathered rows
+        emb = emb.float() * tok_s[tokens.long()]
+    x = (emb + dec.pos[pos_idx]).to(compute_dtype)
 
     for li, blk in enumerate(dec.blocks):
         x = _decoder_block(x, blk, self_kv, li, write_pos, attn_start, valid_len,
-                           cross_kv[0][li], cross_kv[1][li], dims.n_text_head,
-                           compute_dtype, cross_group)
+                           cross_kv[0][li], cross_kv[1][li],
+                           None if xk_s is None else xk_s[li], None if xv_s is None else xv_s[li],
+                           dims.n_text_head, compute_dtype, cross_group)
 
     x = layer_norm(x, dec.ln_w, dec.ln_b)        # [B, S, d] f32
     if last_only:
         x = x[:, -1]
-    logits = dense(x.to(compute_dtype), dec.tok.T.to(compute_dtype))
+    # int8 table: per-vocab-row scale epilogue ([V, 1] -> [1, V])
+    logits = dense(x.to(compute_dtype), dec.tok.T.to(compute_dtype),
+                   s=None if tok_s is None else tok_s.T)
     return logits, self_kv

@@ -8,7 +8,8 @@ Counterpart of ``whisper_tpu.model.encoder``:
     the fused kernel (``kernels.attention.flash_attention``)
   - after ln_post, cross-attention K (pre-scaled by (d/h)^-0.25, folded
     into ``xk_w`` at load) and V for ALL decoder layers, stored transposed
-    as [L, B, H*Dh, T] so decode steps stream [Dh, T] rows
+    as [L, B, H*Dh, T] so decode steps stream [Dh, T] rows; with ``quant``
+    as int8 plus one f32 scale per column (``kernels/quant.py``)
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch.nn.functional as F
 
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.attention import flash_attention
+from whisper_tpu_torch.kernels.quant import quantize_cols
 from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, merge_heads, qkv_proj
 from whisper_tpu_torch.model.params import Block, WhisperParams
 
@@ -78,10 +80,13 @@ def encode(
 
 
 class CrossKV(NamedTuple):
-    """Per-window cross-attention K/V for all decoder layers."""
+    """Per-window cross-attention K/V for all decoder layers; k_s/v_s are
+    the per-column int8 scales [L, B, 1, T], or None."""
 
     k: torch.Tensor                  # [L, B, HD, T]
     v: torch.Tensor
+    k_s: torch.Tensor | None = None
+    v_s: torch.Tensor | None = None
 
 
 def precompute_cross_kv(
@@ -89,15 +94,28 @@ def precompute_cross_kv(
     dims: ModelDims,
     audio_features: torch.Tensor,      # [B, T, d] f32 (encode output)
     compute_dtype: torch.dtype = torch.bfloat16,
+    quant: bool = False,
 ) -> CrossKV:
     """Cross-attention K/V for every decoder layer, K pre-scaled, stored
-    TRANSPOSED (features-major) [L, B, H*Dh, T] in compute_dtype."""
+    TRANSPOSED (features-major) [L, B, H*Dh, T] in compute_dtype, or with
+    ``quant`` as int8 with f32 scales [L, B, 1, T] (each column quantized
+    from its compute_dtype values): decode reads this array on every token
+    step, so int8 halves the step's largest stream."""
     xf = audio_features.to(compute_dtype)
     b, t, d = xf.shape
     blocks = params.dec.blocks
-    k = torch.empty((len(blocks), b, d, t), dtype=compute_dtype, device=xf.device)
+    shape = (len(blocks), b, d, t)
+    k = torch.empty(shape, dtype=torch.int8 if quant else compute_dtype, device=xf.device)
     v = torch.empty_like(k)
+    if quant:
+        k_s = torch.empty((len(blocks), b, 1, t), dtype=torch.float32, device=xf.device)
+        v_s = torch.empty_like(k_s)
     for li, blk in enumerate(blocks):
-        k[li] = dense(xf, blk.xk_w).to(compute_dtype).transpose(1, 2)
-        v[li] = dense(xf, blk.xv_w, blk.xv_b).to(compute_dtype).transpose(1, 2)
-    return CrossKV(k, v)
+        kl = dense(xf, blk.xk_w).to(compute_dtype).transpose(1, 2)       # [B, HD, T]
+        vl = dense(xf, blk.xv_w, blk.xv_b).to(compute_dtype).transpose(1, 2)
+        if quant:
+            k[li], k_s[li] = quantize_cols(kl, axis=-2)
+            v[li], v_s[li] = quantize_cols(vl, axis=-2)
+        else:
+            k[li], v[li] = kl, vl
+    return CrossKV(k, v, k_s, v_s) if quant else CrossKV(k, v)

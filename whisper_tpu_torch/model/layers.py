@@ -18,20 +18,34 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1
     return torch.nn.functional.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+def dense(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    s: torch.Tensor | None = None,
+) -> torch.Tensor:
     """x @ w (+ b) with an f32 result.
 
     On the card a bf16 product goes to cuBLAS with an f32 output
     (``torch.mm(..., out_dtype=float32)``: bf16 operands, f32 accumulation
     and no bf16 rounding of the result, as XLA's ``preferred_element_type``).
     Elsewhere, and for f32 operands, the product runs in f32. TF32 is never
-    used here: PyTorch's default keeps f32 CUDA matmuls in full f32."""
+    used here: PyTorch's default keeps f32 CUDA matmuls in full f32.
+
+    ``s`` dequantizes an int8 ``w`` as an epilogue: one f32 scale per output
+    column (``params.quantize_weight``), applied BEFORE the bias. The int8
+    weight is converted to the activation dtype first. XLA fuses that
+    conversion into the product; here it is a separate pass that writes a
+    bf16 copy of the weight (1 byte read, 2 written per weight) on every
+    call."""
     if x.is_cuda and x.dtype != torch.float32:
         lead = x.shape[:-1]
         y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype), out_dtype=torch.float32)
         y = y.reshape(*lead, w.shape[-1])
     else:
         y = torch.matmul(x.float(), w.float())
+    if s is not None:
+        y = y * s
     if b is not None:
         y = y + b
     return y
@@ -49,11 +63,11 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def qkv_proj(h: torch.Tensor, qkv_w: torch.Tensor, qkv_b: torch.Tensor, n_head: int,
-             dtype: torch.dtype = torch.float32):
+             dtype: torch.dtype = torch.float32, qkv_s: torch.Tensor | None = None):
     """Fused head-major QKV projection: h [B,S,d] -> (q, k, v) each
     [B,S,H,Dh] in ``dtype`` (the f32 product cast once). They are strided
-    views of one [B,S,H,3,Dh] tensor."""
-    y = dense(h, qkv_w, qkv_b).to(dtype)            # [B, S, 3d]
+    views of one [B,S,H,3,Dh] tensor. ``qkv_s``: int8 weight scales."""
+    y = dense(h, qkv_w, qkv_b, s=qkv_s).to(dtype)   # [B, S, 3d]
     b, s, _ = y.shape
     y = y.reshape(b, s, n_head, 3, -1)
     return y[:, :, :, 0], y[:, :, :, 1], y[:, :, :, 2]

@@ -9,6 +9,10 @@ each other):
   - q/k/v fuse into one head-major QKV projection [d, 3d] with whisper's
     (d/h)^-0.25 scale folded into the q and k columns (``fuse_qkv``)
   - the cross-attention q/k weights carry the same folded scale
+  - under ``DtypePolicy.serving()`` the decoder's matmul weights
+    (``_QUANT_KEYS``) and the token embedding are int8 with one f32 scale
+    per output column (``<key>_s``, ``tok_s``), quantized on the host in
+    numpy exactly as the JAX package does
 
 The JAX package stacks per-layer tensors on a leading [n_layer] axis for
 ``lax.scan``; PyTorch runs eagerly, so here each layer is a ``Block`` module
@@ -31,8 +35,10 @@ from whisper_tpu_torch.ggml import Checkpoint, RawTensor
 class DtypePolicy:
     """bf16 storage + f32 accumulation (the bf16 tier); ``f32()`` for tests.
 
-    ``weights_int8`` (int8 decoder weights with per-column scales, the
-    serving tier of the JAX package) is not ported yet and raises."""
+    ``weights_int8`` additionally stores the decoder's matmul weights and
+    the token embedding as int8 with one f32 scale per output column
+    (``serving()``, the JAX package's serving tier); the encoder stays in
+    the param dtype."""
 
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
@@ -42,6 +48,11 @@ class DtypePolicy:
     @staticmethod
     def f32() -> "DtypePolicy":
         return DtypePolicy(torch.float32, torch.float32, torch.float32)
+
+    @staticmethod
+    def serving() -> "DtypePolicy":
+        """Throughput tier: bf16 activations, int8 decoder weights."""
+        return DtypePolicy(weights_int8=True)
 
 
 def _get(tensors: dict[str, RawTensor], name: str, shape: tuple[int, ...]) -> np.ndarray:
@@ -150,6 +161,34 @@ _BIAS_KEYS = frozenset(
 )
 
 
+# decoder matmul weights stored int8 under weights_int8 ([L, in, out]
+# stacked); xk_w/xv_w stay in the param dtype: they run once per window, in
+# the cross K/V precompute.
+_QUANT_KEYS = frozenset("qkv_w o_w xq_w xo_w fc1_w fc2_w".split())
+
+
+def quantize_weight(w: np.ndarray, axis: int) -> tuple[np.ndarray, np.ndarray]:
+    """Symmetric per-output-column int8: one f32 scale per slice along
+    ``axis`` (the contraction axis), kept as a size-1 dim so it broadcasts
+    over the matmul output. Returns (int8 w, f32 scale)."""
+    amax = np.abs(w).max(axis=axis, keepdims=True)
+    scale = np.maximum(amax, 1e-8).astype(np.float32) / 127.0
+    q = np.clip(np.round(w / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def quantize_decoder_weights(dec: dict) -> dict:
+    """int8-quantize a host (f32 numpy) decoder subtree in place: each
+    ``_QUANT_KEYS`` weight [L, in, out] becomes int8 plus ``<key>_s`` f32
+    [L, 1, out]; the token embedding [V, d] gets per-row scales ``tok_s``
+    [V, 1] (d is its contraction axis in the logits product)."""
+    blocks = dec["blocks"]
+    for key in sorted(_QUANT_KEYS & set(blocks)):
+        blocks[key], blocks[key + "_s"] = quantize_weight(blocks[key], axis=1)
+    dec["tok"], dec["tok_s"] = quantize_weight(dec["tok"], axis=1)
+    return dec
+
+
 class Block(nn.Module):
     """One transformer block's tensors, as buffers named like the JAX
     package's per-layer keys (``blk.qkv_w`` is ``blk["qkv_w"]`` there)."""
@@ -196,17 +235,21 @@ def params_from_numpy(
 ) -> WhisperParams:
     """Build the modules from a host tree in the JAX package's layout:
     ``{"enc": {..., "blocks": {key: [L, ...]}}, "dec": {...}}`` of numpy
-    arrays (``params_from_checkpoint``'s host tree, or the JAX parameter
+    arrays (``host_tree_from_checkpoint``'s tree, or the JAX parameter
     pytree mapped through ``np.asarray``). Norms and biases take the
-    policy's norm dtype, everything else its param dtype."""
-    if policy.weights_int8:
-        raise NotImplementedError(
-            "DtypePolicy(weights_int8=True): int8 decoder weights wait for the "
-            "port's int8 tier"
-        )
+    policy's norm dtype, other float leaves its param dtype; int8 leaves
+    and ``*_s`` scales pass through as they are. Under ``weights_int8`` a
+    decoder that is not quantized yet (no ``tok_s``) is quantized here; a
+    quantized one, such as the JAX serving tree, is carried across."""
     device = torch.device(device)
+    if policy.weights_int8 and "tok_s" not in tree["dec"]:
+        # quantize copies of the two dicts it writes, not the caller's tree
+        dec = {**tree["dec"], "blocks": dict(tree["dec"]["blocks"])}
+        tree = {**tree, "dec": quantize_decoder_weights(dec)}
 
     def cast(key: str, arr) -> torch.Tensor:
+        if arr.dtype == np.int8 or key.endswith("_s"):
+            return torch.from_numpy(np.require(arr, None, ["C", "W"])).to(device)
         dt = policy.norm_dtype if key in _NORM_KEYS or key in _BIAS_KEYS else policy.param_dtype
         t = torch.from_numpy(np.require(arr, np.float32, ["C", "W"]))
         return t.to(device=device, dtype=dt)
@@ -251,5 +294,6 @@ def host_tree_from_checkpoint(cp: Checkpoint) -> dict:
 def params_from_checkpoint(
     cp: Checkpoint, policy: DtypePolicy = DtypePolicy(), device: str | torch.device = "cuda"
 ) -> WhisperParams:
-    """Build the parameter modules from a loaded checkpoint."""
+    """Build the parameter modules from a loaded checkpoint (int8 decoder
+    weights under ``policy.weights_int8``)."""
     return params_from_numpy(host_tree_from_checkpoint(cp), device, policy)

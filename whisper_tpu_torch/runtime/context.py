@@ -9,6 +9,12 @@ Counterpart of ``whisper_tpu.runtime.context``:
 
 PyTorch runs eagerly, so there is nothing to compile; both run under
 ``torch.inference_mode`` on the runtime's device.
+
+``kv_int8`` is the counterpart of ``KernelConfig.kv_int8``: int8 cross and
+self K/V caches with per-column scales, read by the decode-attention kernel
+(the serving tier, with ``DtypePolicy.serving()`` weights). KernelConfig's
+other fields have no counterpart: the tensors' device selects kernel or
+plain version.
 """
 
 from __future__ import annotations
@@ -35,12 +41,14 @@ class WhisperRuntime:
         special_ids: SpecialIds,
         compute_dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
+        kv_int8: bool = False,
     ):
         self.device = resolve_device(device)
         self.params = params
         self.dims = dims
         self.ids = special_ids
         self.compute_dtype = compute_dtype
+        self.kv_int8 = kv_int8
 
     # Prompt capacity: [_PREV_] + n_text_ctx/2 past tokens + SOT + lang + task
     # (reference prompt assembly, ContextImpl.cpp:562-576).
@@ -62,7 +70,8 @@ class WhisperRuntime:
         """mel [B, n_mels, 2*T] -> (audio_features, cross_kv)."""
         mel = self._tensor(mel, torch.float32)
         feats = encode(self.params, self.dims, mel, compute_dtype=self.compute_dtype)
-        cross = precompute_cross_kv(self.params, self.dims, feats, compute_dtype=self.compute_dtype)
+        cross = precompute_cross_kv(self.params, self.dims, feats, compute_dtype=self.compute_dtype,
+                                    quant=self.kv_int8)
         return feats, cross
 
     @torch.inference_mode()
@@ -78,7 +87,8 @@ class WhisperRuntime:
         force_steps: int = 0,
     ) -> WindowResult:
         prompt = self._tensor(prompt, torch.int32)
-        kv = init_self_kv(self.dims, prompt.shape[0], dtype=self.compute_dtype, device=self.device)
+        kv = init_self_kv(self.dims, prompt.shape[0], dtype=self.compute_dtype, device=self.device,
+                          quant=self.kv_int8)
         return decode_window(
             self.params, self.dims, self.ids, prompt,
             self._tensor(prompt_len, torch.int32), kv, cross_kv,
