@@ -18,6 +18,22 @@ result line:
                 port never calls; none takes int8 K/V with scales) and the
                 bound (least time the card could take: bytes over 3.35 TB/s
                 or operations over 989 TFLOP/s)
+  3b. kbench    the port's microbenchmark of the decode-attention stream
+                (whisper_tpu_torch.tools.kbench, the JAX tool's large-v2
+                defaults B=8 S=1500 HD=1280 H=20 L=32 CS=512): each of its
+                kernels K3-K9 against its plain version on the tool's inputs
+                and on seeded random ones (f32-p attention 1e-5, bf16-p
+                1e-4, each times max(1, max |plain|), and bf16-p's mean
+                error under a quarter of the bf16 rounding's mean effect;
+                row sums 1e-5 of the row's sum of |k| + |v|); every
+                variant's pass timed, with the kernel counters set to 0
+                before the run and checked after it (per pass: 2L launches
+                for K3's split tiling, partial sums and combine, L for the
+                other per-layer kernels, 2 for K6 and K9; plus a warm-up
+                pass); every variant's device time per pass; each kernel's
+                device time per launch, plain pass, library pass
+                (torch.sum for the row sums, SDPA for the bf16 attention)
+                and bound
   4. golden     a small scripted checkpoint (head dim 64, so it runs the
                 kernels) through load_model -> run_full on the card must give
                 its known transcript, on the bf16 tier and on the serving
@@ -415,6 +431,192 @@ def show_case(name: str, c: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the microbenchmark's kernels (K3-K9)
+# ---------------------------------------------------------------------------
+
+F32_FLOPS = 67e12              # H100 SXM f32 peak outside the tensor cores
+# kernel id, wrapper, variant, the TPU's pallas_call, its body, tolerance
+# against the plain version (times max(1, max |plain|); "rows": 1e-5 of the
+# row's sum of |k| + |v|). For bf16 p (K4b, K7) 1e-4, since an ulp of exp
+# can flip one bf16 rounding of p; on the random inputs the mean error must
+# also stay under ROUNDING_SHARE of the mean gap between the bf16-p and
+# f32-p plain versions, which a kernel that skipped the rounding (or
+# rounded at another max) would show in full.
+ROUNDING_SHARE = 0.25
+KBENCH = [
+    ("K3", "kernel_read", "read", "tools/kbench.py:54", "kernel_read :65-80", "rows"),
+    ("K4a", "kernel_vpu", "vpu", "tools/kbench.py:54", "kernel_vpu :82-111", 1e-5),
+    ("K4b", "kernel_mxu", "mxu", "tools/kbench.py:54", "kernel_mxu :114-150", 1e-4),
+    ("K5", "kernel_rows", "rows", "tools/kbench.py:174", "kernel_rows :170-172", "rows"),
+    ("K6", "kernel_read_all_layers", "read1", "tools/kbench.py:215", "kernel_read3 :200-213",
+     "rows"),
+    ("K7", "kernel_mxub", "mxub", "tools/kbench.py:277", "kernel_mxub :243-275", 1e-4),
+    ("K8", "kernel_vpu8", "vpu8", "tools/kbench.py:336", "kernel_vpu8 :302-334", 1e-5),
+    ("K9", "kernel_flatread", "flatread", "tools/kbench.py:397", "kernel_read :65-80", "rows"),
+]
+KB_PATTERN = {"kernel_vpu": "kb_attn_cuda_core", "kernel_vpu8": "kb_attn_cuda_core",
+              "kernel_mxu": "kb_attn_mma_dense", "kernel_mxub": "kb_attn_mma_head"}
+
+
+def kbench_phase() -> tuple[list[dict], dict]:
+    """The port's kbench at the JAX tool's large-v2 defaults (B=8 S=1500
+    HD=1280 H=20 L=32 CS=512 RB=256): each kernel against its plain version
+    on the tool's inputs (one layer, or all slabs for K6 and K9) and on
+    seeded random ones of the same shape; then every variant's pass timed
+    by ``run`` with the kernel counters set to 0 just before and read just
+    after; then per kernel the profiler's device time per launch, the plain
+    pass, the library pass and the bound."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.tools import kbench as tool
+
+    d = tool.Dims()
+    inp = tool.make_inputs(d, "cuda", tool.VARIANTS)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    shape = inp["k"].shape
+    rnd = dict(q=(torch.randn(inp["q"].shape, generator=g, device="cuda") * 0.3).bfloat16(),
+               k=(torch.randn(shape, generator=g, device="cuda") * 0.3).bfloat16(),
+               v=torch.randn(shape, generator=g, device="cuda").bfloat16(),
+               k8=torch.randint(-127, 128, shape[1:], generator=g, device="cuda", dtype=torch.int8),
+               v8=torch.randint(-127, 128, shape[1:], generator=g, device="cuda", dtype=torch.int8),
+               sk=torch.rand((d.B, 1, d.s_pad), generator=g, device="cuda") * 9e-3 + 1e-3,
+               sv=torch.rand((d.B, 1, d.s_pad), generator=g, device="cuda") * 9e-3 + 1e-3)
+    per_layer = {name: name not in ("kernel_read_all_layers", "kernel_flatread")
+                 for _, name, *_ in KBENCH}
+
+    def args(name, li, x=inp):
+        if name in ("kernel_read", "kernel_rows"):
+            return x["k"][li], x["v"][li], d.RB if name == "kernel_rows" else d.CS
+        if not per_layer[name]:
+            return x["k"], x["v"], d.CS
+        if name == "kernel_vpu8":
+            if x is inp:
+                return (x["q"], x["k8"][li], x["v8"][li], x["sc"][li], x["sc"][li], d.H, d.S, d.CS)
+            return x["q"], x["k8"], x["v8"], x["sk"], x["sv"], d.H, d.S, d.CS
+        return x["q"], x["k"][li], x["v"][li], d.H, d.S, d.CS
+
+    # 1. kernel against plain on the card (launches here are not counted)
+    errs, rounding = {}, {}
+    for _, name, _, _, _, tol in KBENCH:
+        wrapper, ref = kb.KERNELS[name]
+        errs[name] = 0.0
+        for x in (inp, rnd):
+            a = args(name, 1, x)
+            got, want = wrapper(*a), ref(*a)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape and bool(torch.isfinite(got).all()), f"{name} output")
+            err = (got - want).abs()
+            if tol == "rows":
+                scale = (a[0].float().abs() + a[1].float().abs()).sum(-1, keepdim=True)
+                rel = (err.reshape(scale.shape) / scale).max().item()
+                check(rel <= 1e-5, f"{name}: error {rel} of the row's sum of |k| + |v| > 1e-5")
+            else:
+                # the tool's int8 K/V reach 100 with unit scales, so outputs do
+                # too: the bound scales with the output's size past 1
+                bound = tol * max(1.0, want.abs().max().item())
+                check(err.max().item() <= bound, f"{name}: error {err.max().item()} > {bound}")
+            if name in ("kernel_mxu", "kernel_mxub") and x is rnd:
+                gap = (want - kb.attention_ref(*a)).abs().mean().item()
+                rounding[name] = err.mean().item() / gap
+                check(rounding[name] <= ROUNDING_SHARE,
+                      f"{name}: mean error {err.mean().item()} is {rounding[name]:.3f} of the "
+                      f"bf16 rounding's mean effect {gap} (limit {ROUNDING_SHARE})")
+            errs[name] = max(errs[name], err.max().item())
+            del got, want, err
+    del rnd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the kbench run: every variant, counters from 0
+    for fn, _ in kb.KERNELS.values():
+        fn.launches = 0
+    records = tool.run(d, tool.VARIANTS, "cuda", inputs=inp)
+    counts = {name: fn.launches for name, (fn, _) in kb.KERNELS.items()}
+    variants = tool.make_variants(d, inp, tool.VARIANTS)
+    for _, name, var, *_ in KBENCH:
+        want = (tool.REPS + 1) * variants[var].launches_per_pass
+        check(counts[name] == want, f"kbench run: {name} launched {counts[name]} times, want "
+                                    f"{want} ({tool.REPS} passes and a warm-up)")
+    # every variant's device time per pass (all its kernels, two passes under
+    # the profiler): the event times above include the host's launch gaps,
+    # which vary from run to run on a shared host
+    for name, var in variants.items():
+        busy = breakdown(lambda: [var.fn() for _ in range(2)])["busy_ms"]
+        records[name]["device_ms"] = busy / 2
+    log("  device ms per pass: " + ", ".join(f"{n} {r['device_ms']:.4f}"
+                                             for n, r in records.items()))
+
+    # 3. per kernel: device time, plain pass, library pass, bound
+    def sdpa_pass(_):
+        q4 = inp["q"].view(d.B, d.H, 1, d.dh)
+        for li in range(d.L):
+            k4 = inp["k"][li].view(d.B, d.H, d.dh, d.s_pad).transpose(-1, -2)[:, :, : d.S]
+            v4 = inp["v"][li].view(d.B, d.H, d.dh, d.s_pad).transpose(-1, -2)[:, :, : d.S]
+            F.scaled_dot_product_attention(q4, k4, v4, scale=1.0)
+
+    def whole_sum_pass(_):
+        return (inp["k"].sum(-1, keepdim=True, dtype=torch.float32)
+                + inp["v"].sum(-1, keepdim=True, dtype=torch.float32))
+
+    library = {"xla": records["xla"]["ms"], "whole": event_ms(whole_sum_pass, 1, 5),
+               "sdpa": event_ms(sdpa_pass, 1, 5)}
+    kv_elems = d.L * d.B * d.HD * d.s_pad
+    out = []
+
+    def f(x):
+        return "n/a" if x is None else f"{x:.4f}"
+
+    for kid, name, var, call, body, tol in KBENCH:
+        v_ = variants[var]
+        per_pass = v_.launches_per_pass
+        pattern = KB_PATTERN.get(name, "kv_rowsum")
+        dev = device_ms(lambda _: v_.fn(), 1, 2, pattern)
+        ref = kb.KERNELS[name][1]
+        if per_layer[name]:
+            plain = event_ms(lambda _: [ref(*args(name, li)) for li in range(d.L)], 1, 2)
+        else:
+            plain = event_ms(lambda _: ref(*args(name, 0)), 1, 2)
+        if name in ("kernel_vpu", "kernel_mxu", "kernel_mxub", "kernel_vpu8"):
+            # the operations the kernel does, at its type's peak: q.K and P.V
+            # over S_PAD keys; K4b over 32 padded head rows, K7 16 A rows
+            rows = {"kernel_mxu": 32, "kernel_mxub": 16}.get(name, 1)
+            ops_ms = 4 * kv_elems * rows / (BF16_FLOPS if rows > 1 else F32_FLOPS) * 1e3
+        else:
+            ops_ms = 2 * kv_elems / F32_FLOPS * 1e3     # k + v and the running sum
+        bytes_ms = records[var]["bound_ms"]
+        lib_ms = (library["xla"] if name in ("kernel_read", "kernel_rows")
+                  else library["whole"] if not per_layer[name]
+                  else None if name == "kernel_vpu8" else library["sdpa"])
+        e = dict(name=name, id=kid, route="cuda", source="whisper_tpu_torch/csrc/kbench.cu",
+                 replaces=call, tpu_body=body, launches=counts[name],
+                 launches_by_path={"kbench pass": per_pass},
+                 max_abs_err=errs[name], tol=tol, rounding_share=rounding.get(name),
+                 unit="per kbench pass (L=32 layers)",
+                 ms=records[var]["ms"], device_ms=None if dev is None else dev / per_pass,
+                 device_ms_per_pass=dev, plain_ms=plain, bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=lib_ms,
+                 bytes=records[var]["bytes"], gbps=records[var]["gbps"],
+                 shape=f"kbench B={d.B} S={d.S} (pad {d.s_pad}) HD={d.HD} H={d.H} CS={d.CS} "
+                       f"L={d.L} RB={d.RB}")
+        out.append(e)
+        share = "" if name not in rounding else f", {rounding[name]:.4f} of the rounding's effect"
+        log(f"  {kid} {name}: max_abs_err {e['max_abs_err']:.3e} (tol {tol}{share}); ms/pass "
+            f"{f(e['ms'])} (device {f(dev)} = {per_pass} x {f(e['device_ms'])}), plain "
+            f"{f(plain)}, library {f(lib_ms)}, bound {f(e['bound_ms'])} ({e['bound_by']}); "
+            f"launches {counts[name]} ({per_pass} per pass)")
+    log(f"  library passes, ms: torch.sum per layer {library['xla']:.4f}, over all slabs "
+        f"{library['whole']:.4f}, SDPA per layer {library['sdpa']:.4f}")
+    del inp, variants
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, records
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5
 # ---------------------------------------------------------------------------
 
@@ -749,6 +951,10 @@ def main() -> int:
         show_case("decode_attention_hd", c)
 
     phase_s["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("[kbench] python -m whisper_tpu_torch.tools.kbench at large-v2, every variant")
+    kb_entries, kb_records = kbench_phase()
+    phase_s["kbench"] = time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
         log("[golden]")
@@ -780,8 +986,10 @@ def main() -> int:
         entry("flash_attention", "whisper_tpu_torch/csrc/flash_attention.cu",
               "whisper_tpu/kernels/attention.py:90", k1_cases, tiers, "k1"),
         k2,
+        *kb_entries,
     ]
-    print(json.dumps({"kernels": kernels, "main_path": main, "card": smi, "phase_s": phase_s}),
+    print(json.dumps({"kernels": kernels, "main_path": main, "kbench": kb_records, "card": smi,
+                      "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -183,3 +183,105 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
         decode_attention_hd(q, kt, kt, 2, k_scale=sc, v_scale=sc)   # scales without int8
     with pytest.raises(ValueError, match="contiguous on"):
         decode_attention_hd(q, k8, k8, 2, k_scale=sc.cpu(), v_scale=sc)
+
+
+# ---------------------------------------------------------------------------
+# the microbenchmark's kernels (kernels/kbench.py): kernel against plain,
+# at a small ragged shape (S=200, CS=128) and at large-v2's per-layer one.
+# Tolerances: f32 p (K4a, K8) 1e-5; bf16 p (K4b, K7) 2e-3 at S=200 and 1e-4
+# at large-v2 (an ulp of exp can flip one bf16 rounding of p, which moves
+# an output by about that p's ulp times |v| over l), and the mean error
+# under a quarter of the mean gap between the bf16-p and f32-p plain
+# versions, which a kernel that skipped the rounding would show in full;
+# row sums 1e-5 relative to the row's sum of |k| + |v|.
+# ---------------------------------------------------------------------------
+
+KB_SHAPES = [dict(B=2, S=200, HD=128, H=2, CS=128, RB=64, L=2),
+             dict(B=8, S=1500, HD=1280, H=20, CS=512, RB=256, L=2)]
+
+
+def _kb_inputs(d, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s_pad = -(-d["S"] // d["CS"]) * d["CS"]
+    shape = (d["L"], d["B"], d["HD"], s_pad)
+    q = torch.randn((d["B"], d["HD"], 1), generator=g, device="cuda").mul(0.3).bfloat16()
+    k = torch.randn(shape, generator=g, device="cuda").mul(0.3).bfloat16()
+    v = torch.randn(shape, generator=g, device="cuda").bfloat16()
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", KB_SHAPES, ids=["small", "large-v2"])
+@pytest.mark.parametrize("kernel", ["kernel_read", "kernel_rows", "kernel_read_all_layers",
+                                    "kernel_flatread"])
+def test_kbench_rowsum_kernel_matches_plain(kernel, d):
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    _, k, v = _kb_inputs(d, 5)
+    if kernel in ("kernel_read", "kernel_rows"):
+        k, v = k[1], v[1]
+    arg = d["RB"] if kernel == "kernel_rows" else d["CS"]
+    wrapper, ref = kb.KERNELS[kernel]
+    before = wrapper.launches
+    got = wrapper(k, v, arg)
+    # the split tiling launches the partial sums and a combine
+    assert wrapper.launches == before + (1 if kernel == "kernel_rows" else 2)
+    want = ref(k, v, arg)
+    torch.cuda.synchronize()
+    scale = (k.float().abs() + v.float().abs()).sum(-1, keepdim=True).reshape(want.shape)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert ((got - want).abs() / scale).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", KB_SHAPES, ids=["small", "large-v2"])
+@pytest.mark.parametrize("kernel", ["kernel_vpu", "kernel_mxu", "kernel_mxub", "kernel_vpu8"])
+def test_kbench_attention_kernel_matches_plain(kernel, d):
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    q, k, v = _kb_inputs(d, 6)
+    k, v = k[1], v[1]
+    if kernel == "kernel_vpu8":
+        g = torch.Generator(device="cuda").manual_seed(7)
+        k = torch.randint(-127, 128, k.shape, generator=g, device="cuda", dtype=torch.int8)
+        v = torch.randint(-127, 128, v.shape, generator=g, device="cuda", dtype=torch.int8)
+        sk = torch.rand((k.shape[0], 1, k.shape[-1]), generator=g, device="cuda") * 9e-3 + 1e-3
+        sv = torch.rand((k.shape[0], 1, k.shape[-1]), generator=g, device="cuda") * 9e-3 + 1e-3
+        args = (q, k, v, sk, sv, d["H"], d["S"], d["CS"])
+    else:
+        args = (q, k, v, d["H"], d["S"], d["CS"])
+    wrapper, ref = kb.KERNELS[kernel]
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before + 1
+    want = ref(*args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (d["B"], d["HD"], 1) and bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    if kernel in ("kernel_vpu", "kernel_vpu8"):
+        assert err.max().item() < 1e-5
+    else:
+        assert err.max().item() < (2e-3 if d["S"] == 200 else 1e-4)
+        gap = (want - kb.attention_ref(*args)).abs()           # the rounding's whole effect
+        assert err.mean().item() <= 0.25 * gap.mean().item()
+
+
+@pytest.mark.cuda
+def test_kbench_wrappers_refuse_what_they_do_not_take():
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    q, k, v = _kb_inputs(KB_SHAPES[0], 8)
+    k, v = k[0], v[0]
+    with pytest.raises(NotImplementedError, match="bfloat16 K/V"):
+        kb.kernel_read(k.float(), v.float(), 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        kb.kernel_read(k[..., :128], v[..., :128], 128)
+    with pytest.raises(ValueError, match="multiple of RB"):
+        kb.kernel_rows(k, v, 48)
+    with pytest.raises(NotImplementedError, match="CS % 64"):
+        kb.kernel_mxub(q, k, v, 2, 200, 32)
+    with pytest.raises(ValueError, match="k_scale"):
+        kb.kernel_vpu8(q, k.to(torch.int8), v.to(torch.int8), None, None, 2, 200, 128)

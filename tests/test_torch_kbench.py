@@ -1,0 +1,290 @@
+"""The port's decode-attention microbenchmark (``whisper_tpu_torch.tools.
+kbench`` and ``whisper_tpu_torch.kernels.kbench``) against the JAX tool
+``tools/kbench.py``, on the CPU.
+
+The JAX tool reads its dimensions at import, keeps five of its Pallas
+kernels as closures inside ``main()`` and passes no ``interpret=``; so the
+tests load it by path under small dimensions with a ragged S (S=200, CS=128:
+the padded columns [200, 256) are summed by the read family and masked by
+the attention family) and wrap its module-level bodies in ``pallas_call``s
+of their own, in interpret mode. The closure kernels are held against the
+JAX function that computes the same thing: K5, K6 and K9 against
+``kernel_read``; K7 against ``kernel_mxu`` (same rounding points); K8
+against ``whisper_tpu.kernels.decode_attention.decode_attention_hd``.
+
+Tolerances:
+  - f32-p attention (K4a, K8): 1e-5, only the summation order differs.
+  - read family: 1e-5 relative to the row's sum of |k| + |v|, f32 sums of
+    bf16 data in another order.
+  - bf16-p attention (K4b, K7): 2e-3 at most; exp may differ by an ulp
+    between XLA and torch, which can flip one bf16 rounding of p. That
+    limit is above the rounding's whole effect (~1.4e-4 here), so the mean
+    error must also stay under a quarter of the mean gap between JAX's
+    bf16-p and f32-p bodies: a version that skipped the rounding, or
+    rounded at another max, shows the gap in full.
+On a CPU tensor every wrapper runs its plain version; the CUDA kernels are
+held against the same plain versions on the card (tests/test_torch_cuda.py,
+``chip_smoke.py``).
+"""
+
+import ast
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+TOOL = ROOT / "tools" / "kbench.py"
+DIMS = dict(B=2, S=200, HD=128, H=2, L=2, CS=128, RB=64)
+TOL_F32 = 1e-5
+TOL_READ = 1e-5
+TOL_BF16_P = 2e-3
+ROUNDING_SHARE = 0.25
+
+
+@pytest.fixture(scope="module")
+def jkb():
+    """tools/kbench.py loaded under DIMS, as a module of its own."""
+    with pytest.MonkeyPatch.context() as mp:
+        for name, val in DIMS.items():
+            mp.setenv(name, str(val))
+        spec = importlib.util.spec_from_file_location("tools_kbench_under_test", TOOL)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    return mod
+
+
+def _make_pallas(jkb, body, scratch):
+    """``make_pallas``'s call, in interpret mode: grid (B, chunks)."""
+    hd, cs = jkb.HD, jkb.CS
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=1,
+        grid=(jkb.B, jkb.N_CHUNKS),
+        in_specs=[
+            pl.BlockSpec((1, hd, 1), lambda i, c, *_: (i, 0, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, hd, cs), lambda i, c, *_: (i, 0, c), memory_space=pltpu.VMEM),
+            pl.BlockSpec((1, hd, cs), lambda i, c, *_: (i, 0, c), memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((1, hd, 1), lambda i, c, *_: (i, 0, 0), memory_space=pltpu.VMEM),
+        scratch_shapes=scratch,
+    )
+    call = pl.pallas_call(body, grid_spec=grid_spec, interpret=True,
+                          out_shape=jax.ShapeDtypeStruct((jkb.B, hd, 1), jnp.float32))
+    return lambda q, k, v: np.asarray(call(jnp.zeros((jkb.B, 2), jnp.int32), q, k, v))
+
+
+def _jax_read(jkb, q, k, v):
+    return _make_pallas(jkb, jkb.kernel_read, [pltpu.VMEM((jkb.HD, 1), jnp.float32)])(q, k, v)
+
+
+def _jax_attention(jkb, body, q, k, v):
+    scratch = [pltpu.VMEM((jkb.H, 1), jnp.float32), pltpu.VMEM((jkb.H, 1), jnp.float32),
+               pltpu.VMEM((jkb.HD, 1), jnp.float32)]
+    return _make_pallas(jkb, body, scratch)(q, k, v)
+
+
+def _inputs(seed, lead=(DIMS["B"],)):
+    """bf16 q [B, HD, 1] and K/V [*lead, HD, S_PAD] (padded columns hold
+    data), as (numpy f32 of the bf16 values, torch bf16, jax bf16)."""
+    rng = np.random.default_rng(seed)
+    s_pad = -(-DIMS["S"] // DIMS["CS"]) * DIMS["CS"]
+    shapes = dict(q=(DIMS["B"], DIMS["HD"], 1), k=(*lead, DIMS["HD"], s_pad),
+                  v=(*lead, DIMS["HD"], s_pad))
+    out = {}
+    for name, shape in shapes.items():
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.3).bfloat16()
+        out[name] = (x.float().numpy(), x, jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+    return out
+
+
+def _assert_rowsums(got, want, k, v):
+    scale = np.abs(k).sum(-1, keepdims=True) + np.abs(v).sum(-1, keepdims=True)
+    assert got.shape == want.shape
+    assert np.max(np.abs(got - want) / scale) <= TOL_READ
+
+
+@pytest.mark.parametrize("kernel", ["kernel_read", "kernel_rows", "kernel_read_all_layers",
+                                    "kernel_flatread"])
+def test_read_family_plain_matches_pallas(jkb, kernel):
+    """K3, K5, K6 and K9 against kernel_read (interpret), layer by layer,
+    over every stored column; the wrapper on CPU tensors gives the plain
+    result and launches nothing."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    L, cs, rb = DIMS["L"], DIMS["CS"], DIMS["RB"]
+    x = _inputs(1, lead=(L, DIMS["B"]))
+    (k_np, k, k_j), (v_np, v, v_j), q_j = x["k"], x["v"], x["q"][2]
+    want = np.stack([_jax_read(jkb, q_j, k_j[li], v_j[li]) for li in range(L)])
+    wrapper, ref = kb.KERNELS[kernel]
+    if kernel in ("kernel_read", "kernel_rows"):
+        arg = cs if kernel == "kernel_read" else rb
+        calls = [(lambda f, li=li: f(k[li], v[li], arg)) for li in range(L)]
+        got = np.stack([c(ref).numpy() for c in calls])
+        before = wrapper.launches
+        via = np.stack([c(wrapper).numpy() for c in calls])
+    else:
+        got = ref(k, v, cs).numpy()
+        before = wrapper.launches
+        via = wrapper(k, v, cs).numpy()
+        want = want.reshape(got.shape)
+    _assert_rowsums(got, want.reshape(got.shape), k_np.reshape(*got.shape[:-1], -1),
+                    v_np.reshape(*got.shape[:-1], -1))
+    np.testing.assert_array_equal(via, got)
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("kernel,body,tol", [
+    ("kernel_vpu", "kernel_vpu", TOL_F32),
+    ("kernel_mxu", "kernel_mxu", TOL_BF16_P),
+    ("kernel_mxub", "kernel_mxu", TOL_BF16_P),
+])
+def test_attention_plain_matches_pallas(jkb, kernel, body, tol):
+    """K4a, K4b and K7 against the TPU bodies (interpret): unscaled q,
+    columns >= S at -inf, chunked online softmax."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    x = _inputs(2)
+    want = _jax_attention(jkb, getattr(jkb, body), x["q"][2], x["k"][2], x["v"][2])
+    args = (x["q"][1], x["k"][1], x["v"][1], DIMS["H"], DIMS["S"], DIMS["CS"])
+    wrapper, ref = kb.KERNELS[kernel]
+    got = ref(*args).numpy()
+    assert got.shape == want.shape == (DIMS["B"], DIMS["HD"], 1) and got.dtype == np.float32
+    err = np.abs(got - want)
+    assert np.max(err) < tol
+    if body == "kernel_mxu":
+        f32_p = _jax_attention(jkb, jkb.kernel_vpu, x["q"][2], x["k"][2], x["v"][2])
+        assert np.mean(err) <= ROUNDING_SHARE * np.mean(np.abs(want - f32_p))
+    before = wrapper.launches
+    np.testing.assert_array_equal(wrapper(*args).numpy(), got)
+    assert wrapper.launches == before
+
+
+def test_mxu_plain_rounds_p_to_bf16():
+    """K4b/K7's plain version differs from K4a's by p's bf16 rounding alone."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    x = _inputs(3)
+    args = (x["q"][1], x["k"][1], x["v"][1], DIMS["H"], DIMS["S"], DIMS["CS"])
+    plain = {n: kb.KERNELS[n][1](*args).numpy()
+             for n in ("kernel_mxu", "kernel_mxub", "kernel_vpu")}
+    np.testing.assert_array_equal(plain["kernel_mxu"], plain["kernel_mxub"])
+    diff = np.max(np.abs(plain["kernel_mxu"] - plain["kernel_vpu"]))
+    assert 0 < diff < TOL_BF16_P
+
+
+def test_vpu8_plain_matches_decode_attention():
+    """K8 against the JAX package's decode_attention_hd on int8 K/V with
+    column scales (interpret), over the S real keys."""
+    from whisper_tpu.kernels.decode_attention import decode_attention_hd as jax_dec
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    rng = np.random.default_rng(4)
+    b, hd, h, s, cs = DIMS["B"], DIMS["HD"], DIMS["H"], DIMS["S"], DIMS["CS"]
+    s_pad = -(-s // cs) * cs
+    q = torch.from_numpy(rng.standard_normal((b, hd, 1)).astype(np.float32) * 0.3).bfloat16()
+    k8, v8 = (rng.integers(-127, 128, (b, hd, s_pad)).astype(np.int8) for _ in range(2))
+    sk, sv = (rng.uniform(1e-3, 1e-2, (b, 1, s_pad)).astype(np.float32) for _ in range(2))
+    want = np.asarray(jax_dec(jnp.asarray(q.float().numpy()).astype(jnp.bfloat16),
+                              jnp.asarray(k8[..., :s]), jnp.asarray(v8[..., :s]), h,
+                              k_scale=jnp.asarray(sk[..., :s]), v_scale=jnp.asarray(sv[..., :s]),
+                              interpret=True))
+    args = (q, *(torch.from_numpy(a) for a in (k8, v8, sk, sv)), h, s, cs)
+    got = kb.KERNELS["kernel_vpu8"][1](*args).numpy()
+    assert got.shape == want.shape and np.max(np.abs(got - want)) < TOL_F32
+    before = kb.kernel_vpu8.launches
+    np.testing.assert_array_equal(kb.kernel_vpu8(*args).numpy(), got)
+    assert kb.kernel_vpu8.launches == before
+
+
+def test_kernel_rows_refuses_rows_the_grid_would_drop():
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    x = _inputs(5)
+    with pytest.raises(ValueError, match="multiple of RB"):
+        kb.kernel_rows(x["k"][1], x["v"][1], 48)
+
+
+def _tool_fill():
+    """The JAX tool's ``fill``, a closure of its ``main()``, compiled from
+    its source."""
+    tree = ast.parse(TOOL.read_text())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    fill = next(n for n in main.body if isinstance(n, ast.FunctionDef) and n.name == "fill")
+    ns = {"jax": jax, "jnp": jnp}
+    exec(compile(ast.Module(body=[fill], type_ignores=[]), str(TOOL), "exec"), ns)
+    return ns["fill"]
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 4, 1536), (2, 5, 1), (2, 64, 17920)])
+def test_fill_matches_tool(shape):
+    """Within one bf16 ulp: sin in f32 may differ by an ulp between XLA and
+    torch, which can move a bf16 rounding."""
+    from whisper_tpu_torch.tools.kbench import fill
+
+    want = np.asarray(_tool_fill()(shape).astype(jnp.float32))
+    got = fill(shape, "cpu").float().numpy()
+    assert got.shape == want.shape
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 1e-30))) - 7)
+    assert np.all(np.abs(got - want) <= ulp)
+
+
+def test_run_every_variant_on_cpu(capsys):
+    """The entry point's pass over every variant at small dimensions: a
+    record with positive bytes each, and no device rate from a host clock."""
+    from whisper_tpu_torch.tools.kbench import VARIANTS, D, Dims, run
+
+    dims = Dims(**DIMS, N=16)
+    records = run(dims, VARIANTS, device="cpu", reps=1)
+    assert list(records) == list(VARIANTS)
+    kv = 2 * dims.L * dims.B * dims.HD * dims.s_pad * 2
+    for name, rec in records.items():
+        assert rec["bytes"] > 0 and rec["ms"] > 0 and rec["device"] == "cpu", name
+        assert rec["gbps"] is None and rec["share_of_bound"] is None
+    assert records["read"]["bytes"] == kv + dims.L * dims.B * dims.HD * 4
+    assert records["copy"]["bytes"] == kv
+    assert records["vpu8"]["bytes"] == kv // 2 + 2 * dims.L * dims.B * dims.s_pad * 4 \
+        + dims.B * dims.HD * 2 + dims.L * dims.B * dims.HD * 4
+    w, x = dims.L * D * 14 * D, 2 * 8 * D * 2              # weights; x in and out, bf16
+    assert records["w8mm"]["bytes"] == w + 14 * D * 4 + x   # int8 + f32 column scales
+    assert records["wbfmm"]["bytes"] == 2 * w + x
+    assert len(capsys.readouterr().out.splitlines()) == len(VARIANTS)
+
+
+def test_tool_passes_match_plain_versions():
+    """A pass of each kernel variant returns its kernel's plain result for
+    every layer."""
+    from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.tools.kbench import Dims, make_inputs, make_variants
+
+    dims = Dims(**DIMS)
+    names = ("read", "rows", "vpu", "mxub", "vpu8", "flatread", "read1")
+    inp = make_inputs(dims, "cpu", names)
+    var = make_variants(dims, inp, names)
+    q, k, v = inp["q"], inp["k"], inp["v"]
+    layer = 1
+    torch.testing.assert_close(var["read"].fn()[layer], kb.rowsum_ref(k[layer], v[layer]))
+    torch.testing.assert_close(var["vpu"].fn()[layer],
+                               kb.attention_ref(q, k[layer], v[layer], dims.H, dims.S, dims.CS))
+    torch.testing.assert_close(var["flatread"].fn(), kb.rowsum_ref(k, v).reshape(-1, dims.HD, 1))
+    torch.testing.assert_close(var["read1"].fn(), kb.rowsum_ref(k, v).sum())
+    assert inp["k8"].dtype == torch.int8 and int(inp["k8"].abs().max()) <= 127
+    # the split row sums (read, flatread, read1) add a combine launch a call
+    assert [var[n].launches_per_pass for n in names] == [2 * dims.L] + [dims.L] * 4 + [2, 2]
+
+
+def test_main_raises_without_a_card(monkeypatch):
+    from whisper_tpu_torch.tools.kbench import main
+
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without a CUDA card")
+    monkeypatch.setenv("VARIANTS", "read")
+    with pytest.raises(RuntimeError, match="cuda"):
+        main([])

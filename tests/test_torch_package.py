@@ -28,6 +28,8 @@ SLICE_MODULES = [
     "whisper_tpu_torch.kernels.attention",
     "whisper_tpu_torch.kernels.decode_attention",
     "whisper_tpu_torch.kernels.quant",
+    "whisper_tpu_torch.kernels.kbench",
+    "whisper_tpu_torch.tools.kbench",
     "whisper_tpu_torch.runtime.sampler",
     "whisper_tpu_torch.runtime.decode",
     "whisper_tpu_torch.runtime.context",

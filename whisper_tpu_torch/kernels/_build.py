@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "whisper_tpu_torch"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "kbench")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
