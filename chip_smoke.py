@@ -15,9 +15,12 @@ result line:
                 path's large-v2 shapes (bf16 inputs; K2 also on int8 K/V with
                 column scales, the serving tier's caches), with its time, the
                 plain version's, one PyTorch library call's (a yardstick the
-                port never calls; none takes int8 K/V with scales) and the
+                port never calls; none takes int8 K/V with scales) on events
+                and on profiler device time over all its kernels, and the
                 bound (least time the card could take: bytes over 3.35 TB/s
-                or operations over 989 TFLOP/s)
+                or operations over 989 TFLOP/s); each case's share of the
+                bound and its ratio to the library call. K1 on strided views
+                (as the encoder passes them) and on contiguous tensors
   3b. kbench    the port's microbenchmark of the decode-attention stream
                 (whisper_tpu_torch.tools.kbench, the JAX tool's large-v2
                 defaults B=8 S=1500 HD=1280 H=20 L=32 CS=512): each of its
@@ -278,13 +281,24 @@ def _n_sets(set_bytes: int) -> int:
     return max(2, min(32, math.ceil(2.5 * L2_BYTES / set_bytes)))
 
 
-def flash_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
+def library_device_ms(fn, n_sets: int, iters: int) -> float:
+    """Mean device time per call of ``fn`` over every kernel it launches
+    (profiler), for a library call whose kernels have no fixed name."""
+    return breakdown(lambda: [fn(i % n_sets) for i in range(iters)])["busy_ms"] / iters
+
+
+def flash_case(b: int, t: int, h: int = 20, dh: int = 64, contiguous: bool = False) -> dict:
     """K1 at the encoder's shapes: q, k, v as strided views of one
-    [B, T, H, 3, Dh] bf16 tensor, as the encoder hands them over."""
+    [B, T, H, 3, Dh] bf16 tensor, as the encoder hands them over, or as
+    three contiguous [B, T, H, Dh] tensors."""
     import torch
     import torch.nn.functional as F
 
-    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
+    from whisper_tpu_torch.kernels.attention import (
+        flash_attention,
+        flash_attention_ref,
+        flash_attention_shape,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     set_bytes = 4 * b * t * h * dh * 2
@@ -292,7 +306,7 @@ def flash_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
     sets = []
     for _ in range(n):
         qkv = (torch.randn((b, t, h, 3, dh), generator=g, device="cuda") * 0.5).to(torch.bfloat16)
-        sets.append(qkv.unbind(3))
+        sets.append(tuple(x.contiguous() for x in qkv.unbind(3)) if contiguous else qkv.unbind(3))
     q, k, v = sets[0]
     got = flash_attention(q, k, v)
     want = flash_attention_ref(q, k, v)
@@ -310,7 +324,7 @@ def flash_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
     bound_flops = flops / BF16_FLOPS * 1e3
     bound_bytes = set_bytes / HBM_BYTES_PER_S * 1e3
     return dict(
-        case=f"B={b} T={t} H={h} Dh={dh} bf16",
+        case=f"B={b} T={t} H={h} Dh={dh} bf16, {'contiguous' if contiguous else 'strided'} q/k/v",
         max_abs_err=err, tol=2e-2,
         tol_reason="bf16 output (1 ulp is 7.8e-3 at |x| in [1, 2)); P is rounded to bf16 "
                    "before normalisation in the kernel and after it in the plain version",
@@ -318,6 +332,10 @@ def flash_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
         device_ms=device_ms(lambda i: flash_attention(*sets[i]), n, 20, "flash_attention_kernel"),
         plain_ms=event_ms(lambda i: flash_attention_ref(*sets[i]), n, 5),
         library_ms=event_ms(lib, n, 50),
+        library_device_ms=library_device_ms(lib, n, 20),
+        # both block shapes, forced, against which the kernel's own choice is made
+        shape_device_ms={shape: device_ms(lambda i: flash_attention_shape(*sets[i], shape), n, 20,
+                                          "flash_attention_kernel") for shape in ("wide", "deep")},
         bound_ms=max(bound_flops, bound_bytes),
         bound_by="operations" if bound_flops >= bound_bytes else "bytes",
     )
@@ -414,19 +432,34 @@ def decode_case(b: int, s: int, group: int = 1, masked: bool = False, int8: bool
         plain_ms=event_ms(lambda i: call(decode_attention_hd_ref, i), n, 20),
         # no single PyTorch call takes int8 K/V with per-column scales
         library_ms=None if int8 else event_ms(lib, n, 50),
+        library_device_ms=None if int8 else library_device_ms(lib, n, 20),
         bound_ms=max(bound_bytes, bound_flops),
         bound_by="bytes" if bound_bytes >= bound_flops else "operations",
     )
 
 
 def show_case(name: str, c: dict) -> None:
+    """Log a case with its share of the bound (bound over device time) and
+    its ratio to the library call (events over events, device over device),
+    keep both in the case, and hold its error to the tolerance."""
     def f(x):
         return "n/a" if x is None else f"{x:.4f}"
 
+    def ratio(a, b):
+        return None if a is None or b is None else a / b
+
+    c["bound_share"] = ratio(c["bound_ms"], c["device_ms"])
+    c["vs_library"] = ratio(c["ms"], c["library_ms"])
+    c["vs_library_device"] = ratio(c["device_ms"], c["library_device_ms"])
     log(f"  {name} [{c['case']}]: max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.0e}: "
         f"{c['tol_reason']}); ms {f(c['ms'])} (device {f(c['device_ms'])}), plain_ms "
-        f"{f(c['plain_ms'])}, library_ms {f(c['library_ms'])}, bound_ms {f(c['bound_ms'])} "
-        f"({c['bound_by']})")
+        f"{f(c['plain_ms'])}, library_ms {f(c['library_ms'])} (device "
+        f"{f(c['library_device_ms'])}), bound_ms {f(c['bound_ms'])} ({c['bound_by']}); "
+        f"share of bound {f(c['bound_share'])}, x library {f(c['vs_library'])} (device "
+        f"{f(c['vs_library_device'])})")
+    if "shape_device_ms" in c:
+        log("    device ms by block shape: " + ", ".join(f"{k} {f(v)}" for k, v in
+                                                   c["shape_device_ms"].items()))
     check(c["max_abs_err"] <= c["tol"], f"{name} {c['case']}: error {c['max_abs_err']} > {c['tol']}")
 
 
@@ -925,21 +958,23 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    from whisper_tpu_torch.kernels._build import build_all
+    from whisper_tpu_torch.kernels._build import build_all, ptxas_report
 
-    # phase 2: build
+    # phase 2: build, with each kernel's registers, spills and static shared
+    # memory as ptxas reports them
     t0 = time.perf_counter()
     info = build_all()
     log(f"[build] {time.perf_counter() - t0:.1f} s")
     for name, i in info.items():
-        notes = [ln.strip() for ln in i["log"].splitlines() if "registers" in ln or "spill" in ln]
-        log(f"  {name}: {i['seconds']:.1f} s; " + " | ".join(notes))
+        log(f"  {name}.cu: {i['seconds']:.1f} s")
+        for line in ptxas_report(i["log"]):
+            log(f"    {line}")
 
     # phase 3: kernels vs plain versions
     phase_s = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
     log("[kernels]")
-    k1_cases = [flash_case(1, 1500), flash_case(8, 1500)]
+    k1_cases = [flash_case(1, 1500), flash_case(8, 1500), flash_case(8, 1500, contiguous=True)]
     k2_cases = [decode_case(1, 1500, int8=int8) for int8 in (False, True)]
     k2_cases += [decode_case(8, 1500, int8=int8) for int8 in (False, True)]
     k2_cases += [decode_case(40, 1500, group=5, int8=int8) for int8 in (False, True)]
@@ -975,8 +1010,8 @@ def main() -> int:
                     launches=sum(by_path.values()), launches_by_path=by_path,
                     max_abs_err=max(c["max_abs_err"] for c in cases), ms=head["ms"],
                     plain_ms=head["plain_ms"], bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                    library_ms=head["library_ms"], device_ms=head["device_ms"], shape=head["case"],
-                    cases=cases)
+                    library_ms=head["library_ms"], device_ms=head["device_ms"],
+                    library_device_ms=head["library_device_ms"], shape=head["case"], cases=cases)
 
     tiers = ("bf16", "serving")
     k2 = entry("decode_attention_hd", "whisper_tpu_torch/csrc/decode_attention.cu",

@@ -38,6 +38,87 @@ def test_flash_attention_kernel_matches_plain(b, tq, tk):
     assert err < 2e-2
 
 
+def _qkv(g, b, tq, tk, strided):
+    """q, k, v [B, T, H, 64] bf16: strided views of one [B, T, H, 3, 64]
+    tensor, as the encoder hands them over (tq == tk), or contiguous."""
+    if strided and tq == tk:
+        qkv = torch.randn((b, tq, 20, 3, 64), generator=g, device="cuda").mul(0.5).bfloat16()
+        return qkv.unbind(3)
+    q = torch.randn((b, tq, 20, 64), generator=g, device="cuda").mul(0.5).bfloat16()
+    k, v = torch.randn((2, b, tk, 20, 64), generator=g, device="cuda").mul(0.5).bfloat16()
+    if strided:   # k and v as strided views of one [B, Tk, H, 2, 64] tensor
+        k, v = torch.stack((k, v), dim=3).unbind(3)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,tq,tk,strided",
+    [(8, 1500, 1500, True), (8, 1500, 1500, False), (8, 1500, 1499, False),
+     (8, 1499, 1500, True), (2, 75, 150, False), (1, 150, 75, True), (1, 1, 1500, True),
+     (1, 1500, 1, False), (3, 129, 257, True), (1, 128, 128, False)],
+)
+def test_flash_attention_kernel_tile_edges(b, tq, tk, strided):
+    """Tq and Tk off the tiles of both block shapes (Wide: 128 q rows,
+    128-key tiles; Deep: 192 rows, 64 keys, taken at B=8 T=1500), one row or
+    one key, on strided views and contiguous tensors."""
+    _need_card()
+    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = _qkv(g, b, tq, tk, strided)
+    assert q.is_contiguous() != strided or tq != tk
+    got = flash_attention(q, k, v)
+    want = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (b, tq, 20, 64) and bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["wide", "deep"])
+@pytest.mark.parametrize("b,tq,tk", [(1, 75, 150), (3, 129, 257), (2, 193, 65), (1, 1, 1)])
+def test_flash_attention_both_block_shapes_match_plain(shape, b, tq, tk):
+    """Each block shape forced (Wide: 128 q rows, 128-key tiles; Deep: 192
+    rows, 64-key tiles) on ragged edges, counted like the kernel's own
+    choice."""
+    _need_card()
+    from whisper_tpu_torch.kernels.attention import (
+        flash_attention,
+        flash_attention_ref,
+        flash_attention_shape,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = _qkv(g, b, tq, tk, True)
+    before = flash_attention.launches
+    got = flash_attention_shape(q, k, v, shape)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() < 2e-2
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_what_tma_cannot_read():
+    """TMA needs 16-byte aligned bases and strides of 16-byte multiples; an
+    empty key set has nothing to attend."""
+    _need_card()
+    from whisper_tpu_torch.kernels.attention import flash_attention
+
+    x = torch.zeros((1, 16, 2, 64), device="cuda", dtype=torch.bfloat16)
+    wide = torch.zeros((1, 16, 2, 68), device="cuda", dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(wide, x, x)                  # H stride 68 elements = 136 B
+    flat = torch.zeros(16 * 2 * 64 + 8, device="cuda", dtype=torch.bfloat16)
+    shifted = flat[4:-4].view(1, 16, 2, 64)          # base 8 B past an aligned one
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(x, shifted, x)
+    flash_attention(x, flat[8:].view(1, 16, 2, 64), x)   # 16 B past: taken
+    with pytest.raises(ValueError, match="empty"):
+        flash_attention(x, x[:, :0], x[:, :0])             # no key to attend
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,s,group,masked,dtype",
@@ -154,6 +235,50 @@ def test_decode_attention_int8_kernel_empty_lane_matches_plain():
     assert (got - decode_attention_hd_ref(q, k8, v8, 20, **kw)).abs().max().item() < 2e-3
     mean_v = dequantize(v8[1:], vs[1:], torch.float32).mean(dim=-1, keepdim=True)
     assert (got[1:] - mean_v).abs().max().item() < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("s,shift", [(1500, 0), (448, 0), (150, 0), (151, 0), (1500, 1)])
+def test_decode_attention_kernel_vector_widths(s, shift, int8):
+    """K2 at each load width: S=1500 and 448 take 4 keys a load, 150 two, 151
+    one, as does a base one element past an aligned one (shift). Lanes mix
+    full, partial and empty intervals, and kv_group=5 shares each K/V lane."""
+    _need_card()
+    from whisper_tpu_torch.kernels.decode_attention import (
+        decode_attention_hd,
+        decode_attention_hd_ref,
+        vector_keys,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    hd, group, u = 20 * 64, 5, 2
+    b = u * group
+    if int8:
+        k8, ks, v8, vs = _int8_kv(g, u, hd, s)
+        kv = dict(k_scale=ks, v_scale=vs)
+    else:
+        k8 = torch.randn((u, hd, s), generator=g, device="cuda").mul(0.5).bfloat16()
+        v8 = torch.randn((u, hd, s), generator=g, device="cuda").bfloat16()
+        kv = {}
+    if shift:   # the same values from a base `shift` elements past an aligned one
+        k8, v8 = (torch.cat((t.new_zeros(shift), t.flatten()))[shift:].view(t.shape)
+                  for t in (k8, v8))
+    q = torch.randn((b, hd, 1), generator=g, device="cuda").mul(0.5).bfloat16()
+    start = torch.tensor([0, 3, 60, s - 1, 90, 0, 1, 7, s, 0], dtype=torch.int32, device="cuda")
+    valid = torch.tensor([s, s - 5, 200, s, 40, 1, 129, 130, s, s - 2], dtype=torch.int32,
+                         device="cuda")
+    kw = dict(kv_group=group, start=start, valid_len=valid, **kv)
+    want_vec = 1 if shift or s % 2 else 2 if s % 4 else 4
+    assert vector_keys(s, k8.element_size(), k8.data_ptr(), v8.data_ptr()) == want_vec
+    counts = decode_attention_hd.launches, decode_attention_hd.launches_int8
+    got = decode_attention_hd(q, k8, v8, 20, **kw)
+    assert (decode_attention_hd.launches, decode_attention_hd.launches_int8) == \
+        (counts[0] + 1, counts[1] + int8)
+    want = decode_attention_hd_ref(q, k8, v8, 20, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() < 2e-3
 
 
 @pytest.mark.cuda

@@ -147,3 +147,41 @@ def test_decode_attention_int8_scales_raise():
     for kw, match in bad:
         with pytest.raises(ValueError, match=match):
             decode_attention_hd(q, kw.pop("k_t"), kw.pop("v_t"), 2, **kw)
+
+
+@pytest.mark.parametrize(
+    "s,itemsize,ptrs,want",
+    [(1500, 2, (0, 3_840_000), 4), (1500, 1, (0, 1_920_000), 4), (448, 2, (512, 1024), 4),
+     (150, 2, (0, 0), 2), (150, 1, (0, 0), 2), (151, 2, (0, 0), 1), (151, 1, (0, 0), 1),
+     (1500, 2, (2, 0), 1), (1500, 2, (0, 4), 2), (1500, 4, (8, 0), 2), (1500, 4, (0, 16), 4)],
+)
+def test_decode_attention_vector_keys(s, itemsize, ptrs, want):
+    """K2's load width: 4 keys where S and every base are aligned to 4
+    elements, else 2, else 1 (bf16 cross rows are 3000 B: 8-byte aligned)."""
+    from whisper_tpu_torch.kernels.decode_attention import vector_keys
+
+    assert vector_keys(s, itemsize, *ptrs) == want
+
+
+def test_build_ptxas_report_names_each_kernel():
+    """chip_smoke.py's build log: one line per kernel with its registers,
+    spills and static shared memory, from nvcc's -Xptxas -v output."""
+    from whisper_tpu_torch.kernels._build import ptxas_report
+
+    pre = "_ZN52_GLOBAL__N__e9d8e680_19_decode_attention_cu_449f9e72"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{pre}22decode_attention_kernelI13__nv_bfloat16"
+        "aLi4ELi8EEEvNS_4ArgsE' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 9792 bytes smem",
+        f"ptxas info    : Compiling entry function '{pre}24decode_attention_combineEPKfS1_Pfiii' "
+        "for 'sm_90a'",
+        "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+    ])
+    assert ptxas_report(log) == [
+        "22decode_attention_kernelI13__nv_bfloat16aLi4ELi8EE: 64 registers, 0 B spilled, "
+        "9792 B static smem",
+        "24decode_attention_combineEPKfS1_Pfiii: 40 registers, 8 B spilled, 0 B static smem",
+    ]

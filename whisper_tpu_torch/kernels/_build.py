@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -77,6 +78,34 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return info
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's mangled name without its file's anonymous namespace and
+    its parameter list: 22decode_attention_kernelI13__nv_bfloat16aLi4ELi8EE
+    is decode_attention_kernel<bf16, int8 (a), 4, 8>."""
+    short = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", mangled)
+    return short.split("Ev")[0]
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel of an nvcc ``-Xptxas -v`` log: its registers,
+    spilled bytes and static shared memory (dynamic shared memory is the
+    launch's and not in the log)."""
+    out, name, spill = [], None, "0"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = _kernel_name(entry.group(1))
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores:
+            spill = stores.group(1)
+        used = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if used and name:
+            out.append(f"{name}: {used.group(1)} registers, {spill} B spilled, "
+                       f"{used.group(2) or 0} B static smem")
+            name, spill = None, "0"
+    return out
 
 
 @functools.cache

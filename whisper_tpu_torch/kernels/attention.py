@@ -5,9 +5,14 @@ Replaces ``whisper_tpu/kernels/attention.py:flash_attention`` (Pallas,
 body ``_attn_kernel``): unmasked softmax(q k^T) v over pre-scaled q, k in
 [B, T, H, Dh], softmax in f32, P cast to v.dtype, f32 PV, v.dtype output.
 The kernel is ``csrc/flash_attention.cu``; its header says what bounds it on
-an H100 (operations: 11.5 GFLOP per large-v2 layer) and how its design
-answers that (64-row q tiles, 64-key K/V tiles streamed through shared
-memory, f32 online softmax, mma.sync bf16 tensor-core products).
+an H100 (operations: 11.5 GFLOP per large-v2 layer and lane) and how its
+design answers that: consumer warpgroups of 64 q rows (two over 128-key
+tiles where there are few blocks, as at B=1; three over 64-key tiles where
+there are many, as at B=8), K/V tiles that a producer warp loads by TMA
+into a multi-stage mbarrier ring, both products on wgmma, f32 online
+softmax. TMA reads q, k and v in place through their strides, which must be
+multiples of 16 bytes on 16-byte aligned bases; the wrapper refuses
+anything else.
 
 On a CPU tensor ``flash_attention`` runs ``flash_attention_ref``. On a CUDA
 tensor it launches the kernel or raises; it never falls back.
@@ -34,7 +39,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
 def _lib() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     fn = lib.wtt_flash_attention_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -53,18 +59,33 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if dh != 64:
         raise NotImplementedError(f"flash_attention kernel is built for Dh=64, got {dh}")
+    if q.shape[1] == 0 or k.shape[1] == 0:
+        raise ValueError(f"flash_attention: empty q or k (Tq {q.shape[1]}, Tk {k.shape[1]})")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        # TMA's tensor map: a 16-byte aligned base, strides of 16-byte multiples
+        if t.stride(3) != 1 or any(s * 2 % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(
-                f"flash_attention: {name} needs unit stride along Dh, B/T/H strides "
-                f"that are multiples of 8 and a 16-byte aligned base (strides {t.stride()})"
+                f"flash_attention: {name} needs unit stride along Dh, B/T/H strides of "
+                f"16-byte multiples and a 16-byte aligned base (strides {t.stride()}, "
+                f"base {t.data_ptr():#x})"
             )
+
+
+SHAPES = {"auto": 0, "wide": 1, "deep": 2}  # csrc/flash_attention.cu's block shapes
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Unmasked fused attention -> [B, Tq, H, Dh] in v.dtype."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
+    return flash_attention_shape(q, k, v, "auto")
+
+
+def flash_attention_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          shape: str) -> torch.Tensor:
+    """The kernel in one block shape: "wide" (two consumer warpgroups,
+    128-key tiles), "deep" (three, 64-key tiles) or "auto" (the kernel
+    chooses by the number of blocks per SM), so the choice can be timed."""
     _check(q, k, v)
     b, tq, h, dh = q.shape
     tk = k.shape[1]
@@ -72,7 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().wtt_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], SHAPES[shape], stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")

@@ -11,7 +11,12 @@ folded in where the TPU body folds them: the raw dot times k_scale before
 the mask, the softmax sum over p before the V fold, P.V over p * v_scale.
 The kernel is ``csrc/decode_attention.cu``; its header says what bounds it
 on an H100 (bytes: 7.7 MB of bf16 cross K/V per large-v2 layer and lane,
-3.85 MB in int8) and how its split-S design answers that.
+3.85 MB in int8) and how its design answers that: split-S flash decoding
+(128-key chunks, 256 on int8, x heads x lanes) in which each thread reads
+4 consecutive keys of a row in one load and the warps split the Dh rows,
+then a combine.
+Where a row of S keys (or a base) is not aligned to that vector,
+``vector_keys`` picks the 2- or 1-key instantiation of the same kernel.
 
 On a CPU tensor ``decode_attention_hd`` runs ``decode_attention_hd_ref``.
 On a CUDA tensor it launches the kernel or raises; it never falls back.
@@ -95,11 +100,22 @@ _TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}  # csrc/decod
 def _lib() -> ctypes.CDLL:
     lib = load_library("decode_attention")
     fn = lib.wtt_decode_attention_hd
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.wtt_decode_attention_chunk.argtypes = []
+    lib.wtt_decode_attention_chunk.argtypes = [ctypes.c_int]
     lib.wtt_decode_attention_chunk.restype = ctypes.c_int
     return lib
+
+
+
+def vector_keys(s: int, itemsize: int, *ptrs: int) -> int:
+    """Keys per load for rows of ``s`` keys of ``itemsize`` bytes at the
+    given base addresses: 4 (8 B of bf16, 4 B of int8, 16 B of f32) where
+    every row start is aligned to it, else 2, else 1."""
+    for vec in (4, 2):
+        if s % vec == 0 and all(p % (vec * itemsize) == 0 for p in ptrs):
+            return vec
+    return 1
 
 
 def _check_limits(t: torch.Tensor | None, name: str, b: int, device) -> int:
@@ -155,16 +171,17 @@ def decode_attention_hd(
     valid_p = _check_limits(valid_len, "valid_len", b, q.device)
 
     lib = _lib()
-    n_splits = -(-s // lib.wtt_decode_attention_chunk())
+    kv_type = _TYPE_CODES[k_t.dtype]
+    n_splits = -(-s // lib.wtt_decode_attention_chunk(kv_type))
     out = torch.empty((b, hd, 1), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((b, n_head, n_splits, 2), dtype=torch.float32, device=q.device)
     part_o = torch.empty((b, n_head, n_splits, dh), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    q_type = _TYPE_CODES[q.dtype]
     rc = lib.wtt_decode_attention_hd(
-        q_type, _TYPE_CODES[k_t.dtype], q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), ks_p, vs_p,
+        _TYPE_CODES[q.dtype], kv_type, q.data_ptr(), k_t.data_ptr(), v_t.data_ptr(), ks_p, vs_p,
         start_p, valid_p, out.data_ptr(), part_ml.data_ptr(), part_o.data_ptr(),
-        b, hd, s, n_head, kv_group, stream,
+        b, hd, s, n_head, kv_group,
+        vector_keys(s, k_t.element_size(), k_t.data_ptr(), v_t.data_ptr()), stream,
     )
     if rc != 0:
         raise RuntimeError(f"decode_attention_hd kernel launch failed: CUDA error {rc}")
