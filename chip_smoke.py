@@ -38,11 +38,17 @@ result line:
                 (torch.sum for the row sums, SDPA for the bf16 attention)
                 and bound
   4. golden     a small scripted checkpoint (head dim 64, so it runs the
-                kernels) through load_model -> run_full on the card must give
-                its known transcript, on the bf16 tier and on the serving
-                tier (DtypePolicy.serving() weights, WhisperRuntime(kv_int8=
-                True)), and the same on the CPU; a small random model's
-                encoder on the card must agree with the CPU path
+                kernels) through the user's entry points on the card must
+                give its known transcript, on the bf16 tier and on the
+                serving tier (DtypePolicy.serving() weights, WhisperRuntime(
+                kv_int8=True)), and the same on the CPU: run_full greedy and
+                with beam 5, token timestamps with max_len 2, a stereo clip
+                (speaker LEFT), run_streamed over ChunkedReader, the
+                BatchTranscriber (batch 4, 6 clips, greedy and beam 5) and
+                the server of cli/serve.py (3 concurrent POSTs); the card's
+                counters show K1 and K2, K2's grouped launches on every beam
+                run; a small random model's encoder on the card must agree
+                with the CPU path
   5. main path  a synthetic large-v2 GGML checkpoint (full width and depth,
                 f16 weights from a seeded generator), once per tier: the bf16
                 tier (load_model), then the serving tier (load_model with
@@ -59,7 +65,8 @@ result line:
                 table) and profiles the two passes XLA fused and eager
                 PyTorch does not: int8 -> bf16 weight conversion and the
                 self cache's quantize-and-write
-  6. report     one JSON line of every kernel's numbers, then the result line
+  6. report     one JSON line of every kernel's numbers (with the serving
+                path's in ``serving_path``), then the result line
                 {"ok": true, "device": {...}}
 
 The script imports nothing of JAX or of the JAX package.
@@ -83,6 +90,7 @@ BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
 L2_BYTES = 50 * 2**20
 FORCE_STEPS = 128
 PROFILE_STEPS = 16             # decode steps under the profiler (the trace stays small)
+BEAM = 5                       # beam width of the beam-search runs
 
 
 def log(msg: str) -> None:
@@ -342,7 +350,7 @@ def flash_case(b: int, t: int, h: int = 20, dh: int = 64, contiguous: bool = Fal
 
 
 def decode_case(b: int, s: int, group: int = 1, masked: bool = False, int8: bool = False,
-                empty: bool = False, h: int = 20, dh: int = 64) -> dict:
+                empty: bool = False, h: int = 20, dh: int = 64, path: str = "") -> dict:
     """K2 at the decoder's shapes: cross (S=1500, whole cache) or self
     (S=448, per-lane [start, valid_len) as in a window after prompt ingest),
     with a bf16 query on bf16 K/V, or on int8 K/V with f32 column scales
@@ -424,6 +432,7 @@ def decode_case(b: int, s: int, group: int = 1, masked: bool = False, int8: bool
     kind = "self, empty lanes" if empty else "self" if masked else "cross"
     return dict(
         case=f"{kind} B={b} S={s} G={group} H={h} Dh={dh} " + ("int8 K/V, bf16 q" if int8 else "bf16"),
+        path=path,
         max_abs_err=err, tol=2e-3,
         tol_reason=f"f32 output from identical {'int8 codes and scales' if int8 else 'bf16 inputs'}: "
                    "only the f32 summation order (split-S partials, shuffle trees) and __expf differ",
@@ -451,7 +460,7 @@ def show_case(name: str, c: dict) -> None:
     c["bound_share"] = ratio(c["bound_ms"], c["device_ms"])
     c["vs_library"] = ratio(c["ms"], c["library_ms"])
     c["vs_library_device"] = ratio(c["device_ms"], c["library_device_ms"])
-    log(f"  {name} [{c['case']}]: max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.0e}: "
+    log(f"  {name} [{c['case']}{', ' + c['path'] if c.get('path') else ''}]: max_abs_err {c['max_abs_err']:.3e} (tol {c['tol']:.0e}: "
         f"{c['tol_reason']}); ms {f(c['ms'])} (device {f(c['device_ms'])}), plain_ms "
         f"{f(c['plain_ms'])}, library_ms {f(c['library_ms'])} (device "
         f"{f(c['library_device_ms'])}), bound_ms {f(c['bound_ms'])} ({c['bound_by']}); "
@@ -662,13 +671,14 @@ def counters():
 
 def reset_counts() -> None:
     k1, k2 = counters()
-    k1.launches = k2.launches = k2.launches_int8 = 0
+    k1.launches = k2.launches = k2.launches_int8 = k2.launches_grouped = 0
 
 
-def read_counts() -> tuple[int, int, int]:
-    """K1 launches, K2 launches, and of those the K2 launches on int8 K/V."""
+def read_counts() -> tuple[int, int, int, int]:
+    """K1 launches, K2 launches, and of those the K2 launches on int8 K/V
+    and those with kv_group > 1 (beam search's cross-attention)."""
     k1, k2 = counters()
-    return k1.launches, k2.launches, k2.launches_int8
+    return k1.launches, k2.launches, k2.launches_int8, k2.launches_grouped
 
 
 def serving_model(path: str, device: str):
@@ -687,34 +697,147 @@ def serving_model(path: str, device: str):
     return model
 
 
-def golden_phase(tmp: str) -> None:
+def wav_bytes(pcm: np.ndarray) -> bytes:
+    """A mono 16 kHz 16-bit WAV file of ``pcm``."""
+    import io
+    import wave
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16_000)
+        w.writeframes((np.clip(pcm, -1, 1) * 32767).astype(np.int16).tobytes())
+    return buf.getvalue()
+
+
+def serve_posts(model, bodies: list[bytes]) -> list[dict]:
+    """The port's server (cli/serve.py) on a free port with batch 4, one
+    concurrent POST per body; the parsed answers, in order."""
+    import threading
+    import urllib.request
+
+    from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.cli.serve import make_server
+
+    srv = make_server(model, 4, FullParams(language="en"), 0, host="127.0.0.1")
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    answers: list = [None] * len(bodies)
+
+    def ask(i):
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.server_address[1]}/transcribe",
+                                     data=bodies[i], method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            answers[i] = json.loads(r.read())
+
+    try:
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server_thread.join(timeout=60)
+    return answers
+
+
+def golden_phase(tmp: str) -> dict:
+    """A small scripted checkpoint (head dim 64, so the card runs the
+    kernels) through the user's entry points, on the card and on the CPU,
+    on both tiers: greedy run_full, beam 5, token timestamps with max_len 2,
+    a stereo clip louder on the left, run_streamed over ChunkedReader, the
+    BatchTranscriber (batch 4, 6 clips, greedy and beam 5) and the server
+    (3 concurrent POSTs). Each must give the script's transcript and the
+    card must equal the CPU; the card's counters must show K1 and K2 (K2's
+    grouped launches on every beam run, int8 on the serving tier), the
+    CPU's none."""
     import torch
 
     from whisper_tpu_torch.api.model import Model
-    from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.api.params import Flags, FullParams, SamplingStrategy
+    from whisper_tpu_torch.audio.load import ChunkedReader
     from whisper_tpu_torch.hparams import ModelDims
     from whisper_tpu_torch.model.params import DtypePolicy
+    from whisper_tpu_torch.runtime.batch import BatchTranscriber
 
     dims = ModelDims(51_864, 96, 256, 4, 2, 48, 256, 4, 2, 80, 1)
     beg, eot = 50_363, 50_256
     script = [beg, 32, 104, 105, beg + 96, eot]    # <|0.00|> " hi" <|1.92|> <|eot|>
+    want = [(" hi", 0, 192, script[:5])]
     path = os.path.join(tmp, "scripted.bin")
     write_checkpoint(path, dims, scripted_tensors(dims, script, SEED))
-    audio = np.zeros(16_000 * 2, np.float32)
+    silence = np.zeros(16_000 * 2, np.float32)
+    t = np.arange(16_000 * 2) / 16_000
+    tone = (0.3 * np.sin(2 * np.pi * 220 * t) * (t > 0.4) * (t < 1.5)).astype(np.float32)
+    stereo = np.stack([tone, 0.1 * tone])
+    rng = np.random.default_rng(SEED)
+    clips = [(0.1 * rng.standard_normal(int(16_000 * sec))).astype(np.float32)
+             for sec in (1.2, 2.5, 1.6, 2.0, 2.2, 1.4)]
+    bodies = [wav_bytes(c) for c in clips[:3]]
+    greedy = FullParams(language="en")
+    beam = FullParams(language="en", strategy=SamplingStrategy.BEAM_SEARCH, beam_width=5)
+    ts = FullParams(language="en", flags=Flags.TOKEN_TIMESTAMPS, max_len=2)
+
+    def segs(result, times=False):
+        return [(s.text, s.t0, s.t1, [(t.id, t.t0, t.t1) if times else t.id for t in s.tokens])
+                for s in result.segments]
+
+    def speakers(result):
+        return [(*seg, s.speaker.name) for seg, s in zip(segs(result), result.segments)]
+
+    # name -> (beam?, run(model) -> comparable output, check of the output)
+    runs = {
+        "run_full": (False, lambda m: segs(m.create_context().run_full(greedy, silence)),
+                     lambda out: out == want),
+        "beam 5": (True, lambda m: segs(m.create_context().run_full(beam, silence)),
+                   lambda out: out == want),
+        "token timestamps, max_len 2": (
+            False, lambda m: segs(m.create_context().run_full(ts, tone), times=True),
+            lambda out: ("".join(s[0] for s in out) == " hi" and len(out) == 2
+                         and [i for s in out for i, _, _ in s[3]] == script[:5] and out[0][1] == 0
+                         and all(t0 >= 0 and t1 >= t0 for s in out for _, t0, t1 in s[3]))),
+        "stereo": (False, lambda m: speakers(m.create_context().run_full(greedy, stereo)),
+                   lambda out: out == [(*want[0], "LEFT")]),
+        "run_streamed": (False, lambda m: segs(m.create_context().run_streamed(greedy, ChunkedReader(tone))),
+                         lambda out: out == want),
+        "batch 4 greedy": (False, lambda m: [segs(r) for r in BatchTranscriber(m, 4).transcribe(clips, greedy)],
+                           lambda out: out == [want] * len(clips)),
+        "batch 4 beam 5": (True, lambda m: [segs(r) for r in BatchTranscriber(m, 4).transcribe(clips, beam)],
+                           lambda out: out == [want] * len(clips)),
+        "server, 3 POSTs": (False, lambda m: serve_posts(m, bodies),
+                            lambda out: out == [{"text": " hi", "segments": [
+                                {"t0": 0.0, "t1": 1.92, "text": " hi"}]}] * len(bodies)),
+    }
+    out: dict = {}
     for tier in ("bf16", "serving"):
+        got = {}
         for device in ("cuda", "cpu"):
             model = Model(path, device=device) if tier == "bf16" else serving_model(path, device)
-            reset_counts()
-            res = model.create_context().run_full(FullParams(language="en"), audio)
-            segs = [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in res.segments]
-            log(f"  scripted transcript, {tier} tier, on {device}: {segs}")
-            check(segs == [(" hi", 0, 192, script[:5])], f"scripted transcript, {tier}, on {device}")
-            k1, k2, k2_int8 = read_counts()
-            want_int8 = k2 if tier == "serving" else 0
-            check((k1 > 0 and k2 > 0 and k2_int8 == want_int8) if device == "cuda"
-                  else (k1 == k2 == k2_int8 == 0),
-                  f"scripted run, {tier}, on {device}: launched K1 {k1} / K2 {k2} "
-                  f"({k2_int8} on int8 K/V) times")
+            for name, (is_beam, run, ok) in runs.items():
+                reset_counts()
+                t0 = time.perf_counter()
+                got[name, device] = res = run(model)
+                sec = time.perf_counter() - t0
+                k1, k2, k2_int8, k2_grouped = read_counts()
+                log(f"  {tier} tier, {name}, on {device} ({sec:.2f} s): {res}; launches K1 {k1}, "
+                    f"K2 {k2} ({k2_int8} on int8 K/V, {k2_grouped} grouped)")
+                check(ok(res), f"scripted {name}, {tier} tier, on {device}: {res}")
+                if device == "cuda":
+                    check(k1 > 0 and k2 > 0 and k2_int8 == (k2 if tier == "serving" else 0)
+                          and (2 * k2_grouped == k2 if is_beam else k2_grouped == 0),
+                          f"{name}, {tier}, on the card: launched K1 {k1} / K2 {k2} ({k2_int8} "
+                          f"on int8 K/V, {k2_grouped} grouped) times")
+                    out[f"{tier} {name}"] = dict(k1=k1, k2=k2, k2_int8=k2_int8,
+                                                  k2_grouped=k2_grouped, s=sec)
+                else:
+                    check(k1 == k2 == 0, f"{name}, {tier}, on the CPU: K1 {k1} / K2 {k2} launches")
+            del model
+        for name in runs:
+            check(got[name, "cuda"] == got[name, "cpu"],
+                  f"{name}, {tier} tier: card {got[name, 'cuda']} != CPU {got[name, 'cpu']}")
 
     # a small random model: the card's encoder (kernels) against the CPU path
     path = os.path.join(tmp, "random.bin")
@@ -728,13 +851,16 @@ def golden_phase(tmp: str) -> None:
     log(f"  small random encoder, bf16 tier, card vs CPU: max_abs_err {err:.3e} (tol 5e-2: "
         "bf16 activations rounded in other places by cuBLAS and the CPU GEMMs)")
     check(bool(torch.isfinite(feats["cuda"]).all()) and err < 5e-2, "small encoder card vs CPU")
+    return out
 
 
-def tier_runs(model, dims, tier: str) -> dict:
+def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = False) -> dict:
     """One tier on the synthetic large-v2 model: Context.run_full on a
     seeded 3 s clip, then encode_window + run_window(force_steps=128) at B=1
-    and B=8, each with its kernel counts, then a profiled run of each.
-    Every tier gets the same seeded inputs."""
+    and B=8, each with its kernel counts, then a profiled run of each; at
+    the B in ``beam_units``, beam search (``beam_runs``) over the same cross
+    K/V with U = B; with ``scheduler``, the BatchTranscriber
+    (``scheduler_run``). Every tier gets the same seeded inputs."""
     import torch
 
     from whisper_tpu_torch.api.params import FullParams
@@ -743,10 +869,10 @@ def tier_runs(model, dims, tier: str) -> dict:
     int8 = model.runtime.kv_int8
     out = {}
 
-    def check_k2(label, k2, k2_int8, want):
-        check(k2 == want and k2_int8 == (k2 if int8 else 0),
-              f"{tier} {label}: K2 launches {k2} ({k2_int8} on int8 K/V), want {want}"
-              + (", all on int8 K/V" if int8 else ""))
+    def check_k2(label, k2, k2_int8, want, k2_grouped=0):
+        check(k2 == want and k2_int8 == (k2 if int8 else 0) and k2_grouped == 0,
+              f"{tier} {label}: K2 launches {k2} ({k2_int8} on int8 K/V, {k2_grouped} grouped), "
+              f"want {want}" + (", all on int8 K/V" if int8 else "") + ", none grouped")
 
     # --- the user's entry point: Context.run_full on a seeded 3 s clip ---
     rng = np.random.default_rng(SEED)
@@ -763,13 +889,13 @@ def tier_runs(model, dims, tier: str) -> dict:
     ctx = model.create_context()
     reset_counts()
     ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), clip))
-    k1, k2, k2_int8 = read_counts()
+    k1, k2, k2_int8, k2_grouped = read_counts()
     model.runtime.run_window = run_window
     log(f"  {tier} run_full (3 s clip): {ms:.1f} ms, {len(steps)} window(s), token steps {steps}, "
         f"{len(res.segments)} segment(s); launches K1 {k1}, K2 {k2} ({k2_int8} on int8 K/V)")
     check(len(steps) >= 1, "run_full decoded no window")
     check(k1 == n_enc * len(steps), f"K1 launches {k1} != {n_enc} x {len(steps)} encodes")
-    check_k2("run_full", k2, k2_int8, 2 * n_dec * sum(steps))
+    check_k2("run_full", k2, k2_int8, 2 * n_dec * sum(steps), k2_grouped)
     for seg in res.segments:
         check(seg.t1 >= seg.t0 >= 0 and all(0 <= t.id < dims.n_vocab for t in seg.tokens),
               "run_full segment out of range")
@@ -789,7 +915,7 @@ def tier_runs(model, dims, tier: str) -> dict:
         sync_ms(lambda: rt.encode_window(mel))                                # warm-up
         reset_counts()
         enc_ms, (feats, cross) = sync_ms(lambda: rt.encode_window(mel))
-        k1, _, _ = read_counts()
+        k1, _, _, _ = read_counts()
         check(k1 == n_enc, f"B={b}: K1 launches {k1} != {n_enc} per encode")
         check(bool(torch.isfinite(feats).all()) and feats.shape == (b, dims.n_audio_ctx, dims.n_audio_state),
               f"B={b}: encoder output")
@@ -800,10 +926,10 @@ def tier_runs(model, dims, tier: str) -> dict:
         reset_counts()
         dec_ms, win = sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end,
                                                     force_steps=FORCE_STEPS))
-        k1, k2, k2_int8 = read_counts()
+        k1, k2, k2_int8, k2_grouped = read_counts()
         check(int(win.steps) == FORCE_STEPS, f"B={b}: {int(win.steps)} steps")
         check(k1 == 0, f"B={b}: K1 launched {k1} times in decode")
-        check_k2(f"B={b} decode", k2, k2_int8, 2 * n_dec * FORCE_STEPS)
+        check_k2(f"B={b} decode", k2, k2_int8, 2 * n_dec * FORCE_STEPS, k2_grouped)
         tok = win.tokens.cpu()
         check(bool(((tok >= 0) & (tok < dims.n_vocab)).all()) and bool(torch.isfinite(win.p).all())
               and bool(((win.p >= 0) & (win.p <= 1)).all()), f"B={b}: window tokens/probabilities")
@@ -819,9 +945,129 @@ def tier_runs(model, dims, tier: str) -> dict:
         out[f"B{b}"] = dict(encode_ms=enc_ms, decode_ms_per_step=dec_ms / FORCE_STEPS, k2=k2,
                             k2_int8=k2_int8, encode_breakdown=bd_enc, decode_breakdown=bd_dec,
                             decode_breakdown_steps=PROFILE_STEPS)
+        if b in beam_units:
+            out[f"beam U={b}"] = beam_runs(rt, dims, tier, prompt, plen, cross, seek, seek_end,
+                                           profile=b == max(beam_units))
     out["cross_kv_bytes_B8"] = cross.k.nbytes + cross.v.nbytes
     out["cross_scale_bytes_B8"] = (cross.k_s.nbytes + cross.v_s.nbytes) if int8 else 0
+    del feats, cross
+    if scheduler:
+        out["scheduler"] = scheduler_run(model, dims, tier)
     return out
+
+
+def beam_runs(rt, dims, tier, prompt, plen, cross, seek, seek_end, profile: bool) -> dict:
+    """Beam search (width BEAM) at U = prompt's rows over the cross K/V of
+    the greedy runs, [L, U, HD, T], handed to the loop as it is (never
+    broadcast per beam): a window to its natural end, then one of
+    FORCE_STEPS steps, each with its kernel counts (K2: 2L a step, L of
+    them grouped; all on int8 K/V on the serving tier; no K1) and the peak
+    memory it adds, which must stay under the bytes of a per-beam
+    broadcast of the cross K/V; with ``profile``, one profiled window of
+    PROFILE_STEPS steps."""
+    import torch
+
+    from whisper_tpu_torch.api.params import FullParams, SamplingStrategy
+    from whisper_tpu_torch.runtime.beam import decode_window_beam
+
+    u, n_dec = prompt.shape[0], dims.n_text_layer
+    int8 = rt.kv_int8
+    params = FullParams(strategy=SamplingStrategy.BEAM_SEARCH, beam_width=BEAM)
+    check(tuple(cross.k.shape) == (n_dec, u, dims.n_text_state, dims.n_audio_ctx),
+          f"beam U={u}: cross K/V {tuple(cross.k.shape)} handed to the loop")
+    cross_bytes = sum(a.nbytes for a in cross if a is not None)
+    broadcast = BEAM * cross_bytes
+
+    def window(force_steps=0):
+        return decode_window_beam(rt, params, prompt, plen, cross, seek, seek_end,
+                                  force_steps=force_steps)
+
+    sync_ms(lambda: window(8))                                                   # warm-up
+    out = dict(u=u, lanes=u * BEAM, cross_kv_bytes=cross_bytes, broadcast_bytes=broadcast)
+    for label, force in (("natural", 0), ("forced", FORCE_STEPS)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        ms, res = sync_ms(lambda: window(force))
+        k1, k2, k2_int8, k2_grouped = read_counts()
+        extra = torch.cuda.max_memory_allocated() - base
+        steps = int(res.steps)
+        log(f"  {tier} beam {BEAM} U={u} ({u * BEAM} lanes), {label}: {steps} steps, {ms:.1f} ms, "
+            f"{ms / steps:.3f} ms/beam step; launches K1 {k1}, K2 {k2} ({k2_grouped} grouped, "
+            f"{k2_int8} on int8 K/V); peak extra memory {extra / 1e9:.3f} GB (a per-beam "
+            f"broadcast of the cross K/V: {broadcast / 1e9:.3f} GB)")
+        check(steps >= 1 and (steps == force if force else steps <= rt.n_max_steps),
+              f"beam U={u} {label}: {steps} steps")
+        check(k1 == 0, f"beam U={u} {label}: K1 launched {k1} times")
+        check(k2 == 2 * n_dec * steps and k2_grouped == n_dec * steps
+              and k2_int8 == (k2 if int8 else 0),
+              f"beam U={u} {label}: K2 {k2} ({k2_grouped} grouped, {k2_int8} int8), want "
+              f"{2 * n_dec * steps} ({n_dec * steps} grouped" + (", all int8)" if int8 else ")"))
+        check(extra < broadcast, f"beam U={u} {label}: peak extra memory {extra} B >= {broadcast} B")
+        tok = res.tokens.cpu()
+        check(tuple(tok.shape) == (u, rt.n_max_steps)
+              and bool(((tok >= 0) & (tok < dims.n_vocab)).all())
+              and bool(torch.isfinite(res.p).all()), f"beam U={u} {label}: window tokens")
+        out[label] = dict(steps=steps, ms=ms, ms_per_step=ms / steps, k1=k1, k2=k2,
+                          k2_grouped=k2_grouped, k2_int8=k2_int8, peak_extra_bytes=extra)
+    if profile:
+        bd = breakdown(lambda: window(PROFILE_STEPS))
+        show_breakdown(f"{tier} beam {BEAM} U={u}, per beam step ({PROFILE_STEPS} steps)", bd,
+                       PROFILE_STEPS)
+        out["breakdown"], out["breakdown_steps"] = bd, PROFILE_STEPS
+    return out
+
+
+def scheduler_run(model, dims, tier) -> dict:
+    """BatchTranscriber(batch=8) over 12 seeded clips of 2-8 s, greedy: wall
+    ms, rounds (one encode each), audio seconds per wall second, and the
+    counts the rounds imply (K1: L_enc a round; K2: 2 L_dec a token step)."""
+    from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.runtime.batch import BatchTranscriber
+
+    rng = np.random.default_rng(SEED + 2)
+    clips = [(0.1 * rng.standard_normal(int(16_000 * sec))).astype(np.float32)
+             for sec in rng.uniform(2.0, 8.0, 12)]
+    audio_s = sum(len(c) for c in clips) / 16_000
+    rt = model.runtime
+    encode_window, run_window = rt.encode_window, rt.run_window
+    rounds, steps = [], []
+
+    def counted_encode(mel):
+        rounds.append(mel.shape[0])
+        return encode_window(mel)
+
+    def counted_run(*a, **kw):
+        res = run_window(*a, **kw)
+        steps.append(int(res.steps))
+        return res
+
+    rt.encode_window, rt.run_window = counted_encode, counted_run
+    try:
+        bt = BatchTranscriber(model, batch=8)
+        reset_counts()
+        ms, results = sync_ms(lambda: bt.transcribe(clips, FullParams(language="en")))
+        k1, k2, k2_int8, k2_grouped = read_counts()
+    finally:
+        rt.encode_window, rt.run_window = encode_window, run_window
+    n_seg = sum(len(r.segments) for r in results)
+    log(f"  {tier} BatchTranscriber(batch=8), 12 clips, {audio_s:.2f} s of audio: {ms:.1f} ms wall, "
+        f"{len(rounds)} rounds of width {set(rounds)}, token steps {steps}, "
+        f"{audio_s / (ms / 1e3):.2f} audio s per wall s, {n_seg} segment(s); launches K1 {k1}, "
+        f"K2 {k2} ({k2_int8} on int8 K/V, {k2_grouped} grouped)")
+    check(len(results) == len(clips) and set(rounds) == {8}, "scheduler: results or round width")
+    check(k1 == dims.n_audio_layer * len(rounds),
+          f"scheduler: K1 {k1} != {dims.n_audio_layer} x {len(rounds)} rounds")
+    check(k2 == 2 * dims.n_text_layer * sum(steps) and k2_grouped == 0
+          and k2_int8 == (k2 if rt.kv_int8 else 0),
+          f"scheduler: K2 {k2} != {2 * dims.n_text_layer} x {sum(steps)} token steps")
+    for r in results:
+        for seg in r.segments:
+            check(seg.t1 >= seg.t0 >= 0 and all(0 <= t.id < dims.n_vocab for t in seg.tokens),
+                  "scheduler segment out of range")
+    return dict(clips=len(clips), audio_s=audio_s, wall_ms=ms, rounds=len(rounds), steps=steps,
+                audio_s_per_s=audio_s / (ms / 1e3), segments=n_seg, k1=k1, k2=k2)
 
 
 def stored_bytes(params) -> dict:
@@ -911,7 +1157,10 @@ def main_path_phase(tmp: str) -> dict:
         torch.cuda.synchronize()
         log(f"  [{tier} tier] load_model on {model.device}: {time.perf_counter() - t0:.1f} s, "
             f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
-        out[tier] = tier_runs(model, dims, tier)
+        # beam search at U=1 and U=8 on the bf16 tier, U=8 on the serving
+        # tier; the scheduler on the bf16 tier
+        out[tier] = tier_runs(model, dims, tier, beam_units=(1, 8) if tier == "bf16" else (8,),
+                              scheduler=tier == "bf16")
         stored[tier] = dict(stored_bytes(model.runtime.params),
                             cross_kv_B8=out[tier]["cross_kv_bytes_B8"],
                             cross_scales_B8=out[tier]["cross_scale_bytes_B8"])
@@ -975,10 +1224,13 @@ def main() -> int:
     t0 = time.perf_counter()
     log("[kernels]")
     k1_cases = [flash_case(1, 1500), flash_case(8, 1500), flash_case(8, 1500, contiguous=True)]
-    k2_cases = [decode_case(1, 1500, int8=int8) for int8 in (False, True)]
-    k2_cases += [decode_case(8, 1500, int8=int8) for int8 in (False, True)]
-    k2_cases += [decode_case(40, 1500, group=5, int8=int8) for int8 in (False, True)]
-    k2_cases += [decode_case(8, 448, masked=True, int8=int8) for int8 in (False, True)]
+    k2_cases = [decode_case(1, 1500, int8=int8, path="greedy B=1") for int8 in (False, True)]
+    k2_cases += [decode_case(8, 1500, int8=int8, path="greedy B=8") for int8 in (False, True)]
+    # beam search: the cross K/V of U utterances read by U x 5 query lanes
+    k2_cases += [decode_case(5, 1500, group=5, int8=int8, path="beam U=1") for int8 in (False, True)]
+    k2_cases += [decode_case(40, 1500, group=5, int8=int8, path="beam U=8") for int8 in (False, True)]
+    k2_cases += [decode_case(8, 448, masked=True, int8=int8, path="greedy B=8") for int8 in (False, True)]
+    k2_cases += [decode_case(40, 448, masked=True, int8=int8, path="beam U=8") for int8 in (False, True)]
     k2_cases += [decode_case(4, 448, int8=True, empty=True)]
     for c in k1_cases:
         show_case("flash_attention", c)
@@ -993,7 +1245,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
         log("[golden]")
-        golden_phase(tmp)
+        golden = golden_phase(tmp)
         phase_s["golden"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         log("[main path] synthetic large-v2")
@@ -1001,11 +1253,20 @@ def main() -> int:
         phase_s["main path"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
-    def entry(name, source, replaces, cases, runs, key):
-        """``launches``: the kernel's count over the main path's run_full
-        calls, one per tier, each counted from 0."""
+    # the serving path: beam windows (natural end) per tier and U, and the
+    # scheduler, each counted from 0
+    beam_paths = {f"{tier} beam U={k.split('=')[1]}": v["natural"]
+                  for tier in ("bf16", "serving") for k, v in main[tier].items()
+                  if k.startswith("beam U=")}
+    serving_path = dict(beams=beam_paths, scheduler=main["bf16"]["scheduler"], golden=golden)
+
+    def entry(name, source, replaces, cases, key):
+        """``launches``: the kernel's count over the main path's runs, each
+        counted from 0: run_full per tier, the beam windows, the scheduler."""
         head = cases[0]
-        by_path = {f"{tier} run_full": main[tier]["run_full"][key] for tier in runs}
+        by_path = {f"{tier} run_full": main[tier]["run_full"][key] for tier in ("bf16", "serving")}
+        by_path.update({label: run[key] for label, run in beam_paths.items()})
+        by_path["bf16 scheduler"] = main["bf16"]["scheduler"][key]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path,
                     max_abs_err=max(c["max_abs_err"] for c in cases), ms=head["ms"],
@@ -1013,18 +1274,20 @@ def main() -> int:
                     library_ms=head["library_ms"], device_ms=head["device_ms"],
                     library_device_ms=head["library_device_ms"], shape=head["case"], cases=cases)
 
-    tiers = ("bf16", "serving")
     k2 = entry("decode_attention_hd", "whisper_tpu_torch/csrc/decode_attention.cu",
-               "whisper_tpu/kernels/decode_attention.py:187", k2_cases, tiers, "k2")
-    k2["launches_int8"] = main["serving"]["run_full"]["k2_int8"]
+               "whisper_tpu/kernels/decode_attention.py:187", k2_cases, "k2")
+    k2["launches_int8"] = (main["serving"]["run_full"]["k2_int8"]
+                           + sum(run["k2_int8"] for run in beam_paths.values()))
+    k2["launches_grouped"] = sum(run["k2_grouped"] for run in beam_paths.values())
+    check(k2["launches_grouped"] > 0, "no grouped K2 launch on the beam path")
     kernels = [
         entry("flash_attention", "whisper_tpu_torch/csrc/flash_attention.cu",
-              "whisper_tpu/kernels/attention.py:90", k1_cases, tiers, "k1"),
+              "whisper_tpu/kernels/attention.py:90", k1_cases, "k1"),
         k2,
         *kb_entries,
     ]
-    print(json.dumps({"kernels": kernels, "main_path": main, "kbench": kb_records, "card": smi,
-                      "phase_s": phase_s}),
+    print(json.dumps({"kernels": kernels, "serving_path": serving_path, "main_path": main,
+                      "kbench": kb_records, "card": smi, "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -105,13 +105,9 @@ def test_cli_golden_speedup_doubles_times(files, capsys):
     assert "[00:00:00.000 --> 00:00:03.840]  hi" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize(
-    "what",
-    ["beam", "token_timestamps", "stereo", "streamed", "capture", "mesh"],
-)
+@pytest.mark.parametrize("what", ["capture", "mesh"])
 def test_unported_features_raise(files, what):
     from whisper_tpu_torch.api.model import Model
-    from whisper_tpu_torch.api.params import Flags, FullParams, SamplingStrategy
     from whisper_tpu_torch.model.params import DtypePolicy
 
     scripted, _, _, _ = files
@@ -120,16 +116,8 @@ def test_unported_features_raise(files, what):
             Model(scripted, mesh=object(), device="cpu")
         return
     ctx = Model(scripted, policy=DtypePolicy.f32(), device="cpu").create_context()
-    audio = np.zeros(16_000 * 2, np.float32)
-    calls = {
-        "beam": lambda: ctx.run_full(FullParams(strategy=SamplingStrategy.BEAM_SEARCH), audio),
-        "token_timestamps": lambda: ctx.run_full(FullParams(flags=Flags.TOKEN_TIMESTAMPS), audio),
-        "stereo": lambda: ctx.run_full(None, np.stack([audio, audio])),
-        "streamed": lambda: ctx.run_streamed(None, iter([audio])),
-        "capture": lambda: ctx.run_capture(None, iter([audio])),
-    }
     with pytest.raises(NotImplementedError):
-        calls[what]()
+        ctx.run_capture(None, iter([np.zeros(16_000 * 2, np.float32)]))
 
 
 def test_model_on_cpu_keeps_tensors_on_cpu(files):

@@ -410,3 +410,87 @@ def test_kbench_wrappers_refuse_what_they_do_not_take():
         kb.kernel_mxub(q, k, v, 2, 200, 32)
     with pytest.raises(ValueError, match="k_scale"):
         kb.kernel_vpu8(q, k.to(torch.int8), v.to(torch.int8), None, None, 2, 200, 128)
+
+
+# ---------------------------------------------------------------------------
+# beam search and the batched scheduler: the card against the CPU
+# ---------------------------------------------------------------------------
+
+SCRIPT = [50_363, 32, 104, 105, 50_363 + 96, 50_256]   # <|0.00|> " hi" <|1.92|> <|eot|>
+
+
+@pytest.fixture(scope="module")
+def scripted_path(tmp_path_factory):
+    """A scripted checkpoint with head dim 64 (d=256, 4 heads), so the card
+    runs K1 and K2, written by chip_smoke.py's own writer (no JAX here)."""
+    import chip_smoke
+    from whisper_tpu_torch.hparams import ModelDims
+
+    dims = ModelDims(51_864, 96, 256, 4, 2, 48, 256, 4, 2, 80, 1)
+    path = str(tmp_path_factory.mktemp("cuda") / "scripted.bin")
+    chip_smoke.write_checkpoint(path, dims, chip_smoke.scripted_tensors(dims, SCRIPT, 0))
+    return path
+
+
+def _model(path, device, tier):
+    if tier == "serving":
+        import chip_smoke
+
+        return chip_smoke.serving_model(path, device)
+    from whisper_tpu_torch.api.model import Model
+
+    return Model(path, device=device)
+
+
+def _segments(results):
+    return [[(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in r.segments] for r in results]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16", "serving"])
+def test_beam_run_full_on_card_matches_cpu(scripted_path, tier):
+    """Beam 5 through run_full: the scripted transcript on card and CPU,
+    with K2's grouped cross-attention launched on the card (half of its
+    launches, int8 on the serving tier)."""
+    _need_card()
+    import numpy as np
+
+    from whisper_tpu_torch.api.params import FullParams, SamplingStrategy
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+
+    params = FullParams(strategy=SamplingStrategy.BEAM_SEARCH, beam_width=5)
+    audio = np.zeros(16_000 * 2, np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        k2.launches = k2.launches_grouped = k2.launches_int8 = 0
+        out[device] = _segments([_model(scripted_path, device, tier).create_context()
+                                 .run_full(params, audio)])
+        counts = (k2.launches, k2.launches_grouped, k2.launches_int8)
+        if device == "cuda":
+            assert counts[0] > 0 and 2 * counts[1] == counts[0]
+            assert counts[2] == (counts[0] if tier == "serving" else 0)
+        else:
+            assert counts == (0, 0, 0)
+    assert out["cuda"] == out["cpu"] == [[(" hi", 0, 192, SCRIPT[:5])]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [0, 5], ids=["greedy", "beam5"])
+def test_batch_transcriber_on_card_matches_cpu(scripted_path, beam):
+    """BatchTranscriber(batch=4) over 6 scripted clips (two rounds, the
+    second with two dead lanes): card and CPU give the same segments."""
+    _need_card()
+    import numpy as np
+
+    from whisper_tpu_torch.api.params import FullParams, SamplingStrategy
+    from whisper_tpu_torch.runtime.batch import BatchTranscriber
+
+    params = FullParams(language="en")
+    if beam:
+        params.strategy, params.beam_width = SamplingStrategy.BEAM_SEARCH, beam
+    rng = np.random.default_rng(0)
+    clips = [(0.1 * rng.standard_normal(int(16_000 * s))).astype(np.float32)
+             for s in (1.2, 2.5, 1.6, 2.0, 2.2, 1.4)]
+    got = {device: _segments(BatchTranscriber(_model(scripted_path, device, "bf16"), batch=4)
+                             .transcribe(clips, params)) for device in ("cuda", "cpu")}
+    assert got["cuda"] == got["cpu"] == [[(" hi", 0, 192, SCRIPT[:5])]] * 6

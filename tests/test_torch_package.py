@@ -33,15 +33,21 @@ SLICE_MODULES = [
     "whisper_tpu_torch.runtime.sampler",
     "whisper_tpu_torch.runtime.decode",
     "whisper_tpu_torch.runtime.context",
+    "whisper_tpu_torch.runtime.beam",
+    "whisper_tpu_torch.runtime.batch",
     "whisper_tpu_torch.features.mel",
+    "whisper_tpu_torch.features.stream",
     "whisper_tpu_torch.api.params",
     "whisper_tpu_torch.api.result",
+    "whisper_tpu_torch.api.timestamps",
+    "whisper_tpu_torch.api.diarize",
     "whisper_tpu_torch.api.context",
     "whisper_tpu_torch.api.model",
     "whisper_tpu_torch.obs.profiler",
     "whisper_tpu_torch.audio.load",
     "whisper_tpu_torch.cli.writers",
     "whisper_tpu_torch.cli.main",
+    "whisper_tpu_torch.cli.serve",
 ]
 
 
@@ -84,6 +90,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
 
     from whisper_tpu_torch.api.model import Model, load_model
     from whisper_tpu_torch.cli.main import build_parser, main
+    from whisper_tpu_torch.cli.serve import main as serve_main
     from whisper_tpu_torch.runtime.context import WhisperRuntime
 
     if torch.cuda.is_available():
@@ -97,6 +104,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     assert build_parser().parse_args(["-m", "m", "-f", "a.wav"]).device == "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
         main(["-m", str(tmp_path / "missing.bin"), "-f", "a.wav"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_main([str(tmp_path / "missing.bin"), "--port", "0"])
 
 
 def test_ggml_writer_bytes_match_jax_package():

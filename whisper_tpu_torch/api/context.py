@@ -14,9 +14,12 @@ ContextImpl.cpp:452-794), a host-side sliding-window loop:
 
 Times are centiseconds (1 mel frame = 10 ms), the reference's native unit.
 
-Not in this slice of the port, each raising ``NotImplementedError`` rather
-than running something else: ``run_streamed``, ``run_capture``, beam search,
-``Flags.TOKEN_TIMESTAMPS`` and stereo (diarization) input.
+Beam search (``runtime/beam.py``), token-level timestamps and segment
+wrapping (``api/timestamps.py``), stereo input with diarization
+(``api/diarize.py``) and streamed input (``run_streamed`` over
+``features/stream.py``) are ported. ``run_capture`` (live capture and VAD)
+is not, and raises ``NotImplementedError`` rather than running something
+else.
 """
 
 from __future__ import annotations
@@ -26,10 +29,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from whisper_tpu_torch.api.diarize import detect_speaker
 from whisper_tpu_torch.api.params import Flags, FullParams, SamplingStrategy, full_default_params
-from whisper_tpu_torch.api.result import Segment, Token, TokenFlags, TranscribeResult
+from whisper_tpu_torch.api.result import Segment, Speaker, Token, TokenFlags, TranscribeResult
+from whisper_tpu_torch.api.timestamps import (
+    TimestampState,
+    compute_signal_energy,
+    compute_token_level_timestamps,
+    wrap_segment,
+)
+from whisper_tpu_torch.audio.load import speedup_2x
+from whisper_tpu_torch.features.stream import MelStreamer
 from whisper_tpu_torch.languages import find_language_id
 from whisper_tpu_torch.obs.profiler import Profiler
+from whisper_tpu_torch.runtime.beam import decode_window_beam
 
 
 class _TokenData:
@@ -48,10 +61,6 @@ class _TokenData:
         self.vlen = 0.0
 
 
-def _not_in_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to whisper_tpu_torch yet")
-
-
 class Context:
     """Per-transcription state over a shared Model (iContext analogue)."""
 
@@ -62,6 +71,9 @@ class Context:
         self.prompt_past: list[int] = []
         self.result_all: list[Segment] = []
         self.profiler = Profiler()
+        self._ts_state = TimestampState()
+        self._energy: Optional[np.ndarray] = None   # signal energy for token ts
+        self._stereo: Optional[np.ndarray] = None   # stereo pcm for diarization
         self._mel_len = 0
         self._time_scale = 1                        # 2 under SpeedupAudio
 
@@ -70,51 +82,124 @@ class Context:
     # ------------------------------------------------------------------
 
     def run_full(self, params: Optional[FullParams], audio: np.ndarray) -> TranscribeResult:
-        """Transcribe a full PCM clip (float32 mono 16 kHz, [N])."""
+        """Transcribe a full PCM clip (float32 mono 16 kHz; [N] or [2, N]
+        stereo — stereo is downmixed for the model and kept for diarization,
+        reference Spectrogram.cpp:104-120)."""
         params = params or full_default_params()
-        if params.strategy == SamplingStrategy.BEAM_SEARCH:
-            raise _not_in_slice("beam search (SamplingStrategy.BEAM_SEARCH)")
-        if params.flag(Flags.TOKEN_TIMESTAMPS):
-            raise _not_in_slice("Flags.TOKEN_TIMESTAMPS (token-level timestamps)")
         with self.profiler.cpu("run_complete"):
-            mono = np.asarray(audio, np.float32)
-            if mono.ndim != 1:
-                raise _not_in_slice("stereo input (diarization)")
+            audio = np.asarray(audio, np.float32)
+            if audio.ndim == 2:
+                self._stereo = audio
+                mono = audio.mean(axis=0)
+            else:
+                self._stereo = None
+                mono = audio
 
             if params.flag(Flags.SPEEDUP_AUDIO):
                 # 2x time-compress; the decode runs in compressed time and
                 # _emit_segment scales times back (whisper.cpp:3044-3045).
-                from whisper_tpu_torch.audio.load import speedup_2x
-
                 mono = speedup_2x(mono)
 
             with self.profiler.cpu("spectrogram"):
                 mel = self.model.mel(mono).cpu().numpy()    # [n_mels, n_len]
 
+            if params.flag(Flags.TOKEN_TIMESTAMPS):
+                self._energy = compute_signal_energy(mono)
+
             return self._run_full_impl(params, mel)
 
-    def run_streamed(self, params, reader, total_frames=None) -> TranscribeResult:
-        raise _not_in_slice("Context.run_streamed (streaming mel)")
+    def run_streamed(self, params: Optional[FullParams], reader,
+                     total_frames: Optional[int] = None) -> TranscribeResult:
+        """Transcribe from a chunked audio reader (runStreamed analogue,
+        ContextImpl.misc.cpp:391-419). ``reader`` yields float32 mono chunks;
+        mel is computed incrementally and each 30 s window decodes as soon as
+        its frames are buffered (MelStreamer semantics, MelStreamer.cpp:
+        125-180). ``total_frames``: known stream length in mel frames
+        (duration estimate); inferred at EOF otherwise."""
+        params = params or full_default_params()
+        streamer = MelStreamer(self.model.mel)
+        if params.flag(Flags.SPEEDUP_AUDIO):
+            reader = (speedup_2x(chunk) for chunk in reader)
+        it = iter(reader)
+
+        class _StreamSource:
+            """iSpectrogram-style lazy window provider (iSpectrogram.h:12-45)."""
+
+            def __init__(self):
+                self.eof = False
+                self.n_len = total_frames
+
+            def _pull_until(self, frames_needed: int) -> None:
+                while not self.eof and streamer.n_frames < frames_needed:
+                    try:
+                        streamer.append(np.asarray(next(it), np.float32))
+                    except StopIteration:
+                        self.eof = True
+                        streamer.flush()
+                        self.n_len = streamer.n_frames
+
+            def length_bound(self) -> int:
+                # known duration, or "at least this many" while streaming
+                if self.n_len is not None:
+                    return self.n_len
+                return max(streamer.n_frames, 1)
+
+            def window(self, seek: int, length: int) -> np.ndarray:
+                self._pull_until(seek + length)
+                return streamer.window(seek, length)
+
+        src = _StreamSource()
+        # need at least 1 s to start (ContextImpl.cpp:470-473)
+        src._pull_until(101)
+        return self._run_full_impl(params, src)
 
     def run_capture(self, params, source, capture_params=None, on_status=None,
                     should_cancel=None) -> TranscribeResult:
-        raise _not_in_slice("Context.run_capture (live capture)")
+        raise NotImplementedError("Context.run_capture (live capture) is not ported to "
+                                  "whisper_tpu_torch yet")
 
     # ------------------------------------------------------------------
     # the main loop
     # ------------------------------------------------------------------
 
-    def _run_full_impl(self, params: FullParams, mel: np.ndarray) -> TranscribeResult:
+    def _run_full_impl(self, params: FullParams, mel) -> TranscribeResult:
+        """``mel``: a dense [n_mels, n_len] array, or a streamed source with
+        ``window(seek, length)``, ``length_bound()`` and ``eof``."""
         dims = self.runtime.dims
         self.result_all = []
         self._time_scale = 2 if params.flag(Flags.SPEEDUP_AUDIO) else 1
 
+        if isinstance(mel, np.ndarray):
+            mel_arr = mel
+
+            class _DenseSource:
+                eof = True
+
+                def length_bound(self) -> int:
+                    return mel_arr.shape[1]
+
+                def window(self, seek: int, length: int) -> np.ndarray:
+                    out = np.zeros((mel_arr.shape[0], length), mel_arr.dtype)
+                    avail = mel_arr[:, seek : seek + length]
+                    out[:, : avail.shape[1]] = avail
+                    return out
+
+            src = _DenseSource()
+        else:
+            src = mel
+
+        def current_seek_end(seek_start: int) -> int:
+            if params.duration_ms:
+                return seek_start + params.duration_ms // 10
+            if src.eof:
+                return src.length_bound()
+            return seek_start + 10**9  # unknown-length stream: no end of audio yet
+
         seek_start = params.offset_ms // 10
-        seek_end = seek_start + params.duration_ms // 10 if params.duration_ms else mel.shape[1]
-        self._mel_len = mel.shape[1]
+        self._mel_len = src.length_bound()
 
         # skip clips shorter than 1 s (ContextImpl.cpp:470-473)
-        if seek_end < 100 + seek_start:
+        if current_seek_end(seek_start) < 100 + seek_start:
             return TranscribeResult(segments=[])
 
         if params.flag(Flags.NO_CONTEXT):
@@ -134,9 +219,10 @@ class Context:
 
         while True:
             with self.profiler.cpu("spectrogram"):
-                mel_win = np.zeros((mel.shape[0], window), mel.dtype)
-                avail = mel[:, seek : seek + window]
-                mel_win[:, : avail.shape[1]] = avail
+                # lazy pull: streamed sources buffer mel here
+                mel_win = src.window(seek, window)
+            seek_end = current_seek_end(seek_start)
+            self._mel_len = src.length_bound()
 
             if params.progress_callback:
                 with self.profiler.cpu("callbacks"):
@@ -162,15 +248,18 @@ class Context:
             padded[0, : len(prompt)] = prompt
 
             with self.profiler.cpu("decode"):
-                res = self.runtime.run_window(
-                    padded,
-                    np.full((1,), len(prompt), np.int32),
-                    cross_kv,
-                    np.full((1,), seek, np.int32),
-                    np.full((1,), seek_end, np.int32),
-                    max_tokens=params.max_tokens,
-                    single_segment=params.flag(Flags.SINGLE_SEGMENT),
-                )
+                if params.strategy == SamplingStrategy.BEAM_SEARCH:
+                    res = self._run_window_beam(params, padded, len(prompt), cross_kv, seek, seek_end)
+                else:
+                    res = self.runtime.run_window(
+                        padded,
+                        np.full((1,), len(prompt), np.int32),
+                        cross_kv,
+                        np.full((1,), seek, np.int32),
+                        np.full((1,), seek_end, np.int32),
+                        max_tokens=params.max_tokens,
+                        single_segment=params.flag(Flags.SINGLE_SEGMENT),
+                    )
                 # one host transfer per window
                 res = {k: v.cpu().numpy() for k, v in res._asdict().items()}
 
@@ -215,7 +304,8 @@ class Context:
         return prompt + prompt_init
 
     def apply_window_result(self, params: FullParams, res: dict, seek: int, lane: int) -> int:
-        """Consume one lane of a host-side WindowResult dict: failure skip,
+        """Consume one lane of a host-side WindowResult dict (shared with the
+        batched scheduler, runtime/batch.py): failure skip,
         prompt_past growth, segment assembly. Returns the advanced seek."""
         if bool(res["failed"][lane]):
             # "failed to generate timestamp token - skipping one second"
@@ -262,18 +352,33 @@ class Context:
                 for t in tokens
             ],
         )
+        scale = self._time_scale
+        if self._stereo is not None:
+            # stereo PCM is uncompressed: index it with real-time bounds
+            seg.speaker = detect_speaker(self._stereo, t0 * scale, t1 * scale)
         self.result_all.append(seg)
-        if self._time_scale != 1:
+
+        n_new = 1
+        if params.flag(Flags.TOKEN_TIMESTAMPS):
+            compute_token_level_timestamps(
+                self.result_all, len(self.result_all) - 1, vocab,
+                params.thold_pt, params.thold_ptsum,
+                energy=self._energy, state=self._ts_state,
+            )
+            if params.max_len > 0:
+                n_new = wrap_segment(self.result_all, params.max_len, vocab)
+        if scale != 1:
             # SpeedupAudio: decode ran in compressed time; real times are 2x
             # (reference whisper.cpp:3044-3045, ContextImpl.cpp:708-712)
-            seg.t0 *= self._time_scale
-            seg.t1 *= self._time_scale
-            for t in seg.tokens:
-                t.t0 *= self._time_scale
-                t.t1 *= self._time_scale
+            for s in self.result_all[-n_new:]:
+                s.t0 *= scale
+                s.t1 *= scale
+                for t in s.tokens:
+                    t.t0 *= scale
+                    t.t1 *= scale
         if params.new_segment_callback:
             with self.profiler.cpu("callbacks"):
-                params.new_segment_callback(self, 1)
+                params.new_segment_callback(self, n_new)
 
     def _assemble_segments(self, params: FullParams, tokens_cur: list[_TokenData],
                            seek: int, seek_delta: int):
@@ -308,9 +413,19 @@ class Context:
 
     # ------------------------------------------------------------------
 
+    def _run_window_beam(self, params, padded, prompt_len, cross_kv, seek, seek_end):
+        return decode_window_beam(self.runtime, params, padded, prompt_len, cross_kv, seek, seek_end)
+
     @property
     def results(self) -> TranscribeResult:
         return TranscribeResult(segments=list(self.result_all))
+
+    def detect_speaker(self, t0: int, t1: int) -> Speaker:
+        """Stereo-energy diarization over a time interval in centiseconds
+        (ContextImpl.diarize.cpp:17-108)."""
+        if self._stereo is None:
+            return Speaker.NO_STEREO_DATA
+        return detect_speaker(self._stereo, t0, t1)
 
     def timings_print(self) -> str:
         """timingsPrint analogue: host phases, RTF, and device memory."""

@@ -1,7 +1,8 @@
 """Audio file decode to float32 PCM @ 16 kHz.
 
 Counterpart of ``whisper_tpu.audio.load`` for WAV files (scipy), plus the
-SpeedupAudio 2x compression. Compressed formats (the JAX package's native
+SpeedupAudio 2x compression and the chunked reader of streamed input
+(``ChunkedReader``). Compressed formats (the JAX package's native
 libavformat and ffmpeg paths) are not ported yet and raise.
 """
 
@@ -77,3 +78,20 @@ def load_audio_file(path: str, want_stereo: bool = False) -> AudioBuffer:
         mono = resample_to_16k(data.mean(axis=1), rate)
         return AudioBuffer(mono, stereo)
     return AudioBuffer(resample_to_16k(data, rate), None)
+
+
+class ChunkedReader:
+    """Streaming PCM source (PcmReader analogue, Whisper/MF/PcmReader.h:27-66):
+    yields fixed 10 ms chunks, zero-padding the tail."""
+
+    def __init__(self, mono: np.ndarray, chunk: int = SAMPLE_RATE // 100):
+        self.mono = mono
+        self.chunk = chunk
+
+    def __iter__(self):
+        n = len(self.mono)
+        for i in range(0, n, self.chunk):
+            c = self.mono[i : i + self.chunk]
+            if len(c) < self.chunk:
+                c = np.pad(c, (0, self.chunk - len(c)))
+            yield c

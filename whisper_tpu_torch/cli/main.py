@@ -1,9 +1,9 @@
 """Transcription CLI: whisper.cpp-compatible flag set, on the PyTorch port.
 
-Counterpart of ``whisper_tpu.cli.main`` with the same parser, plus
-``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
-Flags whose feature is not ported yet (``-bs``, ``-ml``/``-owts``,
-``-di``, ``--stream``) reach a ``NotImplementedError``.
+Counterpart of ``whisper_tpu.cli.main`` with the same parser and flags
+(beam search ``-bs``, segment length ``-ml``, the ``.wts`` karaoke script
+``-owts``, stereo speaker detection ``-di``, streamed input ``--stream``),
+plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path).
 
 Usage:
   python -m whisper_tpu_torch.cli.main -m ggml-large-v2.bin -f clip.wav -otxt -osrt
@@ -55,8 +55,8 @@ def main(argv=None) -> int:
 
     from whisper_tpu_torch.api.model import load_model
     from whisper_tpu_torch.api.params import Flags, FullParams, SamplingStrategy
-    from whisper_tpu_torch.audio.load import load_audio_file
-    from whisper_tpu_torch.cli.writers import WRITERS, _ts
+    from whisper_tpu_torch.audio.load import ChunkedReader, load_audio_file
+    from whisper_tpu_torch.cli.writers import WRITERS, _ts, write_wts
 
     model = load_model(args.model, device=args.device)
     print(
@@ -72,6 +72,9 @@ def main(argv=None) -> int:
         flags |= Flags.PRINT_SPECIAL
     if args.max_len or args.output_words:
         flags |= Flags.TOKEN_TIMESTAMPS
+    if args.output_words and args.max_len == 0:
+        # reference Examples/main/main.cpp:279 — wts defaults to 60-char segments
+        args.max_len = 60
     if args.no_timestamps:
         flags &= ~Flags.PRINT_TIMESTAMPS
     if args.speed_up:
@@ -117,7 +120,10 @@ def main(argv=None) -> int:
         def on_segment(c, n_new):
             for seg in c.result_all[-n_new:]:
                 if params.flag(Flags.PRINT_TIMESTAMPS):
-                    print(f"[{_ts(seg.t0)} --> {_ts(seg.t1)}]  {seg_text(seg).strip()}")
+                    spk = ""
+                    if args.diarize:
+                        spk = f" (speaker {seg.speaker.name})"
+                    print(f"[{_ts(seg.t0)} --> {_ts(seg.t1)}] {spk} {seg_text(seg).strip()}")
                 else:
                     print(seg_text(seg), end="", flush=True)
 
@@ -126,7 +132,7 @@ def main(argv=None) -> int:
         audio = buf.mono if buf.stereo is None else buf.stereo
         t1 = time.perf_counter()
         if args.stream:
-            result = ctx.run_streamed(params, None)
+            result = ctx.run_streamed(params, ChunkedReader(buf.mono))
         else:
             result = ctx.run_full(params, audio)
         dt = time.perf_counter() - t1
@@ -145,6 +151,11 @@ def main(argv=None) -> int:
                 with open(f"{stem}.{kind}", "w", encoding="utf-8") as f:
                     WRITERS[kind](result, f)
                 print(f"wrote {stem}.{kind}", file=sys.stderr)
+
+        if args.output_words:
+            with open(f"{path}.wts", "w", encoding="utf-8") as f:
+                write_wts(result, f, path, buf.duration_s + 0.0625)
+            print(f"wrote {path}.wts", file=sys.stderr)
 
         if args.timings:
             ctx.timings_print()

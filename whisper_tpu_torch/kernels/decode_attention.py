@@ -21,7 +21,8 @@ Where a row of S keys (or a base) is not aligned to that vector,
 On a CPU tensor ``decode_attention_hd`` runs ``decode_attention_hd_ref``.
 On a CUDA tensor it launches the kernel or raises; it never falls back.
 ``decode_attention_hd.launches`` counts every launch, ``launches_int8``
-those on int8 K/V.
+those on int8 K/V, ``launches_grouped`` those with ``kv_group`` > 1 (beam
+search's cross-attention).
 """
 
 from __future__ import annotations
@@ -187,8 +188,10 @@ def decode_attention_hd(
         raise RuntimeError(f"decode_attention_hd kernel launch failed: CUDA error {rc}")
     decode_attention_hd.launches += 1
     decode_attention_hd.launches_int8 += int8
+    decode_attention_hd.launches_grouped += kv_group > 1
     return out
 
 
 decode_attention_hd.launches = 0
 decode_attention_hd.launches_int8 = 0
+decode_attention_hd.launches_grouped = 0

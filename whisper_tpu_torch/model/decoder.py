@@ -67,6 +67,20 @@ def init_self_kv(
                   torch.zeros(shape, dtype=dtype, device=device))
 
 
+def reorder_self_kv(kv: SelfKV, parent: torch.Tensor, col0: int, n_cols: int) -> None:
+    """Beam search's cache reorder, in place: lane b of columns
+    [col0, col0 + n_cols) of every cache tensor (codes and, when int8, the
+    [L, B, 1, C] scale columns) takes lane ``parent[b]``'s. Columns outside
+    the range are left alone: the prompt region is the same on every beam
+    of an utterance, and columns past the last write are masked."""
+    if n_cols <= 0:
+        return
+    for a in kv:
+        if a is not None:
+            gen = a[..., col0 : col0 + n_cols]
+            gen.copy_(gen.index_select(1, parent))
+
+
 def _cache_write(cache: torch.Tensor, li: int, new: torch.Tensor, col: int) -> None:
     """In-place column write: cache [L,B,HD,C], new [B,S,HD] at columns
     col..col+S-1 of layer li. Where JAX's dynamic_update_slice would clamp
