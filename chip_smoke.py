@@ -36,7 +36,8 @@ result line:
                 pass); every variant's device time per pass; each kernel's
                 device time per launch, plain pass, library pass
                 (torch.sum for the row sums, SDPA for the bf16 attention)
-                and bound
+                on events and on profiler device time, and bound; K4b's
+                launch geometry and how many of its clusters the card holds
   4. golden     a small scripted checkpoint (head dim 64, so it runs the
                 kernels) through the user's entry points on the card must
                 give its known transcript, on the bf16 tier and on the
@@ -604,9 +605,18 @@ def kbench_phase() -> tuple[list[dict], dict]:
         return (inp["k"].sum(-1, keepdim=True, dtype=torch.float32)
                 + inp["v"].sum(-1, keepdim=True, dtype=torch.float32))
 
+    # each yardstick's pass on events and on device time over all its kernels
     library = {"xla": records["xla"]["ms"], "whole": event_ms(whole_sum_pass, 1, 5),
                "sdpa": event_ms(sdpa_pass, 1, 5)}
+    library_dev = {"xla": records["xla"]["device_ms"],
+                   "whole": library_device_ms(whole_sum_pass, 1, 2),
+                   "sdpa": library_device_ms(sdpa_pass, 1, 2)}
     kv_elems = d.L * d.B * d.HD * d.s_pad
+    geo = kb.mxu_geometry(d.B, d.HD, d.H, d.s_pad, d.CS)
+    log(f"  K4b geometry: {geo.groups} groups of {geo.heads} heads x {d.B} lanes x clusters of "
+        f"{geo.cluster} blocks = {geo.blocks} blocks, key ranges {list(geo.ranges)}, "
+        f"{geo.smem} B of shared memory a block; the card holds "
+        f"{kb.mxu_active_clusters(geo, d.HD, d.H, d.s_pad, d.CS)} such clusters at once")
     out = []
 
     def f(x):
@@ -624,15 +634,18 @@ def kbench_phase() -> tuple[list[dict], dict]:
             plain = event_ms(lambda _: ref(*args(name, 0)), 1, 2)
         if name in ("kernel_vpu", "kernel_mxu", "kernel_mxub", "kernel_vpu8"):
             # the operations the kernel does, at its type's peak: q.K and P.V
-            # over S_PAD keys; K4b over 32 padded head rows, K7 16 A rows
-            rows = {"kernel_mxu": 32, "kernel_mxub": 16}.get(name, 1)
-            ops_ms = 4 * kv_elems * rows / (BF16_FLOPS if rows > 1 else F32_FLOPS) * 1e3
+            # over S_PAD keys, 2 flops a product; K7 pads each to 16 A rows;
+            # K4b issues a 16-row m-tile for the scores and 8 columns per 8
+            # heads of its group for P.V
+            rows = {"kernel_mxu": 16 + 8 * geo.n_tiles, "kernel_mxub": 32}.get(name, 2)
+            ops_ms = 2 * kv_elems * rows / (BF16_FLOPS if rows > 2 else F32_FLOPS) * 1e3
         else:
             ops_ms = 2 * kv_elems / F32_FLOPS * 1e3     # k + v and the running sum
         bytes_ms = records[var]["bound_ms"]
-        lib_ms = (library["xla"] if name in ("kernel_read", "kernel_rows")
-                  else library["whole"] if not per_layer[name]
-                  else None if name == "kernel_vpu8" else library["sdpa"])
+        lib_key = ("xla" if name in ("kernel_read", "kernel_rows")
+                   else "whole" if not per_layer[name]
+                   else None if name == "kernel_vpu8" else "sdpa")
+        lib_ms, lib_dev = (library[lib_key], library_dev[lib_key]) if lib_key else (None, None)
         e = dict(name=name, id=kid, route="cuda", source="whisper_tpu_torch/csrc/kbench.cu",
                  replaces=call, tpu_body=body, launches=counts[name],
                  launches_by_path={"kbench pass": per_pass},
@@ -641,6 +654,8 @@ def kbench_phase() -> tuple[list[dict], dict]:
                  ms=records[var]["ms"], device_ms=None if dev is None else dev / per_pass,
                  device_ms_per_pass=dev, plain_ms=plain, bound_ms=max(bytes_ms, ops_ms),
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=lib_ms,
+                 library_device_ms=lib_dev,
+                 vs_library_device=None if dev is None or lib_dev is None else dev / lib_dev,
                  bytes=records[var]["bytes"], gbps=records[var]["gbps"],
                  shape=f"kbench B={d.B} S={d.S} (pad {d.s_pad}) HD={d.HD} H={d.H} CS={d.CS} "
                        f"L={d.L} RB={d.RB}")
@@ -648,10 +663,13 @@ def kbench_phase() -> tuple[list[dict], dict]:
         share = "" if name not in rounding else f", {rounding[name]:.4f} of the rounding's effect"
         log(f"  {kid} {name}: max_abs_err {e['max_abs_err']:.3e} (tol {tol}{share}); ms/pass "
             f"{f(e['ms'])} (device {f(dev)} = {per_pass} x {f(e['device_ms'])}), plain "
-            f"{f(plain)}, library {f(lib_ms)}, bound {f(e['bound_ms'])} ({e['bound_by']}); "
-            f"launches {counts[name]} ({per_pass} per pass)")
-    log(f"  library passes, ms: torch.sum per layer {library['xla']:.4f}, over all slabs "
-        f"{library['whole']:.4f}, SDPA per layer {library['sdpa']:.4f}")
+            f"{f(plain)}, library {f(lib_ms)} (device {f(lib_dev)}), bound {f(e['bound_ms'])} "
+            f"({e['bound_by']}); share of bound {f(None if dev is None else e['bound_ms'] / dev)}, "
+            f"x library device {f(e['vs_library_device'])}; launches {counts[name]} "
+            f"({per_pass} per pass)")
+    log("  library passes, ms (device): " + ", ".join(
+        f"{label} {library[key]:.4f} ({f(library_dev[key])})" for key, label in
+        (("xla", "torch.sum per layer"), ("whole", "over all slabs"), ("sdpa", "SDPA per layer"))))
     del inp, variants
     gc.collect()
     torch.cuda.empty_cache()

@@ -393,6 +393,91 @@ def test_kbench_attention_kernel_matches_plain(kernel, d):
         assert err.mean().item() <= 0.25 * gap.mean().item()
 
 
+# K4b's cluster geometry (kernels.kbench.mxu_geometry) at its edges, each
+# case's geometry pinned on the CPU by tests/test_torch_kbench.py:
+# (B, H, Dh, S, S_PAD, CS)
+MXU_EDGES = [
+    (8, 20, 64, 1, 1536, 512),       # one key: blocks 1 and 2 wholly past S
+    (8, 20, 64, 511, 1536, 512),     # one below, at and one above block 0's 512 keys
+    (8, 20, 64, 512, 1536, 512),
+    (8, 20, 64, 513, 1536, 512),
+    (8, 20, 64, 100, 1536, 512),     # blocks wholly past S
+    (8, 20, 64, 1500, 1536, 64),     # 24 chunks over 4 blocks: 6 whole chunks a block
+    (8, 2, 64, 1500, 1536, 512),     # H = 2
+    (8, 20, 16, 1500, 1536, 512),    # Dh = 16
+    (8, 20, 128, 1500, 1536, 512),   # Dh = 128
+    (4, 20, 128, 200, 256, 128),     # groups of 3 heads (the last of 2), 3 row blocks
+    (1, 20, 80, 1000, 1024, 512),    # groups of 3 heads, a partial row block, chunks in 4 parts
+    (64, 20, 16, 100, 128, 128),     # groups of 10 heads: two n-tiles; clusters of 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,dh,s,s_pad,cs", MXU_EDGES)
+def test_kbench_mxu_kernel_geometry_edges(b, h, dh, s, s_pad, cs):
+    """K4b against its plain version where its key ranges, head groups and
+    chunk exchange meet their edges: 1e-4 of the output's size at most, and
+    the mean error under a quarter of the bf16 rounding's mean effect, which
+    a p rounded at a block's own max or at the global max would exceed."""
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    hd = h * dh
+    q = torch.randn((b, hd, 1), generator=g, device="cuda").mul(0.3).bfloat16()
+    k = torch.randn((b, hd, s_pad), generator=g, device="cuda").mul(0.3).bfloat16()
+    v = torch.randn((b, hd, s_pad), generator=g, device="cuda").bfloat16()
+    before = kb.kernel_mxu.launches
+    got = kb.kernel_mxu(q, k, v, h, s, cs)
+    assert kb.kernel_mxu.launches == before + 1
+    want = kb.KERNELS["kernel_mxu"][1](q, k, v, h, s, cs)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, hd, 1) and bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    assert err.max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    gap = (want - kb.attention_ref(q, k, v, h, s, cs)).abs()
+    assert err.mean().item() <= 0.25 * gap.mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,hd,s_pad", [((3,), 13, 8), ((2,), 128, 208), ((1,), 100, 3000),
+                                           ((8,), 1280, 1536)])
+def test_kbench_rows_kernel_edges(lead, hd, s_pad):
+    """K5 at S_PAD off a lane's 6 + 6 loads (8 and 208 in one partial pass,
+    3000 in two with a tail) and at row counts off a block's 8 (39, 100)."""
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    k = torch.randn((*lead, hd, s_pad), generator=g, device="cuda").mul(0.3).bfloat16()
+    v = torch.randn((*lead, hd, s_pad), generator=g, device="cuda").bfloat16()
+    before = kb.kernel_rows.launches
+    got = kb.kernel_rows(k, v, hd)
+    assert kb.kernel_rows.launches == before + 1
+    want = kb.rowsum_ref(k, v)
+    torch.cuda.synchronize()
+    scale = (k.float().abs() + v.float().abs()).sum(-1, keepdim=True)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert ((got - want).abs() / scale).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_kbench_mxu_refuses_what_it_cannot_take():
+    """K4b needs Dh % 16 == 0, and a block's scores in shared memory: one
+    chunk of 2^18 keys over at most 8 blocks leaves 32768 keys a block, whose
+    f32 scores and bf16 p do not fit beside the ring."""
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    q = torch.zeros((1, 16, 1), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((1, 16, 2**18), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="no K4b block fits"):
+        kb.kernel_mxu(q, k, k, 1, 100, 2**18)
+    k = torch.zeros((1, 16, 128), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="Dh % 16"):
+        kb.kernel_mxu(q, k, k, 2, 100, 64)            # Dh = 8
+
+
 @pytest.mark.cuda
 def test_kbench_wrappers_refuse_what_they_do_not_take():
     _need_card()

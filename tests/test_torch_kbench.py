@@ -211,6 +211,89 @@ def test_kernel_rows_refuses_rows_the_grid_would_drop():
         kb.kernel_rows(x["k"][1], x["v"][1], 48)
 
 
+# (lanes, H, Dh, S_PAD, CS): large-v2 at B=8 and B=1, the card tests' edge
+# shapes (tests/test_torch_cuda.py MXU_EDGES) and a few more
+GEOMETRY_SHAPES = [
+    (8, 20, 64, 1536, 512), (1, 20, 64, 1536, 512), (8, 20, 64, 1536, 64),
+    (8, 2, 64, 1536, 512), (8, 20, 16, 1536, 512), (8, 20, 128, 1536, 512),
+    (4, 20, 128, 256, 128), (1, 20, 80, 1024, 512), (64, 20, 16, 128, 128),
+    (2, 2, 64, 256, 128), (8, 20, 64, 704, 64), (3, 5, 48, 1536, 1536),
+]
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES)
+def test_mxu_geometry_covers_keys_and_heads(shape):
+    """K4b's launch geometry: the key ranges cover [0, S_PAD) once, each
+    inside one chunk or over whole chunks, in whole 64-key tiles; at most 8
+    blocks a cluster; the head groups cover [0, H); a block fits."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    lanes, h, dh, s_pad, cs = shape
+    geo = kb.mxu_geometry(lanes, h * dh, h, s_pad, cs)
+    assert 1 <= geo.cluster <= 8 and len(geo.ranges) == geo.cluster
+    assert geo.ranges[0][0] == 0 and geo.ranges[-1][1] == s_pad
+    assert all(a[1] == b[0] for a, b in zip(geo.ranges, geo.ranges[1:]))
+    for lo, hi in geo.ranges:
+        assert lo < hi and lo % 64 == 0 and hi % 64 == 0
+        assert lo // cs == (hi - 1) // cs or (lo % cs == 0 and hi % cs == 0)
+    assert geo.heads * (geo.groups - 1) < h <= geo.heads * geo.groups
+    assert geo.heads <= 16
+    assert geo.smem <= kb.SMEM_LIMIT
+    assert geo.blocks == geo.groups * geo.cluster * lanes
+
+
+def test_mxu_geometry_fills_the_card_at_large_v2():
+    """At the tool's large-v2 shape: 96 to 264 blocks (132 SMs), each of one
+    512-key chunk and 4 heads' rows, all of them on the card at once (two
+    blocks fit an SM)."""
+    from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.tools.kbench import Dims
+
+    d = Dims()
+    geo = kb.mxu_geometry(d.B, d.HD, d.H, d.s_pad, d.CS)
+    assert 96 <= geo.blocks <= 2 * kb.SMS
+    assert (geo.heads, geo.cluster, geo.ranges) == (4, 3, ((0, 512), (512, 1024), (1024, 1536)))
+    assert geo.blocks <= kb.blocks_at_once(geo.cluster, geo.smem)
+
+
+def test_mxu_geometry_reaches_the_kernels_edges():
+    """The card tests' edge shapes reach what they are there for: several
+    whole chunks a block, a last head group that is partial, three row
+    blocks, a partial last row block, chunks cut in parts, two n-tiles of
+    heads, a cluster of one."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    def geo(lanes, h, dh, s_pad, cs):
+        return kb.mxu_geometry(lanes, h * dh, h, s_pad, cs)
+
+    g = geo(8, 20, 64, 1536, 64)
+    assert all((hi - lo) // 64 > 1 for lo, hi in g.ranges)
+    g = geo(4, 20, 128, 256, 128)
+    assert 20 % g.heads and g.heads * 128 > 2 * kb.DENSE_TILE_ROWS
+    g = geo(1, 20, 80, 1024, 512)
+    assert 20 % g.heads and g.cluster > 1024 // 512
+    assert kb.DENSE_TILE_ROWS < g.heads * 80 < 2 * kb.DENSE_TILE_ROWS
+    g = geo(64, 20, 16, 128, 128)
+    assert g.n_tiles == 2 and g.cluster == 1
+
+
+def test_key_ranges_refuse_cuts_off_the_tiles():
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    assert kb.key_ranges(1536, 512, 6) == [(i * 256, (i + 1) * 256) for i in range(6)]
+    assert kb.key_ranges(1536, 64, 5) == [(0, 256), (256, 576), (576, 896), (896, 1216),
+                                         (1216, 1536)]
+    assert kb.key_ranges(1536, 512, 8) is None       # 8 blocks do not cut 3 chunks evenly
+    assert kb.key_ranges(256, 128, 8) is None        # parts of 32 keys: not whole tiles
+
+
+def test_mxu_geometry_refuses_a_block_too_large():
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    with pytest.raises(NotImplementedError, match="no K4b block fits"):
+        kb.mxu_geometry(1, 16, 1, 2**18, 2**18)
+
+
 def _tool_fill():
     """The JAX tool's ``fill``, a closure of its ``main()``, compiled from
     its source."""

@@ -27,35 +27,50 @@
 // 3.35 TB/s; K8's int8 K/V and their scales are 1,009,778,688 B, 0.301 ms.
 // The attention kernels do 4 flops per K/V element, far below the ~295
 // flop/byte where the tensor cores would matter; K4b's dense formulation
-// does 20x the useful flops (~64 GFLOP a pass, 0.065 ms at 989 TFLOP/s),
-// still under the bytes bound.
+// issues a 16-row m-tile for the scores and an 8-column n-tile per 8 heads
+// of its group for P.V (24 GFLOP a pass at large-v2, 0.024 ms at 989
+// TFLOP/s), still far under the bytes bound.
 //
 // Design. The TPU walked the chunk axis of its grid in order on one core,
 // carrying sums in VMEM scratch; Hopper blocks run in parallel and carry
 // nothing. kv_rowsum has two tilings: split (K3, K6, K9), where blocks over
 // (16 rows, one CS-wide chunk, slab) write partial row sums and a combine
 // kernel adds them, the structure of the decode kernel's split-S; and
-// whole-row (K5), where a block over RB rows walks all of S_PAD and writes
-// the sums itself. Warps run along a row so every load is 16 coalesced bytes
-// a thread. K6 (grid (L, B, chunks) on the TPU) and K9 (grid (L * B,
+// whole-row (K5, kv_rowsum_rows), one warp a row over all of S_PAD, every
+// K and V load of a row (6 + 6 uint4 a lane at S_PAD = 1536) issued before
+// the sum, thousands of warps in flight; the TPU's RB was a VMEM tile and
+// sets no block here. Warps run along a row so every load is 16 coalesced
+// bytes a thread. K6 (grid (L, B, chunks) on the TPU) and K9 (grid (L * B,
 // chunks)) differ only in the TPU's grid nesting and so are one launch
-// configuration over L * B slabs here (the split pass, then the combine). The attention kernels deliberately keep the TPU's
-// sequential chunk walk as a loop inside the block (one block per lane and
-// head, or per lane and 16 heads for K4b) carrying m, l and acc across
+// configuration over L * B slabs here (the split pass, then the combine).
+//
+// K4a, K7 and K8 keep the TPU's sequential chunk walk as a loop inside the
+// block (one block per lane and head), carrying m, l and acc across
 // CS-wide chunks, so that the microbenchmark sets that structure against
 // the decode kernel's split-S at the same shape. Each chunk's scores are
 // finished before its softmax, so p is rounded to bf16 at the chunk's
-// running max, as on the TPU. K and V tiles go through shared memory by
-// 16-byte cp.async copies; K's B fragments ([Dh, S] rows, contracted over Dh) come
-// from ldmatrix.trans, V's (contracted over S, contiguous) from plain 32-bit
-// loads. Masked keys score -inf, as on the TPU; S >= 1 keeps the first
-// chunk's max finite.
+// running max, as on the TPU. Their K and V tiles go through shared memory
+// by 16-byte cp.async copies; K's B fragments ([Dh, S] rows, contracted
+// over Dh) come from ldmatrix.trans, V's (contracted over S, contiguous)
+// from plain 32-bit loads. Masked keys score -inf, as on the TPU; S >= 1
+// keeps the first chunk's max finite.
+//
+// K4b splits the walk instead: a thread-block cluster per (head group,
+// lane) divides the keys into ranges that lie inside one chunk or cover
+// whole chunks, and the blocks exchange per-chunk maxima through
+// distributed shared memory so that each rounds p at the running max the
+// TPU's walk would have reached at that chunk, then combine their partial
+// P.V and l in the same launch (see kb_attn_mma_dense).
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -111,6 +126,8 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w 
 
 constexpr int kSumThreads = 256;
 constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kSplitRows = 16;  // rows per block of the split tiling
+constexpr int kRowVec = 6;      // uint4 of K (and of V) a lane loads before summing
 
 // sum over 8 columns of k + v, element by element as the TPU body adds them
 __device__ __forceinline__ float sum_kv8(uint4 a, uint4 b) {
@@ -125,15 +142,15 @@ __device__ __forceinline__ float sum_kv8(uint4 a, uint4 b) {
   return s;
 }
 
-// Block (row tile, column chunk, slab): rows [x * rows, +rows) x columns
+// Block (row tile, column chunk, slab): rows [x * 16, +16) x columns
 // [y * cols, +cols). One warp per row at a time, lanes along the row.
 // dst is [slabs, gridDim.y, HD]: the output itself when gridDim.y == 1.
 __global__ void __launch_bounds__(kSumThreads)
 kv_rowsum_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
-                 float* __restrict__ dst, int HD, int S, int rows, int cols) {
+                 float* __restrict__ dst, int HD, int S, int cols) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = blockIdx.x * rows;
-  const int r_end = min(r0 + rows, HD);
+  const int r0 = blockIdx.x * kSplitRows;
+  const int r_end = min(r0 + kSplitRows, HD);
   const long long slab = blockIdx.z;
   const int n_vec = cols / 8;
   for (int r = r0 + warp; r < r_end; r += kSumWarps) {
@@ -146,6 +163,34 @@ kv_rowsum_kernel(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __res
     acc = warp_sum(acc);
     if (lane == 0) dst[(slab * gridDim.y + blockIdx.y) * HD + r] = acc;
   }
+}
+
+// K5: warp w of block x sums row x * 8 + w of the n_rows = slabs * HD rows
+// over all S columns. Each pass of the outer loop issues kRowVec uint4 of K
+// and of V a lane (a 1536-column row in one pass) before it adds any; the
+// tail past S / 8 loads nothing and adds zeros, which leave the sum exact.
+__global__ void __launch_bounds__(kSumThreads)
+kv_rowsum_rows(const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+               float* __restrict__ out, long long n_rows, int S) {
+  const long long row = (long long)blockIdx.x * kSumWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const int lane = threadIdx.x & 31, n_vec = S / 8;
+  const uint4* kr = reinterpret_cast<const uint4*>(k + row * S);
+  const uint4* vr = reinterpret_cast<const uint4*>(v + row * S);
+  float acc = 0.f;
+  for (int base = lane; base < n_vec; base += 32 * kRowVec) {
+    uint4 a[kRowVec], b[kRowVec];
+#pragma unroll
+    for (int u = 0; u < kRowVec; ++u) {
+      const int i = base + 32 * u;
+      a[u] = i < n_vec ? __ldg(kr + i) : make_uint4(0u, 0u, 0u, 0u);
+      b[u] = i < n_vec ? __ldg(vr + i) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kRowVec; ++u) acc += sum_kv8(a[u], b[u]);
+  }
+  acc = warp_sum(acc);
+  if (lane == 0) out[row] = acc;
 }
 
 // out[slab, r] = sum over the chunks of part[slab, chunk, r]
@@ -256,11 +301,16 @@ kb_attn_cuda_core(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k
 // ---------------------------------------------------------------------------
 
 constexpr int kT = 64;          // keys per shared-memory tile
-constexpr int kLds = kT + 8;    // padded tile row: 144 B, conflict-free fragment loads
+constexpr int kLds = kT + 8;    // K7's padded tile row: 144 B, conflict-free fragment loads
 constexpr int kMmaDh = 64;      // K7's head dim
 constexpr int kHeadThreads = 128;
-constexpr int kDenseThreads = 256;
-constexpr int kHeadsPerBlock = 16;  // K4b: one m-tile of qm^T's rows per block
+constexpr int kDenseConsumers = 256;               // K4b: 8 consumer warps
+constexpr int kDenseWarps = kDenseConsumers / 32;
+constexpr int kDenseThreads = kDenseConsumers + 32;  // and one producer warp
+constexpr int kDenseStages = 5;                    // K4b's TMA ring
+constexpr int kDenseTileRows = 128;                // rows of a tile: one m-tile a warp
+constexpr uint32_t kDenseTileBytes = kDenseTileRows * 64 * 2;
+constexpr int kDenseMaxHeads = 16;                 // heads of a group: one m-tile of qm^T
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low 16 bits
@@ -273,7 +323,7 @@ __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -286,6 +336,70 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_b
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t lds32_at(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the barrier's phase of the given parity; a
+// wait that outlasts ~2^24 suspended tries (seconds) traps, so a broken
+// pipeline fails the launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 24)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One box of a 2-D map at (column x, row y) into shared memory; completion
+// is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int x,
+                                            int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
 }
 
 // rows [0, n_rows) x columns [0, 64) of a row-major bf16 array (row stride
@@ -408,123 +522,386 @@ kb_attn_mma_head(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-// K4b: one block of 8 warps per (16 heads, lane), as the TPU's head-masked
-// dense formulation. Scores [16 heads, keys] = qm^T K with qm^T[h][r] = q[r]
-// where row r belongs to head h, else 0, contracted over all HD rows (20x
-// the useful products at large-v2); a 64-key K tile of all HD rows sits in
-// shared memory and warp w owns keys [8w, 8w + 8). P.V is vp[HD, 16 heads] =
-// V p^T, warp w owning the 16-row tiles w / 2 (mod 4) and heads 8 (w % 2) +
-// [0, 8), then the head mask: row r keeps only vp[r][head(r)], added to the
-// running acc (rescaled by the chunk's alpha first).
-__global__ void __launch_bounds__(kDenseThreads)
-kb_attn_mma_dense(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int HD, int S_pad,
-                  int S, int H, int CS) {
-  extern __shared__ __align__(16) unsigned char dyn[];
-  __nv_bfloat16(*tile)[kLds] = reinterpret_cast<__nv_bfloat16(*)[kLds]>(dyn);  // [HD][kLds]
-  float* p_s = reinterpret_cast<float*>(dyn + (size_t)HD * kLds * 2);        // [16][CS]
-  float* acc_s = p_s + kHeadsPerBlock * CS;                                    // [HD]
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(acc_s + HD);          // [HD]
-  __shared__ float m_s[kHeadsPerBlock], l_s[kHeadsPerBlock], alpha_s[kHeadsPerBlock];
-  const int h0 = blockIdx.x * kHeadsPerBlock, b = blockIdx.y, dh = HD / H;
+// ---------------------------------------------------------------------------
+// K4b: the head-masked dense product, its keys split over a cluster
+// ---------------------------------------------------------------------------
+
+// Key range [lo, hi) of cluster rank r of C over n CS-wide chunks: whole
+// chunks, as evenly as they go, when C <= n; else each chunk cut into C / n
+// equal parts (the launch requires C % n == 0 and parts of whole 64-key
+// tiles). kernels/kbench.py's key_ranges is the same function.
+__host__ __device__ inline void key_range(int r, int C, int n, int CS, int& lo, int& hi) {
+  if (C <= n) {
+    lo = r * n / C * CS;
+    hi = (r + 1) * n / C * CS;
+  } else {
+    const int per = n * CS / C;
+    lo = r * per;
+    hi = lo + per;
+  }
+}
+
+// Dynamic shared memory of a K4b block: G heads of Dh rows (rows = G * Dh),
+// at most R keys and n_loc chunks a block, clusters of C blocks; 1024 bytes
+// of slack align the ring for TMA's 128-byte swizzle. kernels/kbench.py's
+// dense_smem mirrors it to choose the launch geometry.
+struct DenseSmem {
+  size_t ring, bars, p, pb, tmax, tsum, pm, fc, acc, l, qa, total;
+};
+
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_cast<size_t>(15); }
+
+__host__ __device__ inline DenseSmem dense_smem(int rows, int G, int R, int n_loc, int C) {
+  DenseSmem s;
+  size_t o = 0;
+  s.ring = o;  // the K/V tiles: kDenseStages x [128 rows][64 keys], swizzled
+  o = align16(o + static_cast<size_t>(kDenseStages) * kDenseTileBytes);
+  s.bars = o;  // full[kDenseStages], empty[kDenseStages]
+  o = align16(o + 2 * kDenseStages * sizeof(uint64_t));
+  s.p = o;     // f32 scores [G][R]
+  o = align16(o + static_cast<size_t>(G) * R * 4);
+  s.pb = o;    // bf16 p [G][R + 8]: padded rows, conflict-free B fragments
+  o = align16(o + static_cast<size_t>(G) * (R + 8) * 2);
+  s.tmax = o;  // per head and 64-key tile: max score, then its share of l
+  o = align16(o + static_cast<size_t>(G) * (R / kT) * 4);
+  s.tsum = o;
+  o = align16(o + static_cast<size_t>(G) * (R / kT) * 4);
+  s.pm = o;    // every block's prefix max per head and local chunk [C][G][n_loc]
+  o = align16(o + static_cast<size_t>(C) * G * n_loc * 4);
+  s.fc = o;    // exp(m_c - M)
+  o = align16(o + static_cast<size_t>(G) * n_loc * 4);
+  s.acc = o;   // every block's P.V of the rows this block writes [C][rows]
+  o = align16(o + static_cast<size_t>(C) * rows * 4);
+  s.l = o;     // every block's l per head [C][16]
+  o = align16(o + static_cast<size_t>(C) * kDenseMaxHeads * 4);
+  s.qa = o;    // the masked q's A fragment of each k-step of 16 rows, a lane's 16 B
+  o = align16(o + static_cast<size_t>(rows / 16) * 32 * 16);
+  s.total = o + 1024;
+  return s;
+}
+
+// the 8 consumer warps' barrier (named barrier 1; the producer warp is not in it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kDenseConsumers) : "memory");
+}
+
+// max into shared memory by integer atomics: non-negative floats order as
+// ints, negative ones in reverse as unsigned (the cell starts at -inf)
+__device__ __forceinline__ void atomic_max_f32(float* p, float x) {
+  if (x >= 0.f) atomicMax(reinterpret_cast<int*>(p), __float_as_int(x));
+  else atomicMin(reinterpret_cast<unsigned*>(p), __float_as_uint(x));
+}
+
+// K4b: a cluster of C blocks per (group of G heads, lane); grid (groups * C,
+// B); 8 consumer warps and a producer warp a block, two blocks an SM where
+// shared memory allows. Block rank r takes keys [lo, hi) of its lane
+// (key_range) and only its heads' rows [h0 Dh, (h0 + G) Dh) of K and V,
+// since every other row's product with the masked q is an exact 0: each K/V
+// byte is read once (rows past a group's last 128-row tile are read and not
+// used). The producer's one thread streams tiles of 128 rows by 64 keys by
+// TMA into a kDenseStages-deep ring with a full and an empty mbarrier a
+// stage: K by key tile, its row blocks innermost, then V by row block, its
+// key tiles innermost. It runs ahead of the consumers, so V's first tiles
+// load while the last K tiles are multiplied and while the cluster
+// exchanges maxima.
+//   scores [16 heads, keys] = qm^T K, qm^T[h][r] = q[r] where row r belongs
+//     to head h, else 0 (its A fragments made once into shared memory):
+//     warp w owns keys [8w, 8w + 8) of a key tile and sums them over its row
+//     blocks, B fragments by ldmatrix.trans. Keys >= S score -inf. Each key
+//     tile's max per head goes to shared memory by atomics as its scores are
+//     stored.
+//   exchange: per head, the prefix max over the block's chunks goes into
+//     every block's shared memory; cluster.sync(); then a warp a (head, key
+//     tile) takes m_c, the max over every block's keys in the tile's chunk c
+//     and the chunks before it (the running max the TPU's walk reaches at
+//     chunk c), and M, the last chunk's m_c, and makes p = exp(s - m_c) in
+//     f32 into l (l = sum of p exp(m_c - M)) and rounded to bf16 for P.V. A
+//     block wholly past S has -inf maxima of its own but a finite m_c: chunk
+//     0 holds key 0 < S.
+//   P.V: vp[rows, heads] = V p^T, n-tiles of 8 heads, warp w owning the
+//     16-row m-tile w of each row block. After a chunk's last key tile the
+//     head mask keeps vp[r][head(r)], times exp(m_c - M), in the row's sum:
+//     the sequential walk's acc, up to f32 rounding.
+//   combine: each block stores its acc of rows r, r + C, ... into block
+//     r's shared memory and its l into every block's; cluster.sync(); rank r
+//     adds them and writes acc / l.
+// Blocks exchange by storing into each other's shared memory (distributed
+// shared memory) before a cluster.sync() and read only their own after it:
+// no block waits out a remote read, and none has to outlive another's
+// reads. The producer warp joins both cluster.sync()s: the exchange's
+// before the first tile whose stage only the V phase frees, the combine's
+// at the end.
+__global__ void __launch_bounds__(kDenseThreads, 2)
+kb_attn_mma_dense(const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, const __nv_bfloat16* __restrict__ q,
+                  float* __restrict__ out, int HD, int S_pad, int S, int H, int CS, int G, int R,
+                  int n_loc) {
+  extern __shared__ uint8_t dyn_raw[];
+  uint8_t* dyn = dyn_raw + ((1024 - (static_cast<uint32_t>(__cvta_generic_to_shared(dyn_raw)) & 1023)) & 1023);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int dh = HD / H, b = blockIdx.y;
+  const int h0 = static_cast<int>(blockIdx.x) / C * G, gh = min(G, H - h0), rows = gh * dh;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3, mi = lane >> 3, rr = lane & 7;
-  const long long lane0 = (long long)b * HD * S_pad;
-  const __nv_bfloat16* kb = k + lane0;
-  const __nv_bfloat16* vb = v + lane0;
-  const int r_lo = h0 * dh, r_hi = min(h0 + kHeadsPerBlock, H) * dh;  // this block's heads' rows
-  for (int i = tid; i < HD; i += kDenseThreads) {
-    q_s[i] = q[(long long)b * HD + i];
-    acc_s[i] = 0.f;
+  const int n_chunks = S_pad / CS, tpr = R / kT;  // tiles a head's row of p_s holds
+  int k_lo, k_hi;
+  key_range(rank, C, n_chunks, CS, k_lo, k_hi);
+  const int n_t = (k_hi - k_lo) / kT, c_first = k_lo / CS;
+  const int n_lc = (k_hi - 1) / CS - c_first + 1;
+  const int n_rb = (rows + kDenseTileRows - 1) / kDenseTileRows, n_kv = n_t * n_rb;
+  const int dsteps = dh / 16;  // k-steps of 16 rows a head
+
+  const DenseSmem lay = dense_smem(G * dh, G, R, n_loc, C);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(dyn + lay.ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dyn + lay.bars);
+  uint64_t* empty = full + kDenseStages;
+  float* p_s = reinterpret_cast<float*>(dyn + lay.p);
+  __nv_bfloat16* pb_s = reinterpret_cast<__nv_bfloat16*>(dyn + lay.pb);
+  float* tmax_s = reinterpret_cast<float*>(dyn + lay.tmax);
+  float* tsum_s = reinterpret_cast<float*>(dyn + lay.tsum);
+  float* pm_s = reinterpret_cast<float*>(dyn + lay.pm);
+  float* fc_s = reinterpret_cast<float*>(dyn + lay.fc);
+  float* acc_s = reinterpret_cast<float*>(dyn + lay.acc);
+  float* l_s = reinterpret_cast<float*>(dyn + lay.l);
+  uint4* qa_s = reinterpret_cast<uint4*>(dyn + lay.qa);
+  const int row0 = b * HD + h0 * dh;  // the group's first row of the [B * HD, S_pad] maps
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < kDenseStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kDenseWarps);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  if (tid < kHeadsPerBlock) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+  for (int i = tid; i < G * tpr; i += kDenseThreads) tmax_s[i] = -INFINITY;
+  __syncthreads();
+
+  if (warp == kDenseWarps) {
+    // --- producer: tile u is K (key tile u / n_rb, row block u % n_rb) for
+    // u < n_kv, else V (row block w / n_t, key tile w % n_t), w = u - n_kv ---
+    const int join = n_kv + kDenseStages;  // its stage is freed after the exchange
+    for (int u = 0; u < 2 * n_kv; ++u) {
+      if (u == join) cluster.sync();  // the exchange's
+      if (lane == 0) {
+        const bool is_k = u < n_kv;
+        const int w = is_k ? u : u - n_kv;
+        const int kt = is_k ? w / n_rb : w % n_t, rb = is_k ? w % n_rb : w / n_t;
+        const int s = u % kDenseStages;
+        if (u >= kDenseStages) mbar_wait(&empty[s], ((u / kDenseStages) - 1) & 1);
+        mbar_expect_tx(&full[s], kDenseTileBytes);
+        tma_load_2d(ring + s * (kDenseTileBytes / 2), is_k ? &k_map : &v_map, &full[s],
+                    k_lo + kt * kT, row0 + rb * kDenseTileRows);
+      }
+      __syncwarp();
+    }
+    if (2 * n_kv <= join) cluster.sync();  // the exchange's
+    cluster.sync();                         // the combine's
+    return;
   }
 
-  for (int c0 = 0; c0 < S_pad; c0 += CS) {
-    for (int t0 = 0; t0 < CS; t0 += kT) {
-      __syncthreads();
-      load_tile<kDenseThreads>(tile, kb + c0 + t0, S_pad, HD);
-      __syncthreads();
-      // two accumulators (even and odd k-steps) halve the chain of
-      // dependent products over the HD / 16 k-steps
-      float s2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-      for (int r2 = 0; r2 < HD; r2 += 32) {  // two k-steps of 16 rows
+  // the masked q's A fragments: k-step j's 16 rows are head j / dsteps's, so
+  // row g of A (head g) carries q there, as does row g + 8 (head g + 8)
+  for (int i = tid; i < rows / 16 * 32; i += kDenseConsumers) {
+    const int j = i >> 5, gi = (i & 31) >> 2, ti = i & 3, hj = j / dsteps;
+    const __nv_bfloat16* qj = q + (long long)row0 + 16 * j + 2 * ti;
+    const uint32_t q0 = *reinterpret_cast<const uint32_t*>(qj);
+    const uint32_t q8 = *reinterpret_cast<const uint32_t*>(qj + 8);
+    qa_s[i] = make_uint4(hj == gi ? q0 : 0u, hj == gi + 8 ? q0 : 0u, hj == gi ? q8 : 0u,
+                         hj == gi + 8 ? q8 : 0u);
+  }
+  consumers_sync();  // (the producer is already loading)
+  const int n_nt = (gh + 7) / 8;  // n-tiles of 8 heads in P.V
+  // Per-thread byte offsets into a [128][64] tile in the 128-byte swizzle
+  // (chunk c of row r at c ^ (r % 8)): the ldmatrix rows of chunk `warp`,
+  // and row 16 warp + g of the P.V A fragments, whose chunk c sits at c ^ g.
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint32_t ldsm_off = (mi * 8 + rr) * 128 + ((warp ^ rr) << 4);
+  const uint32_t ldsm2_off = ((mi & 1) * 8 + rr) * 128 + ((warp ^ rr) << 4);
+  const uint32_t va_off = (16 * warp + g) * 128 + tig * 4;
+
+  // --- K: key tile kt, its row blocks rb innermost; warp w sums keys
+  // [8w, 8w + 8) of the key tile over every row ---
+  float s2[2][4];  // two accumulators: even and odd k-steps
+  for (int u = 0, kt = 0, rb = 0; u < n_kv; ++u) {
+    const int s = u % kDenseStages;
+    mbar_wait(&full[s], (u / kDenseStages) & 1);
+    const uint32_t tile = ring_u32 + s * kDenseTileBytes;
+    const int r0 = rb * kDenseTileRows, tr = min(kDenseTileRows, rows - r0);
+    if (rb == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s2[0][e] = s2[1][e] = 0.f;
+    }
+    const uint4* qa = qa_s + (r0 / 16) * 32 + lane;  // k-step j's fragment at qa[32 j]
+    if (tr == kDenseTileRows) {
+#pragma unroll
+      for (int j2 = 0; j2 < kDenseTileRows / 32; ++j2) {
         uint32_t bf[4];
-        ldmatrix_x4_trans(bf, &tile[r2 + mi * 8 + rr][warp * 8]);
+        ldsm_x4_trans(bf, tile + ldsm_off + j2 * 32 * 128);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int r = r2 + half * 16;
-          const int head = r / dh;  // every row of the k-step (dh % 16 == 0)
-          const uint32_t q0 = lds32(&q_s[r + 2 * tig]), q8 = lds32(&q_s[r + 8 + 2 * tig]);
-          const uint32_t a[4] = {head == h0 + g ? q0 : 0u, head == h0 + g + 8 ? q0 : 0u,
-                                 head == h0 + g ? q8 : 0u, head == h0 + g + 8 ? q8 : 0u};
+          const uint4 f = qa[32 * (2 * j2 + half)];
+          const uint32_t a[4] = {f.x, f.y, f.z, f.w};
           mma_bf16_16816(s2[half], a, bf[2 * half], bf[2 * half + 1]);
         }
       }
-      const float s[4] = {s2[0][0] + s2[1][0], s2[0][1] + s2[1][1], s2[0][2] + s2[1][2],
-                          s2[0][3] + s2[1][3]};
-      const int j = t0 + 8 * warp + 2 * tig;
-      p_s[g * CS + j] = s[0];
-      p_s[g * CS + j + 1] = s[1];
-      p_s[(g + 8) * CS + j] = s[2];
-      p_s[(g + 8) * CS + j + 1] = s[3];
-    }
-    __syncthreads();
-    for (int hh = warp; hh < kHeadsPerBlock; hh += kDenseThreads / 32) {
-      float* row = p_s + hh * CS;
-      const float m_old = m_s[hh];
-      float mx = -INFINITY;
-      for (int j = lane; j < CS; j += 32) {
-        if (c0 + j >= S) row[j] = -INFINITY;
-        mx = fmaxf(mx, row[j]);
-      }
-      const float m_new = fmaxf(m_old, warp_max(mx));
-      float sum = 0.f;
-      for (int j = lane; j < CS; j += 32) {
-        const float p = expf(row[j] - m_new);
-        sum += p;
-        row[j] = p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[hh] = l_s[hh] * alpha + sum;
-        m_s[hh] = m_new;
-        alpha_s[hh] = alpha;
+    } else {  // a last, partial row block: k-steps of 16 rows up to tr
+      for (int r = 0; r < tr; r += 16) {
+        uint32_t bf[2];
+        ldsm_x2_trans(bf, tile + ldsm2_off + r * 128);
+        const uint4 f = qa[2 * r];
+        const uint32_t a[4] = {f.x, f.y, f.z, f.w};
+        mma_bf16_16816(s2[(r >> 4) & 1], a, bf[0], bf[1]);
       }
     }
-    __syncthreads();
-    for (int r = r_lo + tid; r < r_hi; r += kDenseThreads) acc_s[r] *= alpha_s[r / dh - h0];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    if (rb == n_rb - 1) {  // the key tile's scores are whole: store, and its max per head
+      const int j = kt * kT + 8 * warp + 2 * tig;  // local key of s[0] and s[2]
+      const bool in0 = k_lo + j < S, in1 = k_lo + j + 1 < S;
+      const float v0 = in0 ? s2[0][0] + s2[1][0] : -INFINITY, v1 = in1 ? s2[0][1] + s2[1][1] : -INFINITY;
+      const float v2 = in0 ? s2[0][2] + s2[1][2] : -INFINITY, v3 = in1 ? s2[0][3] + s2[1][3] : -INFINITY;
+      float m_lo = fmaxf(v0, v1), m_hi = fmaxf(v2, v3);  // rows g and g + 8, over the quad
+      m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, 1));
+      m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, 1));
+      m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, 2));
+      m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, 2));
+      if (g < gh) {
+        p_s[g * R + j] = v0;
+        p_s[g * R + j + 1] = v1;
+        if (tig == 0) atomic_max_f32(&tmax_s[g * tpr + kt], m_lo);
+      }
+      if (g + 8 < gh) {
+        p_s[(g + 8) * R + j] = v2;
+        p_s[(g + 8) * R + j + 1] = v3;
+        if (tig == 0) atomic_max_f32(&tmax_s[(g + 8) * tpr + kt], m_hi);
+      }
+    }
+    if (++rb == n_rb) rb = 0, ++kt;
+  }
 
-    const int n0 = (warp & 1) * 8;
-    for (int t0 = 0; t0 < CS; t0 += kT) {
-      __syncthreads();
-      load_tile<kDenseThreads>(tile, vb + c0 + t0, S_pad, HD);
-      __syncthreads();
-      for (int m0 = (warp >> 1) * 16; m0 < HD; m0 += 64) {
-        float u[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int ks = 0; ks < 4; ++ks) {
-          const int kc = ks * 16 + 2 * tig;
-          const uint32_t a[4] = {lds32(&tile[m0 + g][kc]), lds32(&tile[m0 + g + 8][kc]),
-                                 lds32(&tile[m0 + g][kc + 8]), lds32(&tile[m0 + g + 8][kc + 8])};
-          const float* pr = p_s + (n0 + g) * CS + t0 + kc;
-          mma_bf16_16816(u, a, pack_bf16(pr[0], pr[1]), pack_bf16(pr[8], pr[9]));
-        }
-        // the head mask: u = vp[m0 + g (+8)][h0 + n0 + 2 tig (+1)]
-        const int ra = m0 + g, hc = h0 + n0 + 2 * tig;
-        if (ra / dh == hc) acc_s[ra] += u[0];
-        if (ra / dh == hc + 1) acc_s[ra] += u[1];
-        if ((ra + 8) / dh == hc) acc_s[ra + 8] += u[2];
-        if ((ra + 8) / dh == hc + 1) acc_s[ra + 8] += u[3];
-      }
+  // --- the exchange: every score and tile max of the range is in ---
+  consumers_sync();
+  for (int h = tid; h < gh; h += kDenseConsumers) {  // into every block's pm_s[rank]
+    float run = -INFINITY;
+    for (int t = 0; t < n_t; ++t) {
+      run = fmaxf(run, tmax_s[h * tpr + t]);
+      float* dst = pm_s + (rank * G + h) * n_loc + (k_lo + t * kT) / CS - c_first;
+      for (int rk = 0; rk < C; ++rk) *cluster.map_shared_rank(dst, rk) = run;
     }
   }
-  __syncthreads();
-  for (int r = r_lo + tid; r < r_hi; r += kDenseThreads)
-    out[(long long)b * HD + r] = acc_s[r] / l_s[r / dh - h0];
+  cluster.sync();  // every block's prefix maxima are in every block
+  // A warp a (head, key tile): m_c of the tile's chunk and M (the last
+  // chunk's m_c) from every block's prefix maxima, a lane each; then
+  // p = exp(s - m_c), f32 into the tile's share of l (its sum times
+  // exp(m_c - M)), bf16 into P.V's B. Warps on tiles of one chunk write
+  // the same exp(m_c - M).
+  for (int i = warp; i < gh * n_t; i += kDenseWarps) {
+    const int h = i / n_t, t = i - h * n_t, cg_ = (k_lo + t * kT) / CS;
+    // lane rk < 8 reads block rk's term of m_c, lane 8 + rk its term of M
+    const int rk = lane & 7, cc = lane < 8 ? cg_ : n_chunks - 1;
+    int lo, hi;
+    key_range(rk, C, n_chunks, CS, lo, hi);
+    float m = rk < C && lo / CS <= cc && lane < 16
+                  ? pm_s[(rk * G + h) * n_loc + min(cc, (hi - 1) / CS) - lo / CS]
+                  : -INFINITY;
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float mM = __shfl_sync(0xffffffffu, m, 8);  // M
+    m = __shfl_sync(0xffffffffu, m, 0);               // m_c
+    const float f = expf(m - mM);
+    const float* row = p_s + h * R + t * kT;
+    __nv_bfloat16* pr = pb_s + h * (R + 8) + t * kT;
+    const float p0 = expf(row[lane] - m), p1 = expf(row[lane + 32] - m);
+    pr[lane] = __float2bfloat16_rn(p0);
+    pr[lane + 32] = __float2bfloat16_rn(p1);
+    const float sum = warp_sum(p0 + p1);
+    if (lane == 0) {
+      tsum_s[h * tpr + t] = sum * f;
+      fc_s[h * n_loc + cg_ - c_first] = f;
+    }
+  }
+  consumers_sync();  // pb_s, fc_s and l's shares are whole for every warp
+  for (int h = tid; h < gh; h += kDenseConsumers) {  // l = sum of the f32 p exp(m_c - M)
+    float l = 0.f;
+    for (int t = 0; t < n_t; ++t) l += tsum_s[h * tpr + t];
+    for (int rk = 0; rk < C; ++rk) *cluster.map_shared_rank(l_s + rank * kDenseMaxHeads + h, rk) = l;
+  }
+
+  // --- V: row block rb, its key tiles kt innermost; warp w owns the m-tile
+  // of rows 16w + [0, 16) of the row block ---
+  float ua[2][2][4] = {};  // the chunk's vp fragments: k-step parity, n-tile
+  float acc2[2] = {0.f, 0.f};  // vp[r][head(r)] of rows m0 + g, m0 + g + 8
+  for (int u = n_kv, kt = 0, rb = 0; u < 2 * n_kv; ++u) {
+    const int s = u % kDenseStages;
+    mbar_wait(&full[s], (u / kDenseStages) & 1);
+    const int m0 = rb * kDenseTileRows + 16 * warp;
+    const int c = (k_lo + kt * kT) / CS - c_first;  // the key tile's chunk
+    if (m0 < rows) {
+      // every fragment of the tile's 4 k-steps first, then the products
+      const uint32_t ta = ring_u32 + s * kDenseTileBytes + va_off;
+      const __nv_bfloat16* pr = pb_s + g * (R + 8) + kt * kT + 2 * tig;  // n-tile 0's B
+      uint32_t a[4][4], bp[4][2][2];
+#pragma unroll
+      for (int ks = 0; ks < kT / 16; ++ks) {
+        const uint32_t c0 = ((2 * ks) ^ g) << 4, c1 = ((2 * ks + 1) ^ g) << 4;
+        a[ks][0] = lds32_at(ta + c0);
+        a[ks][1] = lds32_at(ta + 8 * 128 + c0);
+        a[ks][2] = lds32_at(ta + c1);
+        a[ks][3] = lds32_at(ta + 8 * 128 + c1);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const bool on = nt < n_nt && nt * 8 + g < gh;
+          bp[ks][nt][0] = on ? lds32(pr + nt * 8 * (R + 8) + ks * 16) : 0u;
+          bp[ks][nt][1] = on ? lds32(pr + nt * 8 * (R + 8) + ks * 16 + 8) : 0u;
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < kT / 16; ++ks)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          if (nt < n_nt) mma_bf16_16816(ua[ks & 1][nt], a[ks], bp[ks][nt][0], bp[ks][nt][1]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    if (m0 < rows) {
+      if (kt == n_t - 1 || (k_lo + (kt + 1) * kT) % CS == 0) {  // the chunk's last key tile
+        const int hr = m0 / dh;  // the head of the m-tile's 16 rows
+        const float f = fc_s[hr * n_loc + c];
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = hr - nt * 8 - 2 * tig;  // 0 or 1 on the lane holding vp[r][hr]
+          if (col == 0 || col == 1) {
+            acc2[0] += (col == 0 ? ua[0][nt][0] + ua[1][nt][0] : ua[0][nt][1] + ua[1][nt][1]) * f;
+            acc2[1] += (col == 0 ? ua[0][nt][2] + ua[1][nt][2] : ua[0][nt][3] + ua[1][nt][3]) * f;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ua[0][nt][e] = ua[1][nt][e] = 0.f;
+        }
+      }
+      if (kt == n_t - 1) {  // the row block's last key tile: the rows' sums to their writers
+        if ((m0 / dh) % 8 / 2 == tig) {
+          const int ra = m0 + g, rb8 = m0 + g + 8, stride = G * dh;
+          *cluster.map_shared_rank(acc_s + rank * stride + ra, ra % C) = acc2[0];
+          *cluster.map_shared_rank(acc_s + rank * stride + rb8, rb8 % C) = acc2[1];
+        }
+        acc2[0] = acc2[1] = 0.f;
+      }
+    }
+    if (++kt == n_t) kt = 0, ++rb;
+  }
+  // --- combine over the cluster: rows rank, rank + C, ... ---
+  cluster.sync();  // every block's acc and l are in
+  for (int i = rank + C * tid; i < rows; i += C * kDenseConsumers) {
+    float sa = 0.f, sl = 0.f;
+    for (int rk = 0; rk < C; ++rk) {
+      sa += acc_s[rk * G * dh + i];
+      sl += l_s[rk * kDenseMaxHeads + i / dh];
+    }
+    out[(long long)row0 + i] = sa / sl;
+  }
 }
 
 template <typename F>
@@ -543,23 +920,36 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
 // ---------------------------------------------------------------------------
 
 // k, v: contiguous bf16 [slabs, HD, S] (S % 8 == 0, 16-byte aligned);
-// out: f32 [slabs, HD]. cols == S: whole-row tiling, `rows` rows a block,
-// one launch. cols < S (S % cols == 0, cols % 8 == 0): split tiling, 16 rows
-// by `cols` columns a block into part (f32 [slabs, S / cols, HD]), then the
+// out: f32 [slabs, HD]. cols == S: 16 rows a block over whole rows, one
+// launch. cols < S (S % cols == 0, cols % 8 == 0): split tiling, 16 rows by
+// `cols` columns a block into part (f32 [slabs, S / cols, HD]), then the
 // combine launch.
 extern "C" int wtt_kb_rowsum(const void* k, const void* v, float* out, float* part, int slabs,
-                             int HD, int S, int rows, int cols, void* stream) {
+                             int HD, int S, int cols, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n_parts = S / cols;
-  const dim3 grid((HD + rows - 1) / rows, n_parts, slabs);
+  const dim3 grid((HD + kSplitRows - 1) / kSplitRows, n_parts, slabs);
   kv_rowsum_kernel<<<grid, kSumThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      n_parts == 1 ? out : part, HD, S, rows, cols);
+      n_parts == 1 ? out : part, HD, S, cols);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_parts == 1) return static_cast<int>(err);
   const long long n = (long long)slabs * HD;
   kv_rowsum_combine<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(part, out, HD,
                                                                             n_parts, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5: k, v contiguous bf16 [n_rows, S] (S % 8 == 0, 16-byte aligned); out f32
+// [n_rows]: one warp a row, one launch.
+extern "C" int wtt_kb_rowsum_rows(const void* k, const void* v, float* out, long long n_rows,
+                                  int S, void* stream) {
+  const long long blocks = (n_rows + kSumWarps - 1) / kSumWarps;
+  if (n_rows < 1 || blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kv_rowsum_rows<<<static_cast<unsigned>(blocks), kSumThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(static_cast<const __nv_bfloat16*>(k),
+                                                        static_cast<const __nv_bfloat16*>(v), out,
+                                                        n_rows, S);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -590,32 +980,129 @@ extern "C" int wtt_kb_attn_cuda_core(int kv_type, const void* q, const void* k, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory that wtt_kb_attn_mma's dense form needs (the wrapper checks
-// it against the card's 227 KB).
-extern "C" long long wtt_kb_attn_mma_dense_smem(int HD, int CS) {
-  return (long long)HD * kLds * 2 + ((long long)kHeadsPerBlock * CS + HD) * 4 + (long long)HD * 2;
-}
-
-// dense 0: per head (K7; Dh == 64); dense 1: head-masked dense (K4b; Dh %
-// 16 == 0, HD % 32 == 0). q: bf16 [B, HD]; k, v: contiguous bf16 [B, HD,
+// K7, per head (Dh == 64). q: bf16 [B, HD]; k, v: contiguous bf16 [B, HD,
 // S_pad]; out: f32 [B, HD] (K7's [B, H, Dh] is the same memory). S_pad % CS
 // == 0, CS % 64 == 0, 1 <= S <= S_pad.
-extern "C" int wtt_kb_attn_mma(int dense, const void* q, const void* k, const void* v, float* out,
-                               int B, int HD, int S_pad, int S, int H, int CS, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  cudaError_t err;
-  if (dense) {
-    const size_t smem = static_cast<size_t>(wtt_kb_attn_mma_dense_smem(HD, CS));
-    if ((err = allow_smem(kb_attn_mma_dense, smem)) != cudaSuccess) return err;
-    const dim3 grid((H + kHeadsPerBlock - 1) / kHeadsPerBlock, B);
-    kb_attn_mma_dense<<<grid, kDenseThreads, smem, st>>>(qb, kb, vb, out, HD, S_pad, S, H, CS);
-  } else {
-    const size_t smem = (size_t)CS * sizeof(float);
-    if ((err = allow_smem(kb_attn_mma_head, smem)) != cudaSuccess) return err;
-    kb_attn_mma_head<<<dim3(H, B), kHeadThreads, smem, st>>>(qb, kb, vb, out, HD, S_pad, S, H, CS);
-  }
+extern "C" int wtt_kb_attn_mma_head(const void* q, const void* k, const void* v, float* out,
+                                    int B, int HD, int S_pad, int S, int H, int CS, void* stream) {
+  const size_t smem = (size_t)CS * sizeof(float);
+  cudaError_t err = allow_smem(kb_attn_mma_head, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kb_attn_mma_head<<<dim3(H, B), kHeadThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), out, HD, S_pad, S, H, CS);
   return static_cast<int>(cudaGetLastError());
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library links no -lcuda.
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D map over [rows, S_pad] bf16 (row stride S_pad), boxes of 128 rows by
+// 64 keys in the 128-byte swizzle; rows past the end read as zeros.
+static CUresult encode_kv_map(EncodeTiled enc, CUtensorMap* map, const void* base, long long rows,
+                              int S_pad) {
+  const cuuint64_t dims[2] = {(cuuint64_t)S_pad, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)S_pad * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kT, (cuuint32_t)kDenseTileRows};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The launch of K4b for G heads a group and clusters of C blocks over the
+// keys, into cfg (whose attrs point at attr): cudaErrorInvalidValue for a
+// geometry the kernel does not take (see wtt_kb_attn_mma_dense).
+static cudaError_t dense_config(int B, int HD, int S_pad, int H, int CS, int G, int C,
+                                cudaStream_t st, cudaLaunchConfig_t& cfg,
+                                cudaLaunchAttribute& attr, int& R, int& n_loc) {
+  const int dh = HD / H, n = S_pad / CS;
+  if (G < 1 || G > kDenseMaxHeads || dh % 16 || C < 1 || C > 8 ||
+      (C > n && (C % n || (n * CS / C) % kT)))
+    return cudaErrorInvalidValue;
+  R = n_loc = 0;  // keys and chunks a block takes at most
+  for (int r = 0; r < C; ++r) {
+    int lo, hi;
+    key_range(r, C, n, CS, lo, hi);
+    R = hi - lo > R ? hi - lo : R;
+    n_loc = (hi - 1) / CS - lo / CS + 1 > n_loc ? (hi - 1) / CS - lo / CS + 1 : n_loc;
+  }
+  const size_t smem = dense_smem(G * dh, G, R, n_loc, C).total;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(kb_attn_mma_dense, smem);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((H + G - 1) / G * C, B);
+  cfg.blockDim = dim3(kDenseThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// K4b, head-masked dense, G heads a group and clusters of C blocks over the
+// keys (kernels/kbench.py's mxu_geometry chooses both). Operands as for K7;
+// Dh % 16 == 0, G <= 16, C <= 8, and when C exceeds the S_pad / CS chunks it
+// is a multiple of them that cuts each chunk into parts of whole 64-key
+// tiles. cudaErrorInvalidValue for any other geometry or one whose shared
+// memory exceeds a block's; 10000 + the CUresult when a tensor map cannot
+// be encoded, and cudaErrorNotSupported when the driver has no
+// cuTensorMapEncodeTiled.
+extern "C" int wtt_kb_attn_mma_dense(const void* q, const void* k, const void* v, float* out,
+                                     int B, int HD, int S_pad, int S, int H, int CS, int G, int C,
+                                     void* stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return static_cast<int>(cudaErrorNotSupported);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int R, n_loc;
+  cudaError_t err = dense_config(B, HD, S_pad, H, CS, G, C, static_cast<cudaStream_t>(stream),
+                                 cfg, attr, R, n_loc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[2];
+  CUresult r = encode_kv_map(enc, &maps[0], k, (long long)B * HD, S_pad);
+  if (r == CUDA_SUCCESS) r = encode_kv_map(enc, &maps[1], v, (long long)B * HD, S_pad);
+  if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
+  err = cudaLaunchKernelEx(&cfg, kb_attn_mma_dense, maps[0], maps[1],
+                           static_cast<const __nv_bfloat16*>(q), out, HD, S_pad, S, H, CS, G, R,
+                           n_loc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of K4b's launch for this geometry the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *n.
+extern "C" int wtt_kb_attn_mma_dense_clusters(int B, int HD, int S_pad, int H, int CS, int G,
+                                              int C, int* n) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int R, n_loc;
+  cudaError_t err = dense_config(B, HD, S_pad, H, CS, G, C, nullptr, cfg, attr, R, n_loc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, kb_attn_mma_dense, &cfg));
 }

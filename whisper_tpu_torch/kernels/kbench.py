@@ -24,11 +24,18 @@ count S rounded up to the chunk CS, and the padded columns hold data.
   bf16 before P.V, l summed from the f32 p. K7's TPU output is [B, H, Dh],
   the same memory as [B, HD, 1].
 
-Each softmax walks the CS-wide chunks in order with a running max, as the
-TPU bodies do; the bf16 rounding of p happens at the chunk's running max,
+Each softmax of the TPU bodies walks the CS-wide chunks in order with a
+running max, and the bf16 rounding of p happens at the chunk's running max,
 so the plain versions walk the chunks too. The kernels are
 ``csrc/kbench.cu``; its header says what bounds them on an H100 (bytes:
 2,013,265,920 B of bf16 K + V per large-v2 pass) and how each is laid out.
+K4a, K7 and K8 walk the chunks inside one block per (head, lane). K4b
+splits them over a thread-block cluster per (head group, lane): the launch
+geometry (``mxu_geometry``: heads per group, blocks per cluster, each
+block's key range) fills the card's 132 SMs, each block reads only its
+heads' rows of its keys, and the blocks exchange per-chunk maxima so that p
+is still rounded at the walk's running max. K5 sums one row a warp with
+every load of the row in flight; its RB no longer sets a block.
 
 On a CPU tensor each wrapper runs its plain version (``KERNELS[name]``
 holds both, the plain one taking the wrapper's arguments). On a CUDA tensor
@@ -41,14 +48,28 @@ single chunk spans S_PAD), one for the others.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from whisper_tpu_torch.kernels._build import load_library
 
-SPLIT_ROWS = 16          # rows per block of the split row-sum tiling (csrc/kbench.cu)
-DENSE_SMEM_LIMIT = 232_448   # shared memory one H100 block may use, bytes
+SMS = 132                    # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232_448         # shared memory one H100 block may use, bytes
+SMEM_PER_SM = 233_472        # an SM's shared memory; each block also reserves 1 KB
+# K4b (csrc/kbench.cu kb_attn_mma_dense): TMA tiles of 128 rows by 64 keys
+# (16 KB) in a 5-deep ring, at most 16 heads a block (one m-tile), at most 8
+# blocks a cluster (the portable size), two blocks of 9 warps an SM (its
+# launch bounds: 112 registers a thread) where shared memory allows
+DENSE_TILE, DENSE_TILE_ROWS, DENSE_STAGES = 64, 128, 5
+DENSE_MAX_HEADS, MAX_CLUSTER, DENSE_BLOCKS_PER_SM = 16, 8, 2
+# Clusters of K4b an H100 SXM holds at once, by (blocks a cluster, blocks an
+# SM), from cudaOccupancyMaxActiveClusters (mxu_active_clusters) on an
+# NVIDIA H100 80GB HBM3: clusters must sit inside one GPC, so sizes that do
+# not divide a GPC's SMs leave some idle (3 at one block an SM: 39, not 44).
+CLUSTER_SLOTS = {(1, 1): 132, (2, 1): 66, (3, 1): 39, (6, 1): 17,
+                 (1, 2): 264, (2, 2): 132, (3, 2): 79, (6, 2): 39}
 
 
 # ---------------------------------------------------------------------------
@@ -104,12 +125,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_head: int
 def _lib() -> ctypes.CDLL:
     lib = load_library("kbench")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wtt_kb_rowsum.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.wtt_kb_rowsum.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.wtt_kb_rowsum_rows.argtypes = [p] * 3 + [ctypes.c_longlong, i, p]
     lib.wtt_kb_attn_cuda_core.argtypes = [i] + [p] * 6 + [i] * 6 + [p]
-    lib.wtt_kb_attn_mma.argtypes = [i] + [p] * 4 + [i] * 6 + [p]
-    lib.wtt_kb_attn_mma_dense_smem.argtypes = [i, i]
-    lib.wtt_kb_attn_mma_dense_smem.restype = ctypes.c_longlong
-    for fn in (lib.wtt_kb_rowsum, lib.wtt_kb_attn_cuda_core, lib.wtt_kb_attn_mma):
+    lib.wtt_kb_attn_mma_head.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.wtt_kb_attn_mma_dense.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.wtt_kb_attn_mma_dense_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
+    for fn in (lib.wtt_kb_rowsum, lib.wtt_kb_rowsum_rows, lib.wtt_kb_attn_cuda_core,
+               lib.wtt_kb_attn_mma_head, lib.wtt_kb_attn_mma_dense,
+               lib.wtt_kb_attn_mma_dense_clusters):
         fn.restype = ctypes.c_int
     return lib
 
@@ -137,23 +161,30 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _rowsum(wrapper, k: torch.Tensor, v: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-    """Launch the row sum over [slabs, HD, S_PAD] -> f32 [slabs, HD], and
-    count its launches on ``wrapper``: a combine follows when cols < S_PAD."""
-    name = wrapper.__name__
+def _rowsum_shape(name: str, k: torch.Tensor, v: torch.Tensor) -> tuple[int, int, int]:
     _check_kv(name, torch.bfloat16, k, v)
     hd, s_pad = k.shape[-2:]
-    slabs = k.numel() // (hd * s_pad)
-    if s_pad % 8 or cols % 8 or s_pad % cols:
-        raise ValueError(f"{name}: S_PAD {s_pad} and the tile width {cols} must be multiples of 8, "
-                         "and the width must divide S_PAD")
+    if s_pad % 8:
+        raise ValueError(f"{name}: S_PAD {s_pad} must be a multiple of 8")
+    return k.numel() // (hd * s_pad), hd, s_pad
+
+
+def _rowsum(wrapper, k: torch.Tensor, v: torch.Tensor, cols: int) -> torch.Tensor:
+    """Launch the split row sum over [slabs, HD, S_PAD] -> f32 [slabs, HD],
+    and count its launches on ``wrapper``: a combine follows when cols <
+    S_PAD."""
+    name = wrapper.__name__
+    slabs, hd, s_pad = _rowsum_shape(name, k, v)
+    if cols % 8 or s_pad % cols:
+        raise ValueError(f"{name}: the tile width {cols} must be a multiple of 8 that divides "
+                         f"S_PAD {s_pad}")
     if not 1 <= slabs <= 65_535:
         raise ValueError(f"{name}: {slabs} slabs; the kernel's grid takes 1 to 65535")
     out = torch.empty((slabs, hd), dtype=torch.float32, device=k.device)
     part = (torch.empty((slabs, s_pad // cols, hd), dtype=torch.float32, device=k.device)
             if cols < s_pad else out)
     _raise_on(_lib().wtt_kb_rowsum(k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
-                                   slabs, hd, s_pad, rows, cols, _stream(k)), name)
+                                   slabs, hd, s_pad, cols, _stream(k)), name)
     wrapper.launches += 1 if cols == s_pad else 2
     return out
 
@@ -163,17 +194,24 @@ def kernel_read(k: torch.Tensor, v: torch.Tensor, cs: int) -> torch.Tensor:
     (CS-wide chunks, then a combine)."""
     if k.device.type == "cpu":
         return rowsum_ref(k, v)
-    return _rowsum(kernel_read, k, v, SPLIT_ROWS, cs).reshape(*k.shape[:-1], 1)
+    return _rowsum(kernel_read, k, v, cs).reshape(*k.shape[:-1], 1)
 
 
 def kernel_rows(k: torch.Tensor, v: torch.Tensor, rb: int) -> torch.Tensor:
-    """K5: one layer's row sums, whole-row tiling: a block over RB rows
-    walks all of S_PAD. HD % RB must be 0 (the TPU grid would drop rows)."""
+    """K5: one layer's row sums, whole rows in one launch: one warp a row
+    with every load of the row in flight. HD % RB must be 0, the JAX
+    function's domain (its grid would drop rows); RB was the TPU's VMEM tile
+    and no longer sets the block."""
     if k.shape[-2] % rb:
         raise ValueError(f"kernel_rows: HD {k.shape[-2]} is not a multiple of RB {rb}")
     if k.device.type == "cpu":
         return rowsum_ref(k, v)
-    return _rowsum(kernel_rows, k, v, rb, k.shape[-1]).reshape(*k.shape[:-1], 1)
+    slabs, hd, s_pad = _rowsum_shape("kernel_rows", k, v)
+    out = torch.empty((*k.shape[:-1], 1), dtype=torch.float32, device=k.device)
+    _raise_on(_lib().wtt_kb_rowsum_rows(k.data_ptr(), v.data_ptr(), out.data_ptr(), slabs * hd,
+                                        s_pad, _stream(k)), "kernel_rows")
+    kernel_rows.launches += 1
+    return out
 
 
 def kernel_read_all_layers(k: torch.Tensor, v: torch.Tensor, cs: int) -> torch.Tensor:
@@ -181,7 +219,7 @@ def kernel_read_all_layers(k: torch.Tensor, v: torch.Tensor, cs: int) -> torch.T
     [L, B, HD, 1], split tiling over L * B slabs."""
     if k.device.type == "cpu":
         return rowsum_ref(k, v)
-    return _rowsum(kernel_read_all_layers, k, v, SPLIT_ROWS, cs).reshape(*k.shape[:-1], 1)
+    return _rowsum(kernel_read_all_layers, k, v, cs).reshape(*k.shape[:-1], 1)
 
 
 def _flat(out: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -193,7 +231,7 @@ def kernel_flatread(k: torch.Tensor, v: torch.Tensor, cs: int) -> torch.Tensor:
     HD, S_PAD]) -> [L * B, HD, 1]."""
     if k.device.type == "cpu":
         return _flat(rowsum_ref(k, v), k)
-    return _flat(_rowsum(kernel_flatread, k, v, SPLIT_ROWS, cs), k)
+    return _flat(_rowsum(kernel_flatread, k, v, cs), k)
 
 
 def _check_attn(name: str, q, k, v, n_head: int, s_valid: int, cs: int) -> tuple[int, int, int]:
@@ -251,32 +289,147 @@ def kernel_vpu8(q, k8, v8, k_scale, v_scale, n_head: int, s_valid: int, cs: int)
     return out
 
 
-def _mma(name: str, dense: bool, q, k, v, n_head, s_valid, cs) -> torch.Tensor:
+def key_ranges(s_pad: int, cs: int, cluster: int) -> list[tuple[int, int]] | None:
+    """K4b's key range [lo, hi) of each block of a cluster over the S_PAD /
+    CS chunks: whole chunks, as evenly as they go, when the cluster has no
+    more blocks than chunks; else each chunk cut into equal parts of whole
+    64-key tiles. None where the cluster cannot cut the chunks so
+    (csrc/kbench.cu's key_range is the same function)."""
+    n = s_pad // cs
+    if cluster <= n:
+        return [(r * n // cluster * cs, (r + 1) * n // cluster * cs) for r in range(cluster)]
+    if cluster % n or (n * cs // cluster) % DENSE_TILE:
+        return None
+    per = n * cs // cluster
+    return [(r * per, (r + 1) * per) for r in range(cluster)]
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def dense_smem(rows: int, heads: int, keys: int, chunks: int, cluster: int) -> int:
+    """Dynamic shared memory of a K4b block of ``heads`` heads (``rows``
+    rows), at most ``keys`` keys and ``chunks`` chunks, in clusters of
+    ``cluster``: csrc/kbench.cu's dense_smem, array by array, with its 1024
+    bytes that align the ring."""
+    parts = (DENSE_STAGES * DENSE_TILE_ROWS * DENSE_TILE * 2,  # the K/V ring
+             2 * DENSE_STAGES * 8,                      # its full and empty mbarriers
+             heads * keys * 4,                          # f32 scores
+             heads * (keys + 8) * 2,                    # bf16 p, padded rows
+             2 * [heads * (keys // DENSE_TILE) * 4],    # per tile: max, sum of p
+             cluster * heads * chunks * 4,              # every block's prefix maxima
+             heads * chunks * 4,                        # exp(m_c - M)
+             cluster * rows * 4,                        # every block's acc
+             cluster * DENSE_MAX_HEADS * 4,             # every block's l
+             rows // 16 * 32 * 16)                      # the masked q's A fragments
+    flat = [x for part in parts for x in (part if isinstance(part, list) else [part])]
+    return sum(_align16(x) for x in flat) + 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class MxuGeometry:
+    """K4b's launch: ``groups`` head groups of ``heads`` heads (the last may
+    hold fewer), a cluster of ``cluster`` blocks per (group, lane), block r
+    of a cluster over keys ``ranges[r]``; grid (groups * cluster, lanes)."""
+
+    heads: int
+    groups: int
+    cluster: int
+    lanes: int
+    ranges: tuple[tuple[int, int], ...]
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.cluster * self.lanes
+
+    @property
+    def n_tiles(self) -> int:
+        """n-tiles of 8 heads that P.V issues (the scores issue one 16-row
+        m-tile)."""
+        return -(-self.heads // 8)
+
+
+def blocks_at_once(cluster: int, smem: int) -> int:
+    """K4b blocks an H100 SXM runs at once in clusters of ``cluster`` with
+    ``smem`` bytes of shared memory a block (CLUSTER_SLOTS; where it has no
+    entry, as many whole clusters as the SMs' blocks hold)."""
+    per_sm = min(DENSE_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
+    return CLUSTER_SLOTS.get((cluster, per_sm), SMS * per_sm // cluster) * cluster
+
+
+@functools.cache
+def mxu_geometry(lanes: int, hd: int, n_head: int, s_pad: int, cs: int) -> MxuGeometry:
+    """The K4b launch for this shape: of every (heads per group, cluster)
+    whose block fits in shared memory, the one with the least work on the
+    busiest SM (rounds of the blocks the card holds at once, times the
+    blocks an SM holds in a round, times one block's rows times keys), then
+    the fewest blocks. Raises NotImplementedError where none fits."""
+    dh = hd // n_head
+    best, best_key = None, None
+    for cluster in range(1, MAX_CLUSTER + 1):
+        ranges = key_ranges(s_pad, cs, cluster)
+        if ranges is None:
+            continue
+        keys = max(hi - lo for lo, hi in ranges)
+        chunks = max((hi - 1) // cs - lo // cs + 1 for lo, hi in ranges)
+        for heads in range(1, min(DENSE_MAX_HEADS, n_head) + 1):
+            rows = heads * dh
+            smem = dense_smem(rows, heads, keys, chunks, cluster)
+            if smem > SMEM_LIMIT:
+                break
+            groups = -(-n_head // heads)
+            blocks = groups * cluster * lanes
+            at_once = blocks_at_once(cluster, smem)
+            busiest = -(-min(blocks, at_once) // SMS)
+            rows_read = -(-rows // DENSE_TILE_ROWS) * DENSE_TILE_ROWS   # whole TMA tiles
+            key = (-(-blocks // at_once) * busiest * rows_read * keys, blocks)
+            if best_key is None or key < best_key:
+                best_key = key
+                best = MxuGeometry(heads, groups, cluster, lanes, tuple(ranges), smem)
+    if best is None:
+        raise NotImplementedError(
+            f"kernel_mxu: no K4b block fits Dh {dh}, S_PAD {s_pad} and CS {cs}: one head's "
+            f"scores and p over a block's keys, with the ring of {DENSE_STAGES} tiles, must fit "
+            f"in {SMEM_LIMIT} B of shared memory")
+    return best
+
+
+def mxu_active_clusters(geo: MxuGeometry, hd: int, n_head: int, s_pad: int, cs: int) -> int:
+    """How many of K4b's clusters the current card holds at once for this
+    geometry (cudaOccupancyMaxActiveClusters): the launch's blocks run in
+    one round when that times the cluster size reaches ``geo.blocks``."""
+    n = ctypes.c_int(0)
+    _raise_on(_lib().wtt_kb_attn_mma_dense_clusters(geo.lanes, hd, s_pad, n_head, cs, geo.heads,
+                                                    geo.cluster, ctypes.byref(n)),
+              "mxu_active_clusters")
+    return n.value
+
+
+def _mma_shape(name: str, q, k, v, n_head, s_valid, cs, dh_ok: bool, domain: str):
     _check_kv(name, torch.bfloat16, k, v)
     b, hd, s_pad = _check_attn(name, q, k, v, n_head, s_valid, cs)
-    dh = hd // n_head
-    if cs % 64 or (dh % 16 or hd % 32 if dense else dh != 64):
-        raise NotImplementedError(
-            f"{name} kernel takes CS % 64 == 0 and " +
-            ("Dh % 16 == 0, HD % 32 == 0" if dense else "Dh == 64") + f"; got CS {cs}, Dh {dh}")
-    lib = _lib()
-    if dense and lib.wtt_kb_attn_mma_dense_smem(hd, cs) > DENSE_SMEM_LIMIT:
-        raise NotImplementedError(f"{name}: HD {hd} and CS {cs} need more shared memory "
-                                  f"than a block has ({DENSE_SMEM_LIMIT} B)")
-    out = torch.empty((b, hd, 1), dtype=torch.float32, device=k.device)
-    _raise_on(lib.wtt_kb_attn_mma(int(dense), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                  out.data_ptr(), b, hd, s_pad, s_valid, n_head, cs, _stream(k)),
-              name)
-    return out
+    if cs % 64 or not dh_ok:
+        raise NotImplementedError(f"{name} kernel takes CS % 64 == 0 and {domain}; got CS {cs}, "
+                                  f"Dh {hd // n_head}")
+    return b, hd, s_pad
 
 
 def kernel_mxu(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
     """K4b: the head-masked dense formulation on the tensor cores (scores
-    = qm^T K over all HD rows, vp = V p^T then the head mask), bf16 p ->
-    [B, HD, 1] f32."""
+    = qm^T K over a head group's rows, vp = V p^T then the head mask), bf16
+    p -> [B, HD, 1] f32; keys split over a cluster (``mxu_geometry``)."""
     if k.device.type == "cpu":
         return attention_ref(q, k, v, n_head, s_valid, cs, p_bf16=True)
-    out = _mma("kernel_mxu", True, q, k, v, n_head, s_valid, cs)
+    hd = k.shape[-2]
+    b, hd, s_pad = _mma_shape("kernel_mxu", q, k, v, n_head, s_valid, cs,
+                              hd % n_head == 0 and hd // n_head % 16 == 0, "Dh % 16 == 0")
+    geo = mxu_geometry(b, hd, n_head, s_pad, cs)
+    out = torch.empty((b, hd, 1), dtype=torch.float32, device=k.device)
+    _raise_on(_lib().wtt_kb_attn_mma_dense(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           out.data_ptr(), b, hd, s_pad, s_valid, n_head, cs,
+                                           geo.heads, geo.cluster, _stream(k)), "kernel_mxu")
     kernel_mxu.launches += 1
     return out
 
@@ -286,7 +439,13 @@ def kernel_mxub(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
     [B, HD, 1] f32 (the TPU's [B, H, Dh], same memory)."""
     if k.device.type == "cpu":
         return attention_ref(q, k, v, n_head, s_valid, cs, p_bf16=True)
-    out = _mma("kernel_mxub", False, q, k, v, n_head, s_valid, cs)
+    hd = k.shape[-2]
+    b, hd, s_pad = _mma_shape("kernel_mxub", q, k, v, n_head, s_valid, cs,
+                              hd == 64 * n_head, "Dh == 64")
+    out = torch.empty((b, hd, 1), dtype=torch.float32, device=k.device)
+    _raise_on(_lib().wtt_kb_attn_mma_head(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), b, hd, s_pad, s_valid, n_head, cs,
+                                          _stream(k)), "kernel_mxub")
     kernel_mxub.launches += 1
     return out
 

@@ -8,11 +8,12 @@ layers. The seven Pallas kernels of the JAX tool are hand-written CUDA
 kernels here (``whisper_tpu_torch/kernels/kbench.py``):
 
   read      K3  row sums of k + v, split tiling (the stream's speed of light)
-  rows      K5  the same, whole-row tiling (RB rows a block, all of S_PAD)
+  rows      K5  the same, whole rows in one launch (a warp a row; RB sets no block)
   read1     K6  the same over all layers in one call, summed to a scalar
   flatread  K9  the same launches, flat [L * B, HD, 1] output
   vpu       K4a single-query attention on the CUDA cores, sequential chunk walk
-  mxu       K4b the same on the tensor cores, head-masked dense product
+  mxu       K4b the same on the tensor cores, head-masked dense product, its
+                keys split over a thread-block cluster
   mxub      K7  the same on the tensor cores, per-head products
   vpu8      K8  vpu on int8 K/V with column scales
 
