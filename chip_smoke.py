@@ -37,7 +37,8 @@ result line:
                 device time per launch, plain pass, library pass
                 (torch.sum for the row sums, SDPA for the bf16 attention)
                 on events and on profiler device time, and bound; K4b's
-                launch geometry and how many of its clusters the card holds
+                and K8's launch geometry and how many of their clusters the
+                card holds; K2's int8 branch on K8's inputs as K8's yardstick
   4. golden     a small scripted checkpoint (head dim 64, so it runs the
                 kernels) through the user's entry points on the card must
                 give its known transcript, on the bf16 tier and on the
@@ -497,7 +498,7 @@ KBENCH = [
     ("K8", "kernel_vpu8", "vpu8", "tools/kbench.py:336", "kernel_vpu8 :302-334", 1e-5),
     ("K9", "kernel_flatread", "flatread", "tools/kbench.py:397", "kernel_read :65-80", "rows"),
 ]
-KB_PATTERN = {"kernel_vpu": "kb_attn_cuda_core", "kernel_vpu8": "kb_attn_cuda_core",
+KB_PATTERN = {"kernel_vpu": "kb_attn_cuda_core", "kernel_vpu8": "kb_attn_int8_split",
               "kernel_mxu": "kb_attn_mma_dense", "kernel_mxub": "kb_attn_mma_head"}
 
 
@@ -617,6 +618,20 @@ def kbench_phase() -> tuple[list[dict], dict]:
         f"{geo.cluster} blocks = {geo.blocks} blocks, key ranges {list(geo.ranges)}, "
         f"{geo.smem} B of shared memory a block; the card holds "
         f"{kb.mxu_active_clusters(geo, d.HD, d.H, d.s_pad, d.CS)} such clusters at once")
+    g8 = kb.vpu8_geometry(d.B, d.H, d.S, d.s_pad)
+    log(f"  K8 geometry: {d.H} heads x {d.B} lanes x clusters of {g8.cluster} blocks = "
+        f"{g8.blocks} blocks, key ranges {list(g8.ranges)}, {g8.vec}-byte loads; the card holds "
+        f"{kb.vpu8_active_clusters(g8, d.HD, d.S, d.s_pad)} such clusters at once")
+    # K8's yardstick: K2's int8 branch (split-S and a combine launch) on the
+    # tool's int8 inputs of one layer, keys < S, per call on device time; its
+    # counters are put back so that the main path's counts stay exact
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+    saved = (k2.launches, k2.launches_int8, k2.launches_grouped)
+    valid = torch.full((d.B,), d.S, dtype=torch.int32, device="cuda")
+    k2_int8_dev = device_ms(lambda li: k2(inp["q"], inp["k8"][li], inp["v8"][li], d.H,
+                                          valid_len=valid, k_scale=inp["sc"][li],
+                                          v_scale=inp["sc"][li]), d.L, 2 * d.L, "decode_attention")
+    k2.launches, k2.launches_int8, k2.launches_grouped = saved
     out = []
 
     def f(x):
@@ -641,7 +656,14 @@ def kbench_phase() -> tuple[list[dict], dict]:
             ops_ms = 2 * kv_elems * rows / (BF16_FLOPS if rows > 2 else F32_FLOPS) * 1e3
         else:
             ops_ms = 2 * kv_elems / F32_FLOPS * 1e3     # k + v and the running sum
-        bytes_ms = records[var]["bound_ms"]
+        need = records[var]["bytes"]
+        if name == "kernel_vpu8":
+            # K8 reads only the keys < S (p is 0 past them): the int8 K/V
+            # rows and both scales over S, q once and the outputs; the tool's
+            # bytes count all S_PAD columns
+            need = d.L * d.B * (2 * d.HD * d.S + 2 * 4 * d.S + 4 * d.HD) + 2 * d.B * d.HD
+            ops_ms = ops_ms * d.S / d.s_pad
+        bytes_ms = need / tool.HBM_BYTES_PER_S * 1e3
         lib_key = ("xla" if name in ("kernel_read", "kernel_rows")
                    else "whole" if not per_layer[name]
                    else None if name == "kernel_vpu8" else "sdpa")
@@ -656,7 +678,7 @@ def kbench_phase() -> tuple[list[dict], dict]:
                  bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=lib_ms,
                  library_device_ms=lib_dev,
                  vs_library_device=None if dev is None or lib_dev is None else dev / lib_dev,
-                 bytes=records[var]["bytes"], gbps=records[var]["gbps"],
+                 bytes=need, tool_bytes=records[var]["bytes"], gbps=records[var]["gbps"],
                  shape=f"kbench B={d.B} S={d.S} (pad {d.s_pad}) HD={d.HD} H={d.H} CS={d.CS} "
                        f"L={d.L} RB={d.RB}")
         out.append(e)
@@ -667,6 +689,13 @@ def kbench_phase() -> tuple[list[dict], dict]:
             f"({e['bound_by']}); share of bound {f(None if dev is None else e['bound_ms'] / dev)}, "
             f"x library device {f(e['vs_library_device'])}; launches {counts[name]} "
             f"({per_pass} per pass)")
+        if name == "kernel_vpu8":
+            e["k2_int8_device_ms"] = k2_int8_dev
+            log(f"    bytes the kernel needs over the keys < S {need} a pass (the tool's, over "
+                f"S_PAD: {e['tool_bytes']}, bound {f(records[var]['bound_ms'])}); yardstick: "
+                f"K2's int8 branch on the same layer, device ms a call {f(k2_int8_dev)} "
+                f"against K8's {f(e['device_ms'])} (bound {e['bound_ms'] / per_pass:.5f} a "
+                f"launch)")
     log("  library passes, ms (device): " + ", ".join(
         f"{label} {library[key]:.4f} ({f(library_dev[key])})" for key, label in
         (("xla", "torch.sum per layer"), ("whole", "over all slabs"), ("sdpa", "SDPA per layer"))))

@@ -439,6 +439,67 @@ def test_kbench_mxu_kernel_geometry_edges(b, h, dh, s, s_pad, cs):
     assert err.mean().item() <= 0.25 * gap.mean().item()
 
 
+# K8's cluster over the keys (kernels.kbench.vpu8_geometry) at its edges,
+# each case's geometry pinned on the CPU by tests/test_torch_kbench.py:
+# (B, H, Dh, S, S_PAD, CS, the largest scores in the last key range, the
+# K/V bases 2 bytes past a 16-byte boundary)
+VPU8_EDGES = [
+    (8, 20, 64, 1, 1536, 512, False, False),      # one key: a cluster of 1
+    (8, 20, 64, 15, 1536, 512, False, False),     # one 16-key group, part of it
+    (8, 20, 64, 16, 1536, 512, False, False),
+    (8, 20, 64, 17, 1536, 512, False, False),     # two 16-key groups, the second of one key
+    (8, 20, 64, 1500, 1536, 512, False, False),   # the tool's shape: clusters of 3
+    (8, 20, 64, 1500, 1536, 64, False, False),    # CS does not move the kernel's split
+    (8, 20, 64, 200, 200, 200, False, False),     # S_PAD % 16 != 0: 2-byte loads
+    (1, 20, 64, 1500, 1536, 512, False, False),   # B = 1
+    (8, 2, 64, 1500, 1536, 512, False, False),    # H = 2
+    (8, 20, 16, 1500, 1536, 512, False, False),   # Dh = 16
+    (8, 20, 128, 1500, 1536, 512, False, False),  # Dh = 128: 16 rows a thread
+    (2, 3, 72, 300, 304, 16, False, False),       # Dh = 72: rows past Dh in the warps
+    (2, 2, 128, 200, 200, 200, False, False),     # 2-byte loads and 16 rows a thread
+    (1, 2, 64, 6000, 6144, 512, False, False),    # a cluster of 8, 752 keys a block: two passes
+    (8, 20, 64, 6000, 6144, 512, False, False),   # 752 keys a block, many clusters
+    (8, 20, 64, 1500, 1536, 512, True, False),    # the peak in the last range
+    (1, 2, 64, 6000, 6144, 512, True, False),     # ... and in a block's second pass
+    (8, 20, 64, 1500, 1536, 512, False, True),    # unaligned bases: 2-byte loads
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,dh,s,s_pad,cs,peak,offset", VPU8_EDGES)
+def test_kbench_vpu8_kernel_edges(b, h, dh, s, s_pad, cs, peak, offset):
+    """K8 against its plain version where its key ranges, passes, rows a
+    thread and load widths meet their edges, within 1e-5 of the output's
+    size (f32 p on both sides; only the order of the f32 sums differs). With
+    ``peak`` the last keys score far above the rest, so a block weight
+    e^(m_j - M) taken wrong shows in full."""
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    hd = h * dh
+    q = torch.randn((b, hd, 1), generator=g, device="cuda").mul(0.3).bfloat16()
+    n = b * hd * s_pad
+    k8, v8 = (torch.randint(-127, 128, (n + 16,), generator=g, device="cuda", dtype=torch.int8)
+              for _ in range(2))
+    k8, v8 = (x[2:n + 2] if offset else x[:n] for x in (k8, v8))
+    k8, v8 = k8.view(b, hd, s_pad), v8.view(b, hd, s_pad)
+    sk, sv = (torch.rand((b, 1, s_pad), generator=g, device="cuda") * 9e-3 + 1e-3
+              for _ in range(2))
+    if peak:
+        # q . K at its largest, times the largest scale, on the last 3 keys
+        assert kb.vpu8_geometry(b, h, s, s_pad).ranges[-1][0] <= s - 3
+        k8[..., s - 3:s] = torch.where(q > 0, 127, -127).to(torch.int8)
+        sk[..., s - 3:s] = 1e-2
+    before = kb.kernel_vpu8.launches
+    got = kb.kernel_vpu8(q, k8, v8, sk, sv, h, s, cs)
+    assert kb.kernel_vpu8.launches == before + 1
+    want = kb.KERNELS["kernel_vpu8"][1](q, k8, v8, sk, sv, h, s, cs)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, hd, 1) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead,hd,s_pad", [((3,), 13, 8), ((2,), 128, 208), ((1,), 100, 3000),
                                            ((8,), 1280, 1536)])

@@ -294,6 +294,63 @@ def test_mxu_geometry_refuses_a_block_too_large():
         kb.mxu_geometry(1, 16, 1, 2**18, 2**18)
 
 
+# (lanes, H, S, S_PAD): K8's geometry at the card tests' edge shapes
+# (tests/test_torch_cuda.py VPU8_EDGES) and a few more
+VPU8_SHAPES = [
+    (8, 20, 1, 1536), (8, 20, 15, 1536), (8, 20, 16, 1536), (8, 20, 17, 1536),
+    (8, 20, 200, 256), (8, 20, 200, 200), (8, 20, 1500, 1536), (1, 20, 1500, 1536),
+    (8, 2, 1500, 1536), (1, 2, 1500, 1536), (1, 2, 1, 256), (1, 2, 17, 200),
+    (1, 20, 200, 256), (2, 3, 300, 304), (1, 2, 6000, 6144), (8, 20, 6000, 6144),
+]
+
+
+@pytest.mark.parametrize("shape", VPU8_SHAPES)
+def test_vpu8_geometry_covers_the_keys(shape):
+    """K8's launch geometry: the key ranges cover [0, S) once, none empty,
+    each starting on a 16-key group; at most 8 blocks a cluster; 16-byte
+    loads exactly where S_PAD % 16 == 0."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    lanes, h, s, s_pad = shape
+    geo = kb.vpu8_geometry(lanes, h, s, s_pad)
+    assert 1 <= geo.cluster <= 8 and len(geo.ranges) == geo.cluster
+    assert geo.ranges[0][0] == 0 and geo.ranges[-1][1] == s
+    assert all(a[1] == b[0] for a, b in zip(geo.ranges, geo.ranges[1:]))
+    assert all(lo < hi and lo % 16 == 0 for lo, hi in geo.ranges)
+    assert geo.ranges == tuple(kb.vpu8_ranges(s, geo.cluster))
+    assert geo.vec == (16 if s_pad % 16 == 0 else 2)
+    assert geo.blocks == h * geo.cluster * lanes
+
+
+def test_vpu8_geometry_fills_the_card_at_large_v2():
+    """At the tool's large-v2 shape: clusters of 3, one pass of at most 512
+    keys a block, 480 blocks for the 132 SMs."""
+    from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.tools.kbench import Dims
+
+    d = Dims()
+    geo = kb.vpu8_geometry(d.B, d.H, d.S, d.s_pad)
+    assert geo.blocks >= kb.SMS
+    assert geo.cluster == 3 and geo.ranges == ((0, 496), (496, 992), (992, 1500))
+    assert all(hi - lo <= kb.VPU8_PASS for lo, hi in geo.ranges)
+
+
+def test_vpu8_geometry_reaches_the_kernels_edges():
+    """The card tests' edge shapes reach what they are there for: a cluster
+    of 1 and of 8, a last 16-key group of one key, 2-byte loads, and blocks
+    that take two passes, few of them and many."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    assert kb.vpu8_geometry(8, 20, 16, 1536).cluster == 1
+    assert kb.vpu8_geometry(8, 20, 17, 1536).ranges == ((0, 17),)
+    assert kb.vpu8_geometry(1, 20, 1500, 1536).cluster == 3
+    assert kb.vpu8_geometry(8, 20, 200, 200).vec == 2
+    geo = kb.vpu8_geometry(1, 2, 6000, 6144)
+    assert geo.cluster == 8 and min(hi - lo for lo, hi in geo.ranges) > kb.VPU8_PASS
+    geo = kb.vpu8_geometry(8, 20, 6000, 6144)
+    assert geo.blocks == 1280 and min(hi - lo for lo, hi in geo.ranges) > kb.VPU8_PASS
+
+
 def _tool_fill():
     """The JAX tool's ``fill``, a closure of its ``main()``, compiled from
     its source."""

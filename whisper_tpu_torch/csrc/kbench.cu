@@ -12,7 +12,7 @@
 //   kv_rowsum          per row, the f32 sum of k + v over every stored
 //                      column, padding included (K3, K5, K6, K9)
 //   kb_attn_cuda_core  per lane and head, softmax over the keys s < S of the
-//                      unscaled q . K[:, s], then P.V, all in f32 (K4a; K8 on
+//   kb_attn_int8_split unscaled q . K[:, s], then P.V, all in f32 (K4a; K8 on
 //                      int8 K/V with column scales folded where kernel_vpu8
 //                      folds them: the raw dot times k_scale[s] before the
 //                      mask, the sum l over p, then p * v_scale[s] into P.V)
@@ -24,7 +24,9 @@
 //
 // What bounds them on an H100: bytes. A large-v2 pass (32 layers, B = 8,
 // HD = 1280, S_PAD = 1536) streams 2,013,265,920 B of bf16 K + V, 0.601 ms at
-// 3.35 TB/s; K8's int8 K/V and their scales are 1,009,778,688 B, 0.301 ms.
+// 3.35 TB/s. K8 reads the int8 K/V and scales of the keys s < S only:
+// 986,112,000 B a pass at S = 1500, 0.294 ms (1,009,778,688 B over all S_PAD
+// columns, as the tool counts them).
 // The attention kernels do 4 flops per K/V element, far below the ~295
 // flop/byte where the tensor cores would matter; K4b's dense formulation
 // issues a 16-row m-tile for the scores and an 8-column n-tile per 8 heads
@@ -44,16 +46,24 @@
 // chunks)) differ only in the TPU's grid nesting and so are one launch
 // configuration over L * B slabs here (the split pass, then the combine).
 //
-// K4a, K7 and K8 keep the TPU's sequential chunk walk as a loop inside the
+// K4a and K7 keep the TPU's sequential chunk walk as a loop inside the
 // block (one block per lane and head), carrying m, l and acc across
 // CS-wide chunks, so that the microbenchmark sets that structure against
 // the decode kernel's split-S at the same shape. Each chunk's scores are
-// finished before its softmax, so p is rounded to bf16 at the chunk's
-// running max, as on the TPU. Their K and V tiles go through shared memory
+// finished before its softmax, so K7 rounds p to bf16 at the chunk's
+// running max, as on the TPU. K7's K and V tiles go through shared memory
 // by 16-byte cp.async copies; K's B fragments ([Dh, S] rows, contracted
 // over Dh) come from ldmatrix.trans, V's (contracted over S, contiguous)
 // from plain 32-bit loads. Masked keys score -inf, as on the TPU; S >= 1
 // keeps the first chunk's max finite.
+//
+// K8 (kb_attn_int8_split) walks no chunks: its p is never rounded, so the
+// result does not depend on how the keys are split, up to f32 rounding. A
+// thread-block cluster per (head, lane) splits [0, S) into key ranges of
+// whole 16-key groups (keys >= S give p = 0 and are not read); each block
+// issues all its 16-byte K and V loads and its keys' scales before any
+// reduction, decodes int8 by byte permute, and the blocks combine their
+// (m, l, P.V) through distributed shared memory in the same launch.
 //
 // K4b splits the walk instead: a thread-block cluster per (head group,
 // lane) divides the keys into ranges that lie inside one chunk or cover
@@ -67,8 +77,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -205,43 +213,29 @@ __global__ void kv_rowsum_combine(const float* __restrict__ part, float* __restr
 }
 
 // ---------------------------------------------------------------------------
-// kb_attn_cuda_core: K4a (bf16 K/V), K8 (int8 K/V + column scales)
+// kb_attn_cuda_core: K4a (bf16 K/V)
 // ---------------------------------------------------------------------------
 
 constexpr int kAttnThreads = 256;
 constexpr int kAttnWarps = kAttnThreads / 32;
 constexpr int kMaxDh = 128;
 
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float2 load_pair(const int8_t* p) {
-  const char2 c = *reinterpret_cast<const char2*>(p);
-  return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
-}
-
 // One block per (head, lane) walks the CS-wide chunks in order. Each thread
 // owns column pairs of the chunk: it makes their scores (a 64-deep f32 dot,
 // coalesced along S), then their p; the warps then run along Dh for P.V.
-template <typename TKV>
 __global__ void __launch_bounds__(kAttnThreads)
-kb_attn_cuda_core(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
-                  const TKV* __restrict__ v, const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale, float* __restrict__ out, int HD, int S_pad,
+kb_attn_cuda_core(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int HD, int S_pad,
                   int S, int H, int CS) {
-  constexpr bool kScaled = std::is_same<TKV, int8_t>::value;
-  extern __shared__ float p_s[];  // [CS]: the chunk's scores, then p (times v_scale)
+  extern __shared__ float p_s[];  // [CS]: the chunk's scores, then p
   __shared__ float q_s[kMaxDh];
   __shared__ float acc_s[kMaxDh];
   __shared__ float red[kAttnWarps];
   const int h = blockIdx.x, b = blockIdx.y, dh = HD / H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long row0 = ((long long)b * HD + (long long)h * dh) * S_pad;
-  const TKV* kb = k + row0;
-  const TKV* vb = v + row0;
-  const float* skb = kScaled ? k_scale + (long long)b * S_pad : nullptr;
-  const float* svb = kScaled ? v_scale + (long long)b * S_pad : nullptr;
+  const __nv_bfloat16* kb = k + row0;
+  const __nv_bfloat16* vb = v + row0;
   for (int d = tid; d < dh; d += kAttnThreads) {
     q_s[d] = __bfloat162float(q[(long long)b * HD + h * dh + d]);
     acc_s[d] = 0.f;
@@ -252,17 +246,14 @@ kb_attn_cuda_core(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k
   for (int c0 = 0; c0 < S_pad; c0 += CS) {
     float t_max = -INFINITY;
     for (int j = 2 * tid; j < CS; j += 2 * kAttnThreads) {
-      const TKV* kc = kb + c0 + j;
+      const __nv_bfloat16* kc = kb + c0 + j;
       float a0 = 0.f, a1 = 0.f;
 #pragma unroll 8
       for (int d = 0; d < dh; ++d) {
-        const float2 x = load_pair(kc + (long long)d * S_pad);
+        const float2 x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(kc + (long long)d * S_pad));
         a0 += q_s[d] * x.x;
         a1 += q_s[d] * x.y;
-      }
-      if constexpr (kScaled) {
-        a0 *= skb[c0 + j];
-        a1 *= skb[c0 + j + 1];
       }
       if (c0 + j >= S) a0 = -INFINITY;
       if (c0 + j + 1 >= S) a1 = -INFINITY;
@@ -276,16 +267,16 @@ kb_attn_cuda_core(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k
     for (int j = 2 * tid; j < CS; j += 2 * kAttnThreads) {
       const float p0 = expf(p_s[j] - m_new), p1 = expf(p_s[j + 1] - m_new);
       t_sum += p0 + p1;
-      p_s[j] = kScaled ? p0 * svb[c0 + j] : p0;
-      p_s[j + 1] = kScaled ? p1 * svb[c0 + j + 1] : p1;
+      p_s[j] = p0;
+      p_s[j + 1] = p1;
     }
     l = l * alpha + block_sum<kAttnWarps>(t_sum, red);  // syncs: p_s is complete
     m = m_new;
     for (int d = warp; d < dh; d += kAttnWarps) {
-      const TKV* vr = vb + (long long)d * S_pad + c0;
+      const __nv_bfloat16* vr = vb + (long long)d * S_pad + c0;
       float a = 0.f;
       for (int j = 2 * lane; j < CS; j += 64) {
-        const float2 x = load_pair(vr + j);
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vr + j));
         a += p_s[j] * x.x + p_s[j + 1] * x.y;
       }
       a = warp_sum(a);
@@ -294,6 +285,282 @@ kb_attn_cuda_core(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k
     __syncthreads();  // the next chunk rewrites p_s
   }
   for (int d = tid; d < dh; d += kAttnThreads) out[(long long)b * HD + h * dh + d] = acc_s[d] / l;
+}
+
+// ---------------------------------------------------------------------------
+// K8: int8 K/V + column scales, the keys split over a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kI8Threads = 256;
+constexpr int kI8Warps = kI8Threads / 32;   // warp w holds rows w, w + 8, ... of the head
+constexpr int kI8Group = 16;                // keys a lane owns: one 16-byte load of a row
+constexpr int kI8Pass = 32 * kI8Group;      // keys a block takes at once: 512
+constexpr int kI8MaxCluster = 8;
+
+// Non-coherent loads as volatile asm, not __ldg: the asm keeps the loads in
+// the order written, all of a pass before its first decode, and the address
+// arithmetic apart from them. With __ldg for the same loads nvcc emits the
+// same LDG instructions but schedules the address arithmetic and parameter
+// loads around them differently, and K8 ran slower on an H100.
+__device__ __forceinline__ uint4 ldg_v4(const void* p) {
+  uint4 r;
+  asm volatile("ld.global.nc.v4.u32 {%0,%1,%2,%3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t ldg_u16(const void* p) {
+  unsigned short r;
+  asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(r) : "l"(p));
+  return r;
+}
+
+__device__ __forceinline__ float ldg_f32(const float* p) {
+  float r;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(r) : "l"(p));
+  return r;
+}
+
+// The 16 int8 codes at p as one uint4, or zeros where no key is left: n is
+// the count of the 16 keys that lie in the block's range (<= 0: none).
+// kVec = 16 takes one load (the 16 bytes lie inside the row when S_pad % 16
+// == 0); kVec = 2 takes 2-byte loads of the pieces that hold a key in range
+// (S_pad is even, so none reaches past the row).
+template <int kVec>
+__device__ __forceinline__ uint4 load_codes(const int8_t* p, int n) {
+  if constexpr (kVec == 16) {
+    return n > 0 ? ldg_v4(p) : make_uint4(0u, 0u, 0u, 0u);
+  } else {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t lo = 4 * i < n ? ldg_u16(p + 4 * i) : 0u;
+      const uint32_t hi = 4 * i + 2 < n ? ldg_u16(p + 4 * i + 2) : 0u;
+      w[i] = lo | hi << 16;
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// 16 int8 codes, low byte first, as f32 (exact): the biased byte c + 128 as
+// the low mantissa bits of 2^23 by one byte permute, then one subtract,
+// where a conversion instruction runs at a quarter of the FMA rate.
+__device__ __forceinline__ void decode16(uint4 r, float (&f)[16]) {
+  const uint32_t w[4] = {r.x ^ 0x80808080u, r.y ^ 0x80808080u, r.z ^ 0x80808080u,
+                         r.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[4 * i + e] = __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650u | e)) - 8388736.f;
+}
+
+// Each of N values (N = 8 or 16) summed over the warp in N + N/2 + ... + 1
+// + 1 shuffles rather than 5 N: each step halves the values a lane carries.
+// Lane L ends with the sum of value (L >> (5 - log2 N)) % N.
+template <int N>
+__device__ __forceinline__ float warp_sum_many(float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int step = 0; step < 5; ++step) {
+    const int o = 16 >> step, n = N >> (step + 1);  // n: values a lane keeps
+    if (n > 0) {
+      const bool up = lane & o;
+#pragma unroll
+      for (int i = 0; i < n; ++i) {
+        const float send = up ? v[i] : v[i + n], keep = up ? v[i + n] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+    }
+  }
+  return v[0];
+}
+
+// Where key j of a pass sits in part_s's rows and in p_s: lane j / 16's 16
+// floats, their four 16-byte pieces rotated by (lane / 2) % 4, so that the
+// lanes' float4 stores and loads of those rows meet no bank conflict.
+__device__ __forceinline__ int i8_slot(int j) {
+  const int ln = j >> 4;
+  return (ln << 4) + ((((j >> 2) & 3) ^ ((ln >> 1) & 3)) << 2) + (j & 3);
+}
+
+// K8: a cluster of C blocks per (head, lane); grid (H * C, B). Block rank r
+// takes keys [lo, hi): the ceil(S / 16) groups of 16 keys split as evenly as
+// they go (kernels/kbench.py's vpu8_ranges), the last range ending at S, so
+// no range is empty when C <= ceil(S / 16). In a pass of up to 512 keys
+// from p0, lane j of warp w owns keys [p0 + 16 j, +16) of the head's rows
+// w, w + 8, ... (kRows of them): every K and V load of the pass (16 bytes
+// a row) and its keys' scales go out first, 64 KB a block at Dh = 64, so
+// V's bytes arrive while the scores are reduced. The bytes land in
+// registers (128 a thread, two blocks an SM), which no copy into shared
+// memory has to wait out.
+//   scores: each thread's 16 partial dots over its rows (f32, the codes
+//     decoded by byte permute) meet in shared memory; a thread a key sums
+//     them, times k_scale, keys >= hi at -inf; the block's max m and
+//     p = exp(s - m), l the sum of p, p * v_scale into p_s.
+//   P.V: a lane takes the p of its 16 keys and multiplies them into each of
+//     its V rows; the rows' sums over the warp leave lane L with one row.
+// Over passes (ranges past 512 keys) m, l and acc run as the online softmax.
+//   combine: each block stores its acc of row d into block d % C's shared
+//     memory and its (m, l) into every block's; cluster.sync(); block r
+//     writes rows d = r (mod C): sum_j e^(m_j - M) acc_j / sum_j e^(m_j - M)
+//     l_j, M the max of the m_j. Every block stores before the one sync and
+//     reads only its own shared memory after it, so none waits out a
+//     peer's reads; each m_j is finite (every range holds a key < S).
+template <int kVec, int kRows>
+__global__ void __launch_bounds__(kI8Threads, kVec == 16 && kRows == 8 ? 2 : 1)
+kb_attn_int8_split(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k,
+                   const int8_t* __restrict__ v, const float* __restrict__ k_scale,
+                   const float* __restrict__ v_scale, float* __restrict__ out, int HD, int S_pad,
+                   int S, int H) {
+  __shared__ __align__(16) float part_s[kI8Warps][kI8Pass];  // each warp's partial scores
+  __shared__ __align__(16) float p_s[kI8Pass];               // p * v_scale
+  __shared__ float red_m[kI8Warps], red_l[kI8Warps];
+  __shared__ float acc_x[kI8MaxCluster][kMaxDh];  // every block's acc of this block's rows
+  __shared__ float2 ml_x[kI8MaxCluster];          // every block's (m, l)
+  cg::cluster_group cluster = cg::this_cluster();
+  // a block stores into its peers' shared memory only once all are running
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h = static_cast<int>(blockIdx.x) / C, b = blockIdx.y, dh = HD / H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int groups = (S + kI8Group - 1) / kI8Group;
+  const int lo = kI8Group * (rank * groups / C);
+  const int hi = min(S, kI8Group * ((rank + 1) * groups / C));
+  const long long row0 = ((long long)b * HD + (long long)h * dh) * S_pad;
+  const float* ksb = k_scale + (long long)b * S_pad;
+  const float* vsb = v_scale + (long long)b * S_pad;
+  const int sw = (lane >> 1) & 3;  // i8_slot's rotation of this lane's pieces
+
+  float qv[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int d = warp + kI8Warps * i;
+    qv[i] = d < dh ? __bfloat162float(q[(long long)b * HD + h * dh + d]) : 0.f;
+  }
+
+  float m = -INFINITY, l = 0.f, acc = 0.f;
+  for (int p0 = lo; p0 < hi; p0 += kI8Pass) {
+    const int key0 = p0 + kI8Group * lane, n = hi - key0;
+    uint4 kr[kRows], vr[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int d = warp + kI8Warps * i;
+      kr[i] = load_codes<kVec>(k + row0 + (long long)d * S_pad + key0, d < dh ? n : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int d = warp + kI8Warps * i;
+      vr[i] = load_codes<kVec>(v + row0 + (long long)d * S_pad + key0, d < dh ? n : 0);
+    }
+    float ks[2], vs[2];  // the scales of keys p0 + tid and p0 + tid + 256
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int key = p0 + tid + kI8Threads * u;
+      ks[u] = key < hi ? ldg_f32(ksb + key) : 0.f;
+      vs[u] = key < hi ? ldg_f32(vsb + key) : 0.f;
+    }
+
+    // scores: this thread's rows' partial dots of its 16 keys
+    float s[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) s[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float f[16];
+      decode16(kr[i], f);
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = fmaf(qv[i], f[e], s[e]);
+    }
+    float* pw = part_s[warp] + kI8Group * lane;
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(pw + ((c ^ sw) << 2)) =
+          make_float4(s[4 * c], s[4 * c + 1], s[4 * c + 2], s[4 * c + 3]);
+    __syncthreads();
+
+    // a thread a key: the whole dot, scaled and masked; the block's max
+    float sc[2], t_max = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int j = tid + kI8Threads * u, slot = i8_slot(j);
+      float a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kI8Warps; ++w) a += part_s[w][slot];
+      sc[u] = p0 + j < hi ? a * ks[u] : -INFINITY;
+      t_max = fmaxf(t_max, sc[u]);
+    }
+    t_max = warp_max(t_max);
+    if (lane == 0) red_m[warp] = t_max;
+    __syncthreads();
+    float m_pass = red_m[0];
+#pragma unroll
+    for (int w = 1; w < kI8Warps; ++w) m_pass = fmaxf(m_pass, red_m[w]);
+    const float m_new = fmaxf(m, m_pass);  // finite: key p0 < hi
+    const float alpha = expf(m - m_new);   // 0 on the first pass
+    float t_sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const float p = expf(sc[u] - m_new);  // 0 for a masked key
+      t_sum += p;
+      p_s[i8_slot(tid + kI8Threads * u)] = p * vs[u];
+    }
+    t_sum = warp_sum(t_sum);
+    if (lane == 0) red_l[warp] = t_sum;
+    __syncthreads();  // p_s and red_l are whole
+    float l_pass = 0.f;
+#pragma unroll
+    for (int w = 0; w < kI8Warps; ++w) l_pass += red_l[w];
+    l = l * alpha + l_pass;
+    m = m_new;
+
+    // P.V: this lane's 16 p against each of its V rows, then the warp's sums
+    float pv[16];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 x = *reinterpret_cast<const float4*>(p_s + kI8Group * lane + ((c ^ sw) << 2));
+      pv[4 * c] = x.x;
+      pv[4 * c + 1] = x.y;
+      pv[4 * c + 2] = x.z;
+      pv[4 * c + 3] = x.w;
+    }
+    float a[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      float f[16];
+      decode16(vr[i], f);
+      a[i] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) a[i] = fmaf(pv[e], f[e], a[i]);
+    }
+    acc = acc * alpha + warp_sum_many<kRows>(a);
+    // the next pass writes part_s, p_s and red_* only after its first
+    // __syncthreads(), which every thread reaches after reading them here
+  }
+
+  // --- combine over the cluster ---
+  constexpr int kCopies = 32 / kRows;                  // lanes that hold one row's sum
+  const int d_own = warp + kI8Warps * (lane / kCopies);  // warp_sum_many's row of this lane
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (lane % kCopies == 0 && d_own < dh)
+    *cluster.map_shared_rank(&acc_x[rank][d_own], d_own % C) = acc;
+  if (tid < C) *cluster.map_shared_rank(&ml_x[rank], tid) = make_float2(m, l);
+  cluster.sync();  // every block's acc and (m, l) are in
+  for (int d = rank + C * tid; d < dh; d += C * kI8Threads) {
+    float M = -INFINITY;
+    for (int j = 0; j < C; ++j) M = fmaxf(M, ml_x[j].x);
+    float num = 0.f, den = 0.f;
+    for (int j = 0; j < C; ++j) {
+      const float f = expf(ml_x[j].x - M);
+      num += f * acc_x[j][d];
+      den += f * ml_x[j].y;
+    }
+    out[(long long)b * HD + h * dh + d] = num / den;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -953,31 +1220,82 @@ extern "C" int wtt_kb_rowsum_rows(const void* k, const void* v, float* out, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// kv_type 1: bf16 K/V (K4a); 2: int8 K/V with k_scale/v_scale f32 [B, S_pad]
-// (K8). q: bf16 [B, HD]; k, v: contiguous [B, HD, S_pad]; out: f32 [B, HD].
-// S_pad % CS == 0, CS even, Dh = HD / H <= 128, 1 <= S <= S_pad.
-extern "C" int wtt_kb_attn_cuda_core(int kv_type, const void* q, const void* k, const void* v,
-                                     const float* k_scale, const float* v_scale, float* out, int B,
-                                     int HD, int S_pad, int S, int H, int CS, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(H, B);
+// K4a. q: bf16 [B, HD]; k, v: contiguous bf16 [B, HD, S_pad]; out: f32
+// [B, HD]. S_pad % CS == 0, CS even, Dh = HD / H <= 128, 1 <= S <= S_pad.
+extern "C" int wtt_kb_attn_cuda_core(const void* q, const void* k, const void* v, float* out,
+                                     int B, int HD, int S_pad, int S, int H, int CS,
+                                     void* stream) {
   const size_t smem = (size_t)CS * sizeof(float);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  cudaError_t err;
-  if (kv_type == 1) {
-    if ((err = allow_smem(kb_attn_cuda_core<__nv_bfloat16>, smem)) != cudaSuccess) return err;
-    kb_attn_cuda_core<__nv_bfloat16><<<grid, kAttnThreads, smem, st>>>(
-        qb, static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v), nullptr,
-        nullptr, out, HD, S_pad, S, H, CS);
-  } else if (kv_type == 2 && k_scale && v_scale) {
-    if ((err = allow_smem(kb_attn_cuda_core<int8_t>, smem)) != cudaSuccess) return err;
-    kb_attn_cuda_core<int8_t><<<grid, kAttnThreads, smem, st>>>(
-        qb, static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), k_scale, v_scale, out,
-        HD, S_pad, S, H, CS);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const cudaError_t err = allow_smem(kb_attn_cuda_core, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kb_attn_cuda_core<<<dim3(H, B), kAttnThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), out, HD, S_pad, S, H, CS);
   return static_cast<int>(cudaGetLastError());
+}
+
+using Int8Kernel = void (*)(const __nv_bfloat16*, const int8_t*, const int8_t*, const float*,
+                            const float*, float*, int, int, int, int);
+
+// The launch of K8 for clusters of C blocks and vec-byte loads, into cfg
+// (whose attrs point at attr) and fn: cudaErrorInvalidValue for a shape or
+// geometry the kernel does not take (see wtt_kb_attn_int8_split).
+static cudaError_t int8_config(int B, int HD, int S_pad, int S, int H, int C, int vec,
+                               cudaStream_t st, cudaLaunchConfig_t& cfg,
+                               cudaLaunchAttribute& attr, Int8Kernel& fn) {
+  if (B < 1 || H < 1 || HD % H || HD / H > kMaxDh || S < 1 || S > S_pad || S_pad % 2 ||
+      C < 1 || C > kI8MaxCluster || C > (S + kI8Group - 1) / kI8Group ||
+      (vec == 16 ? S_pad % 16 != 0 : vec != 2))
+    return cudaErrorInvalidValue;
+  if (HD / H <= 8 * kI8Warps)
+    fn = vec == 16 ? kb_attn_int8_split<16, 8> : kb_attn_int8_split<2, 8>;
+  else
+    fn = vec == 16 ? kb_attn_int8_split<16, 16> : kb_attn_int8_split<2, 16>;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(H * C, B);
+  cfg.blockDim = dim3(kI8Threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// K8, clusters of C blocks over the keys (kernels/kbench.py's vpu8_geometry
+// chooses C). q: bf16 [B, HD]; k, v: contiguous int8 [B, HD, S_pad];
+// k_scale, v_scale: f32 [B, S_pad]; out: f32 [B, HD]. Dh = HD / H <= 128,
+// 1 <= S <= S_pad, S_pad even, 1 <= C <= min(8, ceil(S / 16)). vec = 16
+// (S_pad % 16 == 0, k and v 16-byte aligned) or 2 (k and v 2-byte aligned).
+extern "C" int wtt_kb_attn_int8_split(const void* q, const void* k, const void* v,
+                                      const float* k_scale, const float* v_scale, float* out,
+                                      int B, int HD, int S_pad, int S, int H, int C, int vec,
+                                      void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  Int8Kernel fn;
+  cudaError_t err = int8_config(B, HD, S_pad, S, H, C, vec, static_cast<cudaStream_t>(stream),
+                                cfg, attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(&cfg, fn, static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), k_scale,
+                           v_scale, out, HD, S_pad, S, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of K8's launch the card holds at once, into *n.
+extern "C" int wtt_kb_attn_int8_clusters(int B, int HD, int S_pad, int S, int H, int C, int vec,
+                                         int* n) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  Int8Kernel fn;
+  const cudaError_t err = int8_config(B, HD, S_pad, S, H, C, vec, nullptr, cfg, attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, fn, &cfg));
 }
 
 // K7, per head (Dh == 64). q: bf16 [B, HD]; k, v: contiguous bf16 [B, HD,

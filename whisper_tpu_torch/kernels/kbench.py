@@ -18,7 +18,8 @@ count S rounded up to the chunk CS, and the padded columns hold data.
   scales [B, 1, S_PAD]): per lane and head, softmax over the keys s < S of
   the unscaled q . K[:, s] (masked keys at -inf), all in f32, out [B, HD, 1];
   K8 multiplies the raw dot by ``k_scale[s]`` before the mask, sums l over p,
-  then weighs V by ``p * v_scale[s]``.
+  then weighs V by ``p * v_scale[s]``. Neither rounds p, so the result does
+  not depend on how the keys are split, up to f32 rounding.
 - ``kernel_mxu`` (K4b, head-masked dense product) and ``kernel_mxub`` (K7,
   per-head products): the same attention on the tensor cores, p rounded to
   bf16 before P.V, l summed from the f32 p. K7's TPU output is [B, H, Dh],
@@ -29,8 +30,12 @@ running max, and the bf16 rounding of p happens at the chunk's running max,
 so the plain versions walk the chunks too. The kernels are
 ``csrc/kbench.cu``; its header says what bounds them on an H100 (bytes:
 2,013,265,920 B of bf16 K + V per large-v2 pass) and how each is laid out.
-K4a, K7 and K8 walk the chunks inside one block per (head, lane). K4b
-splits them over a thread-block cluster per (head group, lane): the launch
+K4a and K7 walk the chunks inside one block per (head, lane). K8 walks no
+chunks: a thread-block cluster per (head, lane) splits the keys [0, S) into
+ranges of whole 16-key groups (``vpu8_geometry``), each block loads all its
+K/V bytes before it reduces, and the blocks combine their (m, l, P.V)
+through distributed shared memory. K4b splits the chunks over a
+thread-block cluster per (head group, lane): the launch
 geometry (``mxu_geometry``: heads per group, blocks per cluster, each
 block's key range) fills the card's 132 SMs, each block reads only its
 heads' rows of its keys, and the blocks exchange per-chunk maxima so that p
@@ -70,6 +75,9 @@ DENSE_MAX_HEADS, MAX_CLUSTER, DENSE_BLOCKS_PER_SM = 16, 8, 2
 # not divide a GPC's SMs leave some idle (3 at one block an SM: 39, not 44).
 CLUSTER_SLOTS = {(1, 1): 132, (2, 1): 66, (3, 1): 39, (6, 1): 17,
                  (1, 2): 264, (2, 2): 132, (3, 2): 79, (6, 2): 39}
+# K8 (csrc/kbench.cu kb_attn_int8_split): a lane owns 16 keys of a row (one
+# 16-byte load), so a block of 8 warps takes 512 keys a pass
+VPU8_GROUP, VPU8_PASS = 16, 512
 
 
 # ---------------------------------------------------------------------------
@@ -127,24 +135,27 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wtt_kb_rowsum.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.wtt_kb_rowsum_rows.argtypes = [p] * 3 + [ctypes.c_longlong, i, p]
-    lib.wtt_kb_attn_cuda_core.argtypes = [i] + [p] * 6 + [i] * 6 + [p]
+    lib.wtt_kb_attn_cuda_core.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.wtt_kb_attn_int8_split.argtypes = [p] * 6 + [i] * 7 + [p]
+    lib.wtt_kb_attn_int8_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     lib.wtt_kb_attn_mma_head.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.wtt_kb_attn_mma_dense.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.wtt_kb_attn_mma_dense_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     for fn in (lib.wtt_kb_rowsum, lib.wtt_kb_rowsum_rows, lib.wtt_kb_attn_cuda_core,
+               lib.wtt_kb_attn_int8_split, lib.wtt_kb_attn_int8_clusters,
                lib.wtt_kb_attn_mma_head, lib.wtt_kb_attn_mma_dense,
                lib.wtt_kb_attn_mma_dense_clusters):
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check_kv(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
+def _check_kv(name: str, dtype: torch.dtype, *ts: torch.Tensor, align: int = 16) -> None:
     dev = ts[0].device
     for t in ts:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{name}: every tensor must lie on one CUDA device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must be contiguous with 16-byte aligned bases")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name}: tensors must be contiguous with {align}-byte aligned bases")
     for t in ts[:2]:
         if t.dtype != dtype:
             raise NotImplementedError(f"{name} on CUDA takes {dtype} K/V, got {t.dtype}")
@@ -247,25 +258,11 @@ def _check_attn(name: str, q, k, v, n_head: int, s_valid: int, cs: int) -> tuple
     return b, hd, s_pad
 
 
-def _cuda_core(name: str, q, k, v, k_scale, v_scale, n_head, s_valid, cs) -> torch.Tensor:
-    int8 = k_scale is not None
-    _check_kv(name, torch.int8 if int8 else torch.bfloat16, k, v)
+def _cuda_core_shape(name: str, q, k, v, n_head, s_valid, cs) -> tuple[int, int, int]:
     b, hd, s_pad = _check_attn(name, q, k, v, n_head, s_valid, cs)
     if cs % 2 or hd // n_head > 128:
         raise NotImplementedError(f"{name} kernel takes an even CS and Dh <= 128")
-    ks_p = vs_p = 0
-    if int8:
-        for sname, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if (t.dtype != torch.float32 or tuple(t.shape) != (b, 1, s_pad)
-                    or not t.is_contiguous() or t.device != k.device):
-                raise ValueError(f"{name}: {sname} must be contiguous f32 [{b}, 1, {s_pad}] "
-                                 f"on {k.device}")
-        ks_p, vs_p = k_scale.data_ptr(), v_scale.data_ptr()
-    out = torch.empty((b, hd, 1), dtype=torch.float32, device=k.device)
-    _raise_on(_lib().wtt_kb_attn_cuda_core(2 if int8 else 1, q.data_ptr(), k.data_ptr(),
-                                           v.data_ptr(), ks_p, vs_p, out.data_ptr(), b, hd, s_pad,
-                                           s_valid, n_head, cs, _stream(k)), name)
-    return out
+    return b, hd, s_pad
 
 
 def kernel_vpu(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
@@ -273,18 +270,86 @@ def kernel_vpu(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
     the chunks -> [B, HD, 1] f32."""
     if k.device.type == "cpu":
         return attention_ref(q, k, v, n_head, s_valid, cs)
-    out = _cuda_core("kernel_vpu", q, k, v, None, None, n_head, s_valid, cs)
+    _check_kv("kernel_vpu", torch.bfloat16, k, v)
+    b, hd, s_pad = _cuda_core_shape("kernel_vpu", q, k, v, n_head, s_valid, cs)
+    out = torch.empty((b, hd, 1), dtype=torch.float32, device=k.device)
+    _raise_on(_lib().wtt_kb_attn_cuda_core(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           out.data_ptr(), b, hd, s_pad, s_valid, n_head, cs,
+                                           _stream(k)), "kernel_vpu")
     kernel_vpu.launches += 1
     return out
 
 
+def vpu8_ranges(s_valid: int, cluster: int) -> list[tuple[int, int]]:
+    """K8's key range [lo, hi) of each block of a cluster: the ceil(S / 16)
+    groups of 16 keys split as evenly as they go, the last range ending at
+    S (csrc/kbench.cu's kb_attn_int8_split computes the same)."""
+    groups = -(-s_valid // VPU8_GROUP)
+    return [(VPU8_GROUP * (r * groups // cluster),
+             min(s_valid, VPU8_GROUP * ((r + 1) * groups // cluster))) for r in range(cluster)]
+
+
+@dataclasses.dataclass(frozen=True)
+class Vpu8Geometry:
+    """K8's launch: a cluster of ``cluster`` blocks per (head, lane) pair,
+    block r over keys ``ranges[r]``; grid (heads * cluster, lanes); ``vec``
+    bytes a K/V load (16, or 2 where S_PAD % 16 != 0)."""
+
+    heads: int
+    lanes: int
+    cluster: int
+    ranges: tuple[tuple[int, int], ...]
+    vec: int
+
+    @property
+    def blocks(self) -> int:
+        return self.heads * self.cluster * self.lanes
+
+
+@functools.cache
+def vpu8_geometry(b: int, n_head: int, s: int, s_pad: int) -> Vpu8Geometry:
+    """The K8 launch for this shape: clusters of C blocks, C the least that
+    keeps a block's range within one pass of 512 keys (32 lanes x 16), at
+    most 8 and at most one a 16-key group. The head dim does not move it: a
+    head's rows are a block's whatever Dh <= 128."""
+    groups = -(-s // VPU8_GROUP)
+    cluster = max(1, min(MAX_CLUSTER, groups, -(-s // VPU8_PASS)))
+    return Vpu8Geometry(n_head, b, cluster, tuple(vpu8_ranges(s, cluster)),
+                        16 if s_pad % 16 == 0 else 2)
+
+
+def vpu8_active_clusters(geo: Vpu8Geometry, hd: int, s: int, s_pad: int) -> int:
+    """How many of K8's clusters the current card holds at once for this
+    geometry (cudaOccupancyMaxActiveClusters)."""
+    n = ctypes.c_int(0)
+    _raise_on(_lib().wtt_kb_attn_int8_clusters(geo.lanes, hd, s_pad, s, geo.heads, geo.cluster,
+                                               geo.vec, ctypes.byref(n)), "vpu8_active_clusters")
+    return n.value
+
+
 def kernel_vpu8(q, k8, v8, k_scale, v_scale, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
-    """K8: K4a on int8 K/V with f32 column scales [B, 1, S_PAD]."""
+    """K8: K4a's function on int8 K/V with f32 column scales [B, 1, S_PAD];
+    on the card the keys [0, S) are split over a cluster (``vpu8_geometry``)
+    and the blocks' softmax partials combined in the same launch."""
     if k8.device.type == "cpu":
         return attention_ref(q, k8, v8, n_head, s_valid, cs, k_scale=k_scale, v_scale=v_scale)
     if k_scale is None or v_scale is None:
         raise ValueError("kernel_vpu8: int8 K/V need k_scale and v_scale")
-    out = _cuda_core("kernel_vpu8", q, k8, v8, k_scale, v_scale, n_head, s_valid, cs)
+    # the narrow load (2 bytes) takes any even base; CS even keeps S_PAD even
+    _check_kv("kernel_vpu8", torch.int8, k8, v8, align=2)
+    b, hd, s_pad = _cuda_core_shape("kernel_vpu8", q, k8, v8, n_head, s_valid, cs)
+    for sname, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, 1, s_pad)
+                or not t.is_contiguous() or t.device != k8.device):
+            raise ValueError(f"kernel_vpu8: {sname} must be contiguous f32 [{b}, 1, {s_pad}] "
+                             f"on {k8.device}")
+    geo = vpu8_geometry(b, n_head, s_valid, s_pad)
+    vec = geo.vec if k8.data_ptr() % 16 == 0 and v8.data_ptr() % 16 == 0 else 2
+    out = torch.empty((b, hd, 1), dtype=torch.float32, device=k8.device)
+    _raise_on(_lib().wtt_kb_attn_int8_split(q.data_ptr(), k8.data_ptr(), v8.data_ptr(),
+                                            k_scale.data_ptr(), v_scale.data_ptr(),
+                                            out.data_ptr(), b, hd, s_pad, s_valid, n_head,
+                                            geo.cluster, vec, _stream(k8)), "kernel_vpu8")
     kernel_vpu8.launches += 1
     return out
 

@@ -15,7 +15,8 @@ kernels here (``whisper_tpu_torch/kernels/kbench.py``):
   mxu       K4b the same on the tensor cores, head-masked dense product, its
                 keys split over a thread-block cluster
   mxub      K7  the same on the tensor cores, per-head products
-  vpu8      K8  vpu on int8 K/V with column scales
+  vpu8      K8  vpu on int8 K/V with column scales, its keys split over a
+                thread-block cluster
 
 and the variants that XLA computed outside any kernel stay PyTorch calls:
 ``xla`` (per-layer ``torch.sum``s, the read family's library call),
