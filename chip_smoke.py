@@ -36,9 +36,12 @@ result line:
                 pass); every variant's device time per pass; each kernel's
                 device time per launch, plain pass, library pass
                 (torch.sum for the row sums, SDPA for the bf16 attention)
-                on events and on profiler device time, and bound; K4b's
-                and K8's launch geometry and how many of their clusters the
-                card holds; K2's int8 branch on K8's inputs as K8's yardstick
+                on events and on profiler device time, and bound; K4b's,
+                K7's and K8's launch geometry and how many of their
+                clusters the card holds; the attention kernels' bound over
+                the keys < S (the tool's bytes over S_PAD beside it); K7's
+                device time at S = 1, its fixed cost a launch; K2's int8
+                branch on K8's inputs as K8's yardstick
   4. golden     a small scripted checkpoint (head dim 64, so it runs the
                 kernels) through the user's entry points on the card must
                 give its known transcript, on the bf16 tier and on the
@@ -618,6 +621,11 @@ def kbench_phase() -> tuple[list[dict], dict]:
         f"{geo.cluster} blocks = {geo.blocks} blocks, key ranges {list(geo.ranges)}, "
         f"{geo.smem} B of shared memory a block; the card holds "
         f"{kb.mxu_active_clusters(geo, d.HD, d.H, d.s_pad, d.CS)} such clusters at once")
+    g7 = kb.mxub_geometry(d.B, d.H, d.s_pad, d.CS)
+    log(f"  K7 geometry: {d.H} heads x {d.B} lanes x clusters of {g7.cluster} blocks = "
+        f"{g7.blocks} blocks, key ranges {list(g7.ranges)}, a ring of {g7.stages} tiles, "
+        f"{g7.smem} B of shared memory a block; the card holds "
+        f"{kb.mxub_active_clusters(g7, d.s_pad, d.CS)} such clusters at once")
     g8 = kb.vpu8_geometry(d.B, d.H, d.S, d.s_pad)
     log(f"  K8 geometry: {d.H} heads x {d.B} lanes x clusters of {g8.cluster} blocks = "
         f"{g8.blocks} blocks, key ranges {list(g8.ranges)}, {g8.vec}-byte loads; the card holds "
@@ -649,19 +657,21 @@ def kbench_phase() -> tuple[list[dict], dict]:
             plain = event_ms(lambda _: ref(*args(name, 0)), 1, 2)
         if name in ("kernel_vpu", "kernel_mxu", "kernel_mxub", "kernel_vpu8"):
             # the operations the kernel does, at its type's peak: q.K and P.V
-            # over S_PAD keys, 2 flops a product; K7 pads each to 16 A rows;
-            # K4b issues a 16-row m-tile for the scores and 8 columns per 8
-            # heads of its group for P.V
-            rows = {"kernel_mxu": 16 + 8 * geo.n_tiles, "kernel_mxub": 32}.get(name, 2)
+            # over S_PAD keys, 2 flops a product; K7 puts q and p in one
+            # 8-column n-tile each (K and V are A); K4b issues a 16-row
+            # m-tile for the scores and 8 columns per 8 heads of its group
+            # for P.V
+            rows = {"kernel_mxu": 16 + 8 * geo.n_tiles, "kernel_mxub": 16}.get(name, 2)
             ops_ms = 2 * kv_elems * rows / (BF16_FLOPS if rows > 2 else F32_FLOPS) * 1e3
         else:
             ops_ms = 2 * kv_elems / F32_FLOPS * 1e3     # k + v and the running sum
         need = records[var]["bytes"]
-        if name == "kernel_vpu8":
-            # K8 reads only the keys < S (p is 0 past them): the int8 K/V
-            # rows and both scales over S, q once and the outputs; the tool's
-            # bytes count all S_PAD columns
-            need = d.L * d.B * (2 * d.HD * d.S + 2 * 4 * d.S + 4 * d.HD) + 2 * d.B * d.HD
+        if name in ("kernel_vpu", "kernel_mxu", "kernel_mxub", "kernel_vpu8"):
+            # attention needs only the keys < S (p is 0 past them): the K/V
+            # rows over S (int8 for K8, with both scales), q once and the
+            # outputs; the tool's bytes count all S_PAD columns
+            kv_row = (2 * d.HD + 2 * 4) * d.S if name == "kernel_vpu8" else 2 * d.HD * d.S * 2
+            need = d.L * d.B * (kv_row + 4 * d.HD) + 2 * d.B * d.HD
             ops_ms = ops_ms * d.S / d.s_pad
         bytes_ms = need / tool.HBM_BYTES_PER_S * 1e3
         lib_key = ("xla" if name in ("kernel_read", "kernel_rows")
@@ -689,6 +699,20 @@ def kbench_phase() -> tuple[list[dict], dict]:
             f"({e['bound_by']}); share of bound {f(None if dev is None else e['bound_ms'] / dev)}, "
             f"x library device {f(e['vs_library_device'])}; launches {counts[name]} "
             f"({per_pass} per pass)")
+        if name in ("kernel_vpu", "kernel_mxu", "kernel_mxub"):
+            log(f"    bytes the kernel needs over the keys < S {need} a pass (the tool's, over "
+                f"S_PAD: {e['tool_bytes']}, bound {f(records[var]['bound_ms'])})")
+        if name == "kernel_mxub":
+            # K7's fixed cost a launch: the same launch at S = 1 reads one K
+            # and one V tile a (head, lane) and still pays the ramp, both
+            # cluster barriers and the combine
+            s1 = device_ms(lambda li: kb.kernel_mxub(inp["q"], inp["k"][li], inp["v"][li], d.H,
+                                                     1, d.CS), d.L, 2 * d.L, pattern)
+            e["device_ms_s1"] = s1
+            if s1 is not None and dev is not None:
+                rate = need / d.L / ((e["device_ms"] - s1) * 1e-3) / 1e12
+                log(f"    fixed cost: device ms a launch at S = 1 {s1:.4f} of {e['device_ms']:.4f}; "
+                    f"the rest moves the launch's {need // d.L} B at {rate:.3f} TB/s")
         if name == "kernel_vpu8":
             e["k2_int8_device_ms"] = k2_int8_dev
             log(f"    bytes the kernel needs over the keys < S {need} a pass (the tool's, over "

@@ -439,6 +439,109 @@ def test_kbench_mxu_kernel_geometry_edges(b, h, dh, s, s_pad, cs):
     assert err.mean().item() <= 0.25 * gap.mean().item()
 
 
+# K7's cluster over the keys (kernels.kbench.mxub_geometry) at its edges,
+# each case's geometry pinned on the CPU by tests/test_torch_kbench.py
+# (MXUB_SHAPES): (B, H, S, S_PAD, CS), Dh = 64
+MXUB_EDGES = [
+    (8, 20, 1, 1536, 512),       # one key: blocks 1 and 2 wholly past S, no tile of theirs read
+    (8, 20, 100, 1536, 512),     # a partial tile, then blocks wholly past S
+    (8, 20, 511, 1536, 512),     # one below, at and one above block 0's 512 keys
+    (8, 20, 512, 1536, 512),
+    (8, 20, 513, 1536, 512),
+    (8, 20, 1500, 1536, 512),    # the tool's shape: clusters of 3, a chunk a block
+    (8, 20, 1500, 1536, 64),     # CS = 64: several whole chunks a block
+    (8, 2, 1500, 1536, 512),     # H = 2: chunks cut in parts
+    (1, 20, 1500, 1536, 512),    # B = 1
+    (8, 20, 1500, 1536, 1536),   # a single chunk, cut in parts
+    (1, 2, 6000, 6144, 6144),    # a single chunk cut in 8 parts: the widest cluster
+    (1, 2, 6000, 6144, 512),     # 12 chunks, two whole chunks a block
+    (8, 2, 60, 64, 64),          # one tile, four keys of it past S: clusters of 1
+    (1, 1, 250000, 2**18, 2**18),  # 32768 keys a block: a ring of 2 tiles, all that fits
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,s_pad,cs", MXUB_EDGES)
+def test_kbench_mxub_kernel_edges(b, h, s, s_pad, cs):
+    """K7 against its plain version where its key ranges, skipped tiles and
+    chunk exchange meet their edges: 1e-4 of the output's size at most, and
+    the mean error under a quarter of the bf16 rounding's mean effect, which
+    a p rounded at a block's own max or at the global max would exceed."""
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    hd = 64 * h
+    q = torch.randn((b, hd, 1), generator=g, device="cuda").mul(0.3).bfloat16()
+    k = torch.randn((b, hd, s_pad), generator=g, device="cuda").mul(0.3).bfloat16()
+    v = torch.randn((b, hd, s_pad), generator=g, device="cuda").bfloat16()
+    before = kb.kernel_mxub.launches
+    got = kb.kernel_mxub(q, k, v, h, s, cs)
+    assert kb.kernel_mxub.launches == before + 1
+    want = kb.KERNELS["kernel_mxub"][1](q, k, v, h, s, cs)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, hd, 1) and bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    assert err.max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    gap = (want - kb.attention_ref(q, k, v, h, s, cs)).abs()
+    assert err.mean().item() <= 0.25 * gap.mean().item()
+
+
+@pytest.mark.cuda
+def test_kbench_mxub_many_pairs_few_keys():
+    """K7 at 64 lanes x 20 heads, S = 100 keys of one 128-key chunk
+    (clusters of 1): 1280 (head, lane) pairs with a small l each, so a bf16
+    rounding of p that two f32 score orders take to different sides weighs
+    in full, and the plain version itself lies further than 1e-4 from the
+    function taken in f64. So each output may differ from the plain version
+    by 1e-4 of the output's size plus the effect of every p whose rounding
+    lies within 1 % of a bf16 spacing of its tie, |v| times that spacing
+    over l; and the mean error stays under a quarter of the bf16
+    rounding's mean effect."""
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    b, h, s, s_pad, cs = 64, 20, 100, 128, 128
+    g = torch.Generator(device="cuda").manual_seed(15)
+    q = torch.randn((b, 64 * h, 1), generator=g, device="cuda").mul(0.3).bfloat16()
+    k = torch.randn((b, 64 * h, s_pad), generator=g, device="cuda").mul(0.3).bfloat16()
+    v = torch.randn((b, 64 * h, s_pad), generator=g, device="cuda").bfloat16()
+    assert kb.mxub_geometry(b, h, s_pad, cs).cluster == 1
+    got = kb.kernel_mxub(q, k, v, h, s, cs)
+    want = kb.attention_ref(q, k, v, h, s, cs, p_bf16=True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    err = (got - want).abs()
+    # one chunk: p = exp(s - max) over the keys < S, its scores in f64
+    q4 = q.double().view(b, h, 64)
+    k4, v4 = (x.double().view(b, h, 64, s_pad)[..., :s] for x in (k, v))
+    sc = torch.einsum("bhd,bhds->bhs", q4, k4)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    spacing = torch.exp2(torch.floor(torch.log2(p)) - 7)        # bf16's, at p
+    near_tie = ((p / spacing) % 1 - 0.5).abs() < 0.01
+    flips = torch.einsum("bhs,bhds->bhd", near_tie * spacing, v4.abs()) / p.sum(-1)[..., None]
+    limit = 1e-4 * max(1.0, want.abs().max().item()) + flips.reshape(b, 64 * h, 1)
+    assert bool((err <= limit).all())
+    gap = (want - kb.attention_ref(q, k, v, h, s, cs)).abs()
+    assert err.mean().item() <= 0.25 * gap.mean().item()
+
+
+@pytest.mark.cuda
+def test_kbench_mxub_refuses_a_block_too_large():
+    """K7 needs a block's scores and p in shared memory: one chunk of 2^19
+    keys over at most 8 blocks leaves 65536 keys a block, which do not fit
+    beside the ring."""
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    q = torch.zeros((1, 64, 1), device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 2**19), device="cuda", dtype=torch.bfloat16)
+    before = kb.kernel_mxub.launches
+    with pytest.raises(NotImplementedError, match="no K7 block fits"):
+        kb.kernel_mxub(q, k, k, 1, 100, 2**19)
+    assert kb.kernel_mxub.launches == before
+
+
 # K8's cluster over the keys (kernels.kbench.vpu8_geometry) at its edges,
 # each case's geometry pinned on the CPU by tests/test_torch_kbench.py:
 # (B, H, Dh, S, S_PAD, CS, the largest scores in the last key range, the

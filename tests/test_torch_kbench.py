@@ -351,15 +351,251 @@ def test_vpu8_geometry_reaches_the_kernels_edges():
     assert geo.blocks == 1280 and min(hi - lo for lo, hi in geo.ranges) > kb.VPU8_PASS
 
 
-def _tool_fill():
-    """The JAX tool's ``fill``, a closure of its ``main()``, compiled from
-    its source."""
+def _tool_closure(name, ns):
+    """A closure of the JAX tool's ``main()``, compiled from its source in
+    the namespace ``ns`` (which supplies the module-level names it reads)."""
     tree = ast.parse(TOOL.read_text())
     main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
-    fill = next(n for n in main.body if isinstance(n, ast.FunctionDef) and n.name == "fill")
-    ns = {"jax": jax, "jnp": jnp}
-    exec(compile(ast.Module(body=[fill], type_ignores=[]), str(TOOL), "exec"), ns)
-    return ns["fill"]
+    fn = next(n for n in main.body if isinstance(n, ast.FunctionDef) and n.name == name)
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), str(TOOL), "exec"), ns)
+    return ns[name]
+
+
+# ---------------------------------------------------------------------------
+# K7: the keys of each (head, lane) split over a cluster
+# ---------------------------------------------------------------------------
+
+def _bf16(x):
+    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).bfloat16().float().numpy()
+
+
+def _emulate_mxub(q, k, v, n_head, s_valid, cs, ranges, exchange=True):
+    """numpy emulation of K7's cluster (csrc/kbench.cu kb_attn_mma_head):
+    block r scores the tiles of keys ``ranges[r]`` that hold a key < S, keys
+    >= S at -inf; the blocks exchange prefix maxima per chunk; each rounds
+    p = exp(s - m_c) to bf16 at m_c, the max over every block's keys in
+    chunks 0..c, and adds its chunks' l and P.V times exp(m_c - M); the
+    cluster sums acc and l and divides. f32 throughout, [B, HD, 1]. Without
+    ``exchange`` each block takes m_c from its own keys alone."""
+    b, hd, s_pad = k.shape
+    dh, tile = hd // n_head, 64
+    q4 = q.reshape(b, n_head, dh).astype(np.float32)
+    k4, v4 = (x.reshape(b, n_head, dh, s_pad).astype(np.float32) for x in (k, v))
+    blocks = []
+    for lo, hi in ranges:
+        n_t = min((hi - lo) // tile, max(0, s_valid - lo + tile - 1) // tile)  # tiles read
+        keys = np.arange(lo, lo + tile * n_t)
+        sc = np.einsum("bhd,bhds->bhs", q4, k4[..., keys]).astype(np.float32)
+        sc = np.where(keys < s_valid, sc, np.float32(-np.inf))
+        chunks = list(range(lo // cs, (hi - 1) // cs + 1))
+        run, prefix = np.full((b, n_head), -np.inf, np.float32), []
+        for c in chunks:
+            sel = keys // cs == c
+            if sel.any():
+                run = np.maximum(run, sc[..., sel].max(-1))
+            prefix.append(run)
+        blocks.append((keys, sc, chunks, prefix))
+
+    def m_at(c):   # the running max at chunk c from every block's prefix maxima
+        m = np.full((b, n_head), -np.inf, np.float32)
+        for _, _, chunks, prefix in blocks:
+            if chunks[0] <= c:
+                m = np.maximum(m, prefix[min(c, chunks[-1]) - chunks[0]])
+        return m
+
+    big_m = m_at(s_pad // cs - 1)
+    acc = np.zeros((b, n_head, dh), np.float32)
+    l = np.zeros((b, n_head), np.float32)
+    for keys, sc, chunks, prefix in blocks:
+        for c in chunks:
+            sel = keys // cs == c
+            if not sel.any():
+                continue
+            m_c = m_at(c) if exchange else prefix[c - chunks[0]]
+            f = np.exp(m_c - big_m)
+            p = np.exp(sc[..., sel] - m_c[..., None])
+            l += p.sum(-1) * f
+            acc += np.einsum("bhs,bhds->bhd", _bf16(p), v4[..., keys[sel]]) * f[..., None]
+    return (acc / l[..., None]).reshape(b, hd, 1)
+
+
+def _jax_mxub(q, k, v, n_head, s_valid, cs):
+    """The JAX tool's K7 body (``kernel_mxub``, a closure of its ``main()``)
+    in ``mxub_inner``'s pallas_call, in interpret mode, at this shape."""
+    b, hd, s_pad = k.shape
+    dh, n_chunks = hd // n_head, s_pad // cs
+    body = _tool_closure("kernel_mxub", {"jax": jax, "jnp": jnp, "pl": pl, "H": n_head, "DH": dh,
+                                         "CS": cs, "S": s_valid, "N_CHUNKS": n_chunks})
+    vmem = pltpu.VMEM
+    call = pl.pallas_call(
+        body,
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1,
+            grid=(b, n_chunks),
+            in_specs=[
+                pl.BlockSpec((1, hd, 1), lambda i, c, *_: (i, 0, 0), memory_space=vmem),
+                pl.BlockSpec((1, hd, cs), lambda i, c, *_: (i, 0, c), memory_space=vmem),
+                pl.BlockSpec((1, hd, cs), lambda i, c, *_: (i, 0, c), memory_space=vmem),
+            ],
+            out_specs=pl.BlockSpec((1, n_head, dh), lambda i, c, *_: (i, 0, 0),
+                                   memory_space=vmem),
+            scratch_shapes=[vmem((n_head, 1), jnp.float32), vmem((n_head, 1), jnp.float32),
+                            vmem((n_head, dh), jnp.float32)],
+        ),
+        out_shape=jax.ShapeDtypeStruct((b, n_head, dh), jnp.float32),
+        interpret=True,
+    )
+    args = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    return np.asarray(call(jnp.zeros((b, 2), jnp.int32), *args)).reshape(b, hd, 1)
+
+
+def _mxub_inputs(seed, b, n_head, s_pad):
+    """bf16-valued f32 q [B, HD, 1], K and V [B, HD, S_PAD] at Dh = 64."""
+    rng = np.random.default_rng(seed)
+    hd = 64 * n_head
+    return (_bf16(rng.standard_normal((b, hd, 1)) * 0.3),
+            _bf16(rng.standard_normal((b, hd, s_pad)) * 0.3),
+            _bf16(rng.standard_normal((b, hd, s_pad))))
+
+
+# (B, H, S, S_PAD, CS, cluster): small shapes at the split's edges
+MXUB_SPLITS = [
+    (2, 2, 200, 256, 128, 2),    # whole chunks, the second block's last keys past S
+    (2, 2, 1, 256, 128, 2),      # S = 1: the second block wholly past S, no tile of it read
+    (2, 2, 100, 256, 64, 4),     # CS = 64: a chunk a block, blocks 2 and 3 wholly past S
+    (1, 2, 450, 512, 64, 3),     # several whole chunks a block, unevenly
+    (2, 2, 200, 512, 512, 8),    # one chunk cut in 8 parts, 5 of them past S
+    (1, 2, 500, 512, 128, 8),    # 4 chunks cut in 2 parts each
+    (1, 2, 300, 512, 64, 1),     # a cluster of 1: the sequential walk
+    (2, 2, 256, 256, 256, 1),    # one chunk, one block, no key masked
+]
+
+
+@pytest.mark.parametrize("b,h,s,s_pad,cs,cluster", MXUB_SPLITS)
+def test_mxub_split_emulation_matches_pallas(b, h, s, s_pad, cs, cluster):
+    """K7's split over a cluster (the numpy emulation) against the JAX
+    tool's K7 body (interpret): 2e-3 at most, and the mean error under a
+    quarter of the bf16 rounding's mean effect, which p rounded at a block's
+    own max or at the global max would exceed. The port's plain version
+    meets the same bounds."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    q, k, v = _mxub_inputs(20, b, h, s_pad)
+    ranges = kb.key_ranges(s_pad, cs, cluster)
+    assert ranges is not None and len(ranges) == cluster
+    want = _jax_mxub(q, k, v, h, s, cs)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    f32_p = kb.attention_ref(tq, tk, tv, h, s, cs).numpy()
+    gap = np.mean(np.abs(want - f32_p))
+    for got in (_emulate_mxub(q, k, v, h, s, cs, ranges),
+                kb.attention_ref(tq, tk, tv, h, s, cs, p_bf16=True).numpy()):
+        assert got.shape == want.shape == (b, 64 * h, 1) and np.all(np.isfinite(got))
+        err = np.abs(got - want)
+        assert np.max(err) <= TOL_BF16_P
+        assert np.mean(err) <= ROUNDING_SHARE * gap
+
+
+def test_mxub_split_emulation_needs_the_exchange():
+    """The bounds above see the exchange: the same split with each block
+    rounding p at its own running max (no exchange of maxima) exceeds the
+    rounding bound against the JAX body, where the cluster's stays within
+    it."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    b, h, s, s_pad, cs = 2, 2, 512, 512, 64
+    q, k, v = _mxub_inputs(21, b, h, s_pad)
+    ranges = kb.key_ranges(s_pad, cs, 8)
+    want = _jax_mxub(q, k, v, h, s, cs)
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    gap = np.mean(np.abs(want - kb.attention_ref(tq, tk, tv, h, s, cs).numpy()))
+    exchanged = np.mean(np.abs(_emulate_mxub(q, k, v, h, s, cs, ranges) - want))
+    own = np.mean(np.abs(_emulate_mxub(q, k, v, h, s, cs, ranges, exchange=False) - want))
+    assert exchanged <= ROUNDING_SHARE * gap < own
+
+
+# (lanes, H, S_PAD, CS): K7's geometry at the card tests' shapes
+# (tests/test_torch_cuda.py MXUB_EDGES and the many-pairs case) and a few more
+MXUB_SHAPES = [
+    (8, 20, 1536, 512), (8, 20, 1536, 64), (8, 2, 1536, 512), (1, 20, 1536, 512),
+    (8, 20, 1536, 1536), (1, 2, 6144, 6144), (1, 2, 6144, 512), (8, 2, 64, 64),
+    (1, 1, 2**18, 2**18), (64, 20, 128, 128),
+    (2, 2, 256, 128), (1, 1, 64, 64), (8, 20, 704, 64), (3, 5, 2048, 1024),
+]
+
+
+@pytest.mark.parametrize("shape", MXUB_SHAPES)
+def test_mxub_geometry_covers_the_keys(shape):
+    """K7's launch geometry: the key ranges cover [0, S_PAD) once, each
+    inside one chunk or over whole chunks, in whole 64-key tiles; at most 8
+    blocks a cluster; a ring of 4 tiles, fewer only where a deeper one does
+    not fit; a block fits."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    lanes, h, s_pad, cs = shape
+    geo = kb.mxub_geometry(lanes, h, s_pad, cs)
+    assert 1 <= geo.cluster <= 8 and len(geo.ranges) == geo.cluster
+    assert geo.ranges == tuple(kb.key_ranges(s_pad, cs, geo.cluster))
+    assert geo.ranges[0][0] == 0 and geo.ranges[-1][1] == s_pad
+    assert all(a[1] == b[0] for a, b in zip(geo.ranges, geo.ranges[1:]))
+    for lo, hi in geo.ranges:
+        assert lo < hi and lo % 64 == 0 and hi % 64 == 0
+        assert lo // cs == (hi - 1) // cs or (lo % cs == 0 and hi % cs == 0)
+    assert kb.MXUB_MIN_STAGES <= geo.stages <= kb.MXUB_STAGES == 4
+    keys, chunks = kb.range_extent(geo.ranges, cs)
+    assert (geo.stages == kb.MXUB_STAGES
+            or kb.mxub_smem(keys, chunks, geo.cluster, geo.stages + 1) > kb.SMEM_LIMIT)
+    assert geo.smem == kb.mxub_smem(keys, chunks, geo.cluster, geo.stages) <= kb.SMEM_LIMIT
+    assert geo.blocks == h * geo.cluster * lanes
+
+
+def test_mxub_geometry_fills_the_card_at_large_v2():
+    """At the tool's large-v2 shape: clusters of 3, one 512-key chunk a
+    block, 480 blocks for the 132 SMs, all of them on the card at once with
+    cluster slots to spare."""
+    from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.tools.kbench import Dims
+
+    d = Dims()
+    geo = kb.mxub_geometry(d.B, d.H, d.s_pad, d.CS)
+    assert (geo.cluster, geo.ranges) == (3, ((0, 512), (512, 1024), (1024, 1536)))
+    assert geo.blocks == 480 >= kb.SMS
+    assert geo.blocks < kb.blocks_at_once(geo.cluster, geo.smem, kb.MXUB_BLOCKS_PER_SM)
+    # the ring keeps well over 20 KB of a stream in flight on each SM
+    per_sm = min(kb.MXUB_BLOCKS_PER_SM, kb.SMEM_PER_SM // (geo.smem + 1024))
+    assert per_sm * geo.stages * kb.MXUB_TILE_BYTES > 4 * 20 * 1024
+
+
+def test_mxub_geometry_reaches_the_kernels_edges():
+    """The card tests' edge shapes reach what they are there for: several
+    whole chunks a block, chunks cut in parts, a single chunk cut in 8
+    parts (the widest cluster), a cluster of one, and a ring of 2 tiles
+    where a block's 32768 keys leave no room for more."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    g = kb.mxub_geometry(8, 20, 1536, 64)
+    assert all((hi - lo) // 64 > 1 for lo, hi in g.ranges)
+    g = kb.mxub_geometry(8, 2, 1536, 512)
+    assert g.cluster > 1536 // 512
+    g = kb.mxub_geometry(8, 20, 1536, 1536)
+    assert g.cluster > 1
+    g = kb.mxub_geometry(1, 2, 6144, 6144)
+    assert g.cluster == 8 and g.ranges[-1] == (5376, 6144)
+    g = kb.mxub_geometry(8, 2, 64, 64)
+    assert g.cluster == 1
+    g = kb.mxub_geometry(1, 1, 2**18, 2**18)
+    assert (g.cluster, g.stages) == (8, 2)
+
+
+def test_mxub_geometry_refuses_a_block_too_large():
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    with pytest.raises(NotImplementedError, match="no K7 block fits"):
+        kb.mxub_geometry(1, 1, 2**19, 2**19)
+
+
+def _tool_fill():
+    """The JAX tool's ``fill``."""
+    return _tool_closure("fill", {"jax": jax, "jnp": jnp})
 
 
 @pytest.mark.parametrize("shape", [(3, 2, 4, 1536), (2, 5, 1), (2, 64, 17920)])

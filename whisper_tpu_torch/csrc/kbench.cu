@@ -31,7 +31,8 @@
 // flop/byte where the tensor cores would matter; K4b's dense formulation
 // issues a 16-row m-tile for the scores and an 8-column n-tile per 8 heads
 // of its group for P.V (24 GFLOP a pass at large-v2, 0.024 ms at 989
-// TFLOP/s), still far under the bytes bound.
+// TFLOP/s), K7 an 8-column n-tile for each (16 flops per K/V element), still
+// far under the bytes bound.
 //
 // Design. The TPU walked the chunk axis of its grid in order on one core,
 // carrying sums in VMEM scratch; Hopper blocks run in parallel and carry
@@ -46,15 +47,10 @@
 // chunks)) differ only in the TPU's grid nesting and so are one launch
 // configuration over L * B slabs here (the split pass, then the combine).
 //
-// K4a and K7 keep the TPU's sequential chunk walk as a loop inside the
-// block (one block per lane and head), carrying m, l and acc across
-// CS-wide chunks, so that the microbenchmark sets that structure against
-// the decode kernel's split-S at the same shape. Each chunk's scores are
-// finished before its softmax, so K7 rounds p to bf16 at the chunk's
-// running max, as on the TPU. K7's K and V tiles go through shared memory
-// by 16-byte cp.async copies; K's B fragments ([Dh, S] rows, contracted
-// over Dh) come from ldmatrix.trans, V's (contracted over S, contiguous)
-// from plain 32-bit loads. Masked keys score -inf, as on the TPU; S >= 1
+// K4a keeps the TPU's sequential chunk walk as a loop inside the block (one
+// block per lane and head), carrying m, l and acc across CS-wide chunks, so
+// that the microbenchmark sets that structure against the decode kernel's
+// split-S at the same shape. Masked keys score -inf, as on the TPU; S >= 1
 // keeps the first chunk's max finite.
 //
 // K8 (kb_attn_int8_split) walks no chunks: its p is never rounded, so the
@@ -65,12 +61,16 @@
 // reduction, decodes int8 by byte permute, and the blocks combine their
 // (m, l, P.V) through distributed shared memory in the same launch.
 //
-// K4b splits the walk instead: a thread-block cluster per (head group,
-// lane) divides the keys into ranges that lie inside one chunk or cover
-// whole chunks, and the blocks exchange per-chunk maxima through
-// distributed shared memory so that each rounds p at the running max the
-// TPU's walk would have reached at that chunk, then combine their partial
-// P.V and l in the same launch (see kb_attn_mma_dense).
+// K4b and K7 split the walk instead: a thread-block cluster per (head group,
+// lane) for K4b, per (head, lane) for K7, divides the keys into ranges that
+// lie inside one chunk or cover whole chunks, and the blocks exchange
+// per-chunk maxima through distributed shared memory so that each rounds p
+// at the running max the TPU's walk would have reached at that chunk, then
+// combine their partial P.V and l in the same launch. A producer warp
+// streams each block's K and V tiles by TMA into a ring, so V's first tiles
+// load while the cluster exchanges maxima (see kb_attn_mma_dense and
+// kb_attn_mma_head). K7's tiles are its head's 64 rows, so each K/V byte is
+// read once and no row of another head is read.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is found at run time
@@ -568,9 +568,12 @@ kb_attn_int8_split(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict
 // ---------------------------------------------------------------------------
 
 constexpr int kT = 64;          // keys per shared-memory tile
-constexpr int kLds = kT + 8;    // K7's padded tile row: 144 B, conflict-free fragment loads
 constexpr int kMmaDh = 64;      // K7's head dim
-constexpr int kHeadThreads = 128;
+constexpr int kHeadConsumers = 128;                  // K7: 4 consumer warps, 16 features each
+constexpr int kHeadWarps = kHeadConsumers / 32;
+constexpr int kHeadThreads = kHeadConsumers + 32;    // and one producer warp
+constexpr int kHeadMaxStages = 4;                    // K7's TMA ring: 2 to 4 stages
+constexpr uint32_t kHeadTileBytes = kMmaDh * kT * 2;  // a tile: the head's 64 rows by 64 keys
 constexpr int kDenseConsumers = 256;               // K4b: 8 consumer warps
 constexpr int kDenseWarps = kDenseConsumers / 32;
 constexpr int kDenseThreads = kDenseConsumers + 32;  // and one producer warp
@@ -597,12 +600,10 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
@@ -667,126 +668,6 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
       : "memory");
-}
-
-// rows [0, n_rows) x columns [0, 64) of a row-major bf16 array (row stride
-// ld elements) into a padded shared tile, 16 bytes a thread. cp.async keeps
-// every copy of the tile in flight at once (a load-then-store loop would
-// wait out one memory latency per 16 bytes); the caller syncs the block.
-template <int kThreads>
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kLds], const __nv_bfloat16* src,
-                                          long long ld, int n_rows) {
-  for (int c = threadIdx.x; c < n_rows * (kT / 8); c += kThreads) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(&dst[r][col]));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
-                 "l"(src + (long long)r * ld + col));
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// K7: one block of 4 warps per (head, lane). Scores: q in row 0 of a 16-row
-// A tile (rows 1-15 zero) against 64-key K tiles, B fragments by
-// ldmatrix.trans of the [Dh, keys] tile; warp w owns keys [16w, 16w + 16).
-// P.V: p (bf16) in row 0 of A against the [Dh, keys] V tile, whose rows are
-// already B's columns; warp w owns features [16w, 16w + 16).
-__global__ void __launch_bounds__(kHeadThreads)
-kb_attn_mma_head(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int HD, int S_pad,
-                 int S, int H, int CS) {
-  extern __shared__ float p_s[];  // [CS]: the chunk's scores, then p
-  __shared__ __align__(16) __nv_bfloat16 tile[kMmaDh][kLds];
-  __shared__ float red[kHeadThreads / 32];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3, mi = lane >> 3, rr = lane & 7;
-  const long long row0 = ((long long)b * HD + (long long)h * kMmaDh) * S_pad;
-  const __nv_bfloat16* kb = k + row0;
-  const __nv_bfloat16* vb = v + row0;
-  const __nv_bfloat16* qh = q + (long long)b * HD + h * kMmaDh;
-
-  uint32_t qf[4][4];  // one A fragment per 16-wide slice of Dh
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    qf[kk][0] = g == 0 ? *reinterpret_cast<const uint32_t*>(qh + kk * 16 + 2 * tig) : 0u;
-    qf[kk][1] = 0u;
-    qf[kk][2] = g == 0 ? *reinterpret_cast<const uint32_t*>(qh + kk * 16 + 8 + 2 * tig) : 0u;
-    qf[kk][3] = 0u;
-  }
-
-  float m = -INFINITY, l = 0.f;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // lanes 0-3: features (2w + j) * 8 + 2 tig + {0, 1}
-  for (int c0 = 0; c0 < S_pad; c0 += CS) {
-    for (int t0 = 0; t0 < CS; t0 += kT) {
-      __syncthreads();
-      load_tile<kHeadThreads>(tile, kb + c0 + t0, S_pad, kMmaDh);
-      __syncthreads();
-      float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &tile[kk * 16 + (mi & 1) * 8 + rr][(2 * warp + (mi >> 1)) * 8]);
-        mma_bf16_16816(s0, qf[kk], r[0], r[1]);
-        mma_bf16_16816(s1, qf[kk], r[2], r[3]);
-      }
-      if (g == 0) {  // row 0 of D
-        const int j = t0 + 16 * warp + 2 * tig;
-        p_s[j] = s0[0];
-        p_s[j + 1] = s0[1];
-        p_s[j + 8] = s1[0];
-        p_s[j + 9] = s1[1];
-      }
-    }
-    __syncthreads();
-    float t_max = -INFINITY;
-    for (int j = tid; j < CS; j += kHeadThreads) {
-      if (c0 + j >= S) p_s[j] = -INFINITY;
-      t_max = fmaxf(t_max, p_s[j]);
-    }
-    const float m_new = fmaxf(m, block_max<kHeadThreads / 32>(t_max, red));
-    const float alpha = expf(m - m_new);
-    float t_sum = 0.f;
-    for (int j = tid; j < CS; j += kHeadThreads) {
-      const float p = expf(p_s[j] - m_new);
-      t_sum += p;
-      p_s[j] = p;
-    }
-    l = l * alpha + block_sum<kHeadThreads / 32>(t_sum, red);  // syncs: p_s is complete
-    m = m_new;
-
-    float u[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int t0 = 0; t0 < CS; t0 += kT) {
-      __syncthreads();
-      load_tile<kHeadThreads>(tile, vb + c0 + t0, S_pad, kMmaDh);
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const int kc = ks * 16 + 2 * tig;
-        const float* pr = p_s + t0 + kc;
-        const uint32_t a[4] = {g == 0 ? pack_bf16(pr[0], pr[1]) : 0u, 0u,
-                               g == 0 ? pack_bf16(pr[8], pr[9]) : 0u, 0u};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int n0 = (2 * warp + j) * 8;
-          mma_bf16_16816(u[j], a, lds32(&tile[n0 + g][kc]), lds32(&tile[n0 + g][kc + 8]));
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      acc[j][0] = acc[j][0] * alpha + u[j][0];
-      acc[j][1] = acc[j][1] * alpha + u[j][1];
-    }
-  }
-  if (g == 0) {
-    float* o = out + (long long)b * HD + h * kMmaDh;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int d = (2 * warp + j) * 8 + 2 * tig;
-      o[d] = acc[j][0] / l;
-      o[d + 1] = acc[j][1] / l;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1171,6 +1052,280 @@ kb_attn_mma_dense(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K7: per-head tensor-core attention, its keys split over a cluster
+// ---------------------------------------------------------------------------
+
+// Dynamic shared memory of a K7 block: at most R keys and n_loc chunks a
+// block, clusters of C blocks, a ring of `stages` tiles; 1024 bytes of slack
+// align the ring for TMA's 128-byte swizzle. kernels/kbench.py's mxub_smem
+// mirrors it to choose the launch geometry.
+struct HeadSmem {
+  size_t ring, bars, s, pb, tw, pm, mc, fc, acc, l, red, total;
+};
+
+__host__ __device__ inline HeadSmem head_smem(int R, int n_loc, int C, int stages) {
+  HeadSmem m;
+  size_t o = 0;
+  m.ring = o;  // the K/V tiles: stages x [64 rows][64 keys], swizzled
+  o = align16(o + static_cast<size_t>(stages) * kHeadTileBytes);
+  m.bars = o;  // full[stages], empty[stages]
+  o = align16(o + 2 * static_cast<size_t>(stages) * sizeof(uint64_t));
+  m.s = o;     // f32 scores [R]
+  o = align16(o + static_cast<size_t>(R) * 4);
+  m.pb = o;    // bf16 p [R]
+  o = align16(o + static_cast<size_t>(R) * 2);
+  m.tw = o;    // each consumer warp's max of each key tile [R / 64][4]
+  o = align16(o + static_cast<size_t>(R / kT) * kHeadWarps * 4);
+  m.pm = o;    // every block's prefix max per local chunk [C][n_loc]
+  o = align16(o + static_cast<size_t>(C) * n_loc * 4);
+  m.mc = o;    // m_c of the local chunks
+  o = align16(o + static_cast<size_t>(n_loc) * 4);
+  m.fc = o;    // exp(m_c - M)
+  o = align16(o + static_cast<size_t>(n_loc) * 4);
+  m.acc = o;   // every block's P.V of the features this block writes [C][64]
+  o = align16(o + static_cast<size_t>(C) * kMmaDh * 4);
+  m.l = o;     // every block's l [C]
+  o = align16(o + static_cast<size_t>(C) * 4);
+  m.red = o;   // the consumer warps' shares of l
+  o = align16(o + kHeadWarps * 4);
+  m.total = o + 1024;
+  return m;
+}
+
+// K7's 4 consumer warps' barrier (named barrier 1; the producer is not in it)
+__device__ __forceinline__ void head_consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kHeadConsumers) : "memory");
+}
+
+// K7: a cluster of C blocks per (head, lane); grid (H * C, B); 4 consumer
+// warps and a producer warp a block. Block rank r takes keys [lo, hi) of its
+// lane (key_range, as K4b) and reads only its head's 64 rows of K and V, in
+// tiles of 64 rows by 64 keys (8 KB); tiles that hold no key < S are not
+// read, since their p is exactly 0. The producer's one thread streams the
+// range's K tiles, then its V tiles, by TMA into a ring of `stages` stages
+// with a full and an empty mbarrier a stage, so that V's first tiles load
+// while the cluster exchanges maxima.
+//   scores: the K tile as A (keys by features, ldmatrix.trans of the
+//     [features, keys] tile) against q in column 0 of B: warp w owns keys
+//     [16w, 16w + 16) of each tile. Keys >= S score -inf; each warp's max
+//     of each tile goes to shared memory.
+//   exchange: the block's prefix max over its local chunks goes into every
+//     block's shared memory; cluster.sync(); then m_c of each local chunk c
+//     (the max over every block's keys in chunks 0..c: the running max the
+//     TPU's walk reaches at chunk c) and M (the last chunk's m_c). p = exp(s
+//     - m_c) goes to l as f32 times exp(m_c - M), and to P.V rounded to
+//     bf16. A block wholly past S has -inf maxima of its own but a finite
+//     m_c: chunk 0 holds key 0 < S.
+//   P.V: the V tile as A (features by keys, ldmatrix) against p in column 0
+//     of B: warp w owns features [16w, 16w + 16). At a chunk's last tile the
+//     chunk's sum, times exp(m_c - M), joins acc: the sequential walk's acc,
+//     up to f32 rounding.
+//   combine: each block stores its acc of feature d into block d % C's
+//     shared memory and its l into every block's; cluster.sync(); rank r
+//     writes the features d = r (mod C) as acc / l.
+// Blocks exchange by storing into each other's shared memory before a
+// cluster.sync() and read only their own after it. The producer joins both
+// cluster.sync()s: the exchange's before the first tile whose stage only
+// the V phase frees, the combine's at the end.
+__global__ void __launch_bounds__(kHeadThreads, 7)
+kb_attn_mma_head(const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, const __nv_bfloat16* __restrict__ q,
+                 float* __restrict__ out, int HD, int S_pad, int S, int CS, int R, int n_loc,
+                 int stages) {
+  extern __shared__ uint8_t dyn_raw[];
+  uint8_t* dyn = dyn_raw + ((1024 - (smem_u32(dyn_raw) & 1023)) & 1023);
+  cg::cluster_group cluster = cg::this_cluster();
+  // a block stores into its peers' shared memory only once all are running
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h = static_cast<int>(blockIdx.x) / C, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3, mi = lane >> 3, rr = lane & 7;
+  const int n_chunks = S_pad / CS;
+  int k_lo, k_hi;
+  key_range(rank, C, n_chunks, CS, k_lo, k_hi);
+  const int c_first = k_lo / CS, n_lc = (k_hi - 1) / CS - c_first + 1;
+  const int n_t = min((k_hi - k_lo) / kT, max(0, S - k_lo + kT - 1) / kT);  // tiles read
+  const int row0 = b * HD + h * kMmaDh;  // the head's first row of the [B * HD, S_pad] maps
+
+  const HeadSmem lay = head_smem(R, n_loc, C, stages);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(dyn + lay.ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dyn + lay.bars);
+  uint64_t* empty = full + stages;
+  float* s_s = reinterpret_cast<float*>(dyn + lay.s);
+  __nv_bfloat16* pb_s = reinterpret_cast<__nv_bfloat16*>(dyn + lay.pb);
+  float* tw_s = reinterpret_cast<float*>(dyn + lay.tw);
+  float* pm_s = reinterpret_cast<float*>(dyn + lay.pm);
+  float* mc_s = reinterpret_cast<float*>(dyn + lay.mc);
+  float* fc_s = reinterpret_cast<float*>(dyn + lay.fc);
+  float* acc_x = reinterpret_cast<float*>(dyn + lay.acc);
+  float* l_x = reinterpret_cast<float*>(dyn + lay.l);
+  float* red_s = reinterpret_cast<float*>(dyn + lay.red);
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kHeadWarps);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kHeadWarps) {
+    // --- producer: tile u is K's tile u for u < n_t, else V's tile u - n_t ---
+    const int join = n_t + stages;  // its stage is freed after the exchange
+    for (int u = 0; u < 2 * n_t; ++u) {
+      if (u == join) {  // the exchange's
+        asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+        cluster.sync();
+      }
+      if (lane == 0) {
+        const int s = u % stages;
+        if (u >= stages) mbar_wait(&empty[s], ((u / stages) - 1) & 1);
+        mbar_expect_tx(&full[s], kHeadTileBytes);
+        tma_load_2d(ring + s * (kHeadTileBytes / 2), u < n_t ? &k_map : &v_map, &full[s],
+                    k_lo + (u < n_t ? u : u - n_t) * kT, row0);
+      }
+      __syncwarp();
+    }
+    if (2 * n_t <= join) {  // the exchange's
+      asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+      cluster.sync();
+    }
+    cluster.sync();  // the combine's
+    return;
+  }
+
+  // q in column 0 of B (lanes g == 0): k-step kk's features 16 kk + [0, 16)
+  uint32_t qb[4][2];
+  const __nv_bfloat16* qh = q + row0;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    qb[kk][0] = g == 0 ? *reinterpret_cast<const uint32_t*>(qh + 16 * kk + 2 * tig) : 0u;
+    qb[kk][1] = g == 0 ? *reinterpret_cast<const uint32_t*>(qh + 16 * kk + 8 + 2 * tig) : 0u;
+  }
+  // Per-thread byte offsets of ldmatrix rows in a [64][64] tile in the
+  // 128-byte swizzle (16-byte chunk c of row r at c ^ (r % 8)). K, as A by
+  // ldmatrix.trans: matrix mi holds features 8 (mi >> 1) + [0, 8) of keys
+  // 16 warp + 8 (mi & 1) + [0, 8); k-step kk adds 16 rows. V, as A by
+  // ldmatrix: matrix mi holds keys 8 (mi >> 1) + [0, 8) of features
+  // 16 warp + 8 (mi & 1) + [0, 8); k-step ks adds 2 chunks.
+  const uint32_t ring_u32 = smem_u32(ring);
+  const uint32_t k_off = ((mi >> 1) * 8 + rr) * 128 + (((2 * warp + (mi & 1)) ^ rr) << 4);
+  const uint32_t v_row = (16 * warp + (mi & 1) * 8 + rr) * 128;
+
+  // --- K: warp w scores keys [16w, 16w + 16) of each tile ---
+  for (int u = 0; u < n_t; ++u) {
+    const int s = u % stages;
+    mbar_wait(&full[s], (u / stages) & 1);
+    const uint32_t tile = ring_u32 + s * kHeadTileBytes + k_off;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      ldsm_x4_trans(a, tile + kk * 16 * 128);
+      mma_bf16_16816(d, a, qb[kk][0], qb[kk][1]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    // column 0 of D, on the lanes tig == 0: keys 16 warp + g and + g + 8
+    const int j = u * kT + 16 * warp + g;
+    const float v0 = k_lo + j < S ? d[0] : -INFINITY, v1 = k_lo + j + 8 < S ? d[2] : -INFINITY;
+    if (tig == 0) {
+      s_s[j] = v0;
+      s_s[j + 8] = v1;
+    }
+    const float mx = warp_max(tig == 0 ? fmaxf(v0, v1) : -INFINITY);
+    if (lane == 0) tw_s[u * kHeadWarps + warp] = mx;
+  }
+
+  // --- the exchange: every score and tile max of the range is in ---
+  head_consumers_sync();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // every peer is running
+  for (int lc = tid; lc < n_lc; lc += kHeadConsumers) {  // into every block's pm_s[rank]
+    float run = -INFINITY;
+    for (int t = 0; t < n_t && (k_lo + t * kT) / CS - c_first <= lc; ++t)
+#pragma unroll
+      for (int w = 0; w < kHeadWarps; ++w) run = fmaxf(run, tw_s[t * kHeadWarps + w]);
+    for (int rk = 0; rk < C; ++rk) *cluster.map_shared_rank(pm_s + rank * n_loc + lc, rk) = run;
+  }
+  cluster.sync();  // every block's prefix maxima are in every block
+  for (int lc = tid; lc < n_lc; lc += kHeadConsumers) {  // m_c and exp(m_c - M)
+    const int c = c_first + lc;
+    float m = -INFINITY, mM = -INFINITY;
+    for (int rk = 0; rk < C; ++rk) {
+      int lo, hi;
+      key_range(rk, C, n_chunks, CS, lo, hi);
+      const int first = lo / CS, last = (hi - 1) / CS;
+      if (first <= c) m = fmaxf(m, pm_s[rk * n_loc + min(c, last) - first]);
+      mM = fmaxf(mM, pm_s[rk * n_loc + last - first]);
+    }
+    mc_s[lc] = m;
+    fc_s[lc] = expf(m - mM);
+  }
+  head_consumers_sync();
+  float lsum = 0.f;  // l = sum of the f32 p exp(m_c - M)
+  for (int j = tid; j < n_t * kT; j += kHeadConsumers) {
+    const int lc = (k_lo + j) / CS - c_first;
+    const float p = expf(s_s[j] - mc_s[lc]);  // 0 for a key >= S
+    pb_s[j] = __float2bfloat16_rn(p);
+    lsum += p * fc_s[lc];
+  }
+  lsum = warp_sum(lsum);
+  if (lane == 0) red_s[warp] = lsum;
+  head_consumers_sync();  // p and the warps' shares of l are whole
+  if (tid < C) {
+    float l = 0.f;
+#pragma unroll
+    for (int w = 0; w < kHeadWarps; ++w) l += red_s[w];
+    *cluster.map_shared_rank(l_x + rank, tid) = l;
+  }
+
+  // --- V: warp w sums features [16w, 16w + 16) over each tile ---
+  float acc[2] = {0.f, 0.f};  // features 16 warp + g and + g + 8, on the lanes tig == 0
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int t = 0; t < n_t; ++t) {
+    const int u = n_t + t, s = u % stages;
+    mbar_wait(&full[s], (u / stages) & 1);
+    const uint32_t tile = ring_u32 + s * kHeadTileBytes + v_row;
+    const uint32_t* pw = reinterpret_cast<const uint32_t*>(pb_s + t * kT + 2 * tig);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, tile + (((2 * ks + (mi >> 1)) ^ rr) << 4));
+      mma_bf16_16816(d, a, g == 0 ? pw[8 * ks] : 0u, g == 0 ? pw[8 * ks + 4] : 0u);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    if (t == n_t - 1 || (k_lo + (t + 1) * kT) % CS == 0) {  // the chunk's last tile
+      const float f = fc_s[(k_lo + t * kT) / CS - c_first];
+      acc[0] += d[0] * f;
+      acc[1] += d[2] * f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[e] = 0.f;
+    }
+  }
+
+  // --- combine over the cluster: features rank, rank + C, ... ---
+  if (tig == 0) {
+    const int d0 = 16 * warp + g, d1 = d0 + 8;
+    *cluster.map_shared_rank(acc_x + rank * kMmaDh + d0, d0 % C) = acc[0];
+    *cluster.map_shared_rank(acc_x + rank * kMmaDh + d1, d1 % C) = acc[1];
+  }
+  cluster.sync();  // every block's acc and l are in
+  for (int dd = rank + C * tid; dd < kMmaDh; dd += C * kHeadConsumers) {
+    float sa = 0.f, sl = 0.f;
+    for (int rk = 0; rk < C; ++rk) {
+      sa += acc_x[rk * kMmaDh + dd];
+      sl += l_x[rk];
+    }
+    out[(long long)row0 + dd] = sa / sl;
+  }
+}
+
 template <typename F>
 cudaError_t allow_smem(F* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1298,20 +1453,6 @@ extern "C" int wtt_kb_attn_int8_clusters(int B, int HD, int S_pad, int S, int H,
   return static_cast<int>(cudaOccupancyMaxActiveClusters(n, fn, &cfg));
 }
 
-// K7, per head (Dh == 64). q: bf16 [B, HD]; k, v: contiguous bf16 [B, HD,
-// S_pad]; out: f32 [B, HD] (K7's [B, H, Dh] is the same memory). S_pad % CS
-// == 0, CS % 64 == 0, 1 <= S <= S_pad.
-extern "C" int wtt_kb_attn_mma_head(const void* q, const void* k, const void* v, float* out,
-                                    int B, int HD, int S_pad, int S, int H, int CS, void* stream) {
-  const size_t smem = (size_t)CS * sizeof(float);
-  cudaError_t err = allow_smem(kb_attn_mma_head, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kb_attn_mma_head<<<dim3(H, B), kHeadThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), out, HD, S_pad, S, H, CS);
-  return static_cast<int>(cudaGetLastError());
-}
-
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1335,17 +1476,29 @@ static EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 2-D map over [rows, S_pad] bf16 (row stride S_pad), boxes of 128 rows by
-// 64 keys in the 128-byte swizzle; rows past the end read as zeros.
+// A 2-D map over [rows, S_pad] bf16 (row stride S_pad), boxes of box_rows
+// rows by 64 keys in the 128-byte swizzle; rows past the end read as zeros.
 static CUresult encode_kv_map(EncodeTiled enc, CUtensorMap* map, const void* base, long long rows,
-                              int S_pad) {
+                              int S_pad, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)S_pad, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)S_pad * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kT, (cuuint32_t)kDenseTileRows};
+  const cuuint32_t box[2] = {(cuuint32_t)kT, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The keys R and chunks n_loc that a block of a cluster of C over n CS-wide
+// chunks takes at most (key_range).
+static void range_extent(int C, int n, int CS, int& R, int& n_loc) {
+  R = n_loc = 0;
+  for (int r = 0; r < C; ++r) {
+    int lo, hi;
+    key_range(r, C, n, CS, lo, hi);
+    R = hi - lo > R ? hi - lo : R;
+    n_loc = (hi - 1) / CS - lo / CS + 1 > n_loc ? (hi - 1) / CS - lo / CS + 1 : n_loc;
+  }
 }
 
 // The launch of K4b for G heads a group and clusters of C blocks over the
@@ -1358,13 +1511,7 @@ static cudaError_t dense_config(int B, int HD, int S_pad, int H, int CS, int G, 
   if (G < 1 || G > kDenseMaxHeads || dh % 16 || C < 1 || C > 8 ||
       (C > n && (C % n || (n * CS / C) % kT)))
     return cudaErrorInvalidValue;
-  R = n_loc = 0;  // keys and chunks a block takes at most
-  for (int r = 0; r < C; ++r) {
-    int lo, hi;
-    key_range(r, C, n, CS, lo, hi);
-    R = hi - lo > R ? hi - lo : R;
-    n_loc = (hi - 1) / CS - lo / CS + 1 > n_loc ? (hi - 1) / CS - lo / CS + 1 : n_loc;
-  }
+  range_extent(C, n, CS, R, n_loc);
   const size_t smem = dense_smem(G * dh, G, R, n_loc, C).total;
   if (smem > 232448) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(kb_attn_mma_dense, smem);
@@ -1403,8 +1550,8 @@ extern "C" int wtt_kb_attn_mma_dense(const void* q, const void* k, const void* v
                                  cfg, attr, R, n_loc);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap maps[2];
-  CUresult r = encode_kv_map(enc, &maps[0], k, (long long)B * HD, S_pad);
-  if (r == CUDA_SUCCESS) r = encode_kv_map(enc, &maps[1], v, (long long)B * HD, S_pad);
+  CUresult r = encode_kv_map(enc, &maps[0], k, (long long)B * HD, S_pad, kDenseTileRows);
+  if (r == CUDA_SUCCESS) r = encode_kv_map(enc, &maps[1], v, (long long)B * HD, S_pad, kDenseTileRows);
   if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
   err = cudaLaunchKernelEx(&cfg, kb_attn_mma_dense, maps[0], maps[1],
                            static_cast<const __nv_bfloat16*>(q), out, HD, S_pad, S, H, CS, G, R,
@@ -1423,4 +1570,79 @@ extern "C" int wtt_kb_attn_mma_dense_clusters(int B, int HD, int S_pad, int H, i
   cudaError_t err = dense_config(B, HD, S_pad, H, CS, G, C, nullptr, cfg, attr, R, n_loc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(n, kb_attn_mma_dense, &cfg));
+}
+
+// The launch of K7 for clusters of C blocks over the keys and a ring of
+// `stages` tiles, into cfg (whose attrs point at attr): cudaErrorInvalidValue
+// for a shape or geometry the kernel does not take (see wtt_kb_attn_mma_head).
+static cudaError_t head_config(int B, int HD, int S_pad, int S, int H, int CS, int C, int stages,
+                               cudaStream_t st, cudaLaunchConfig_t& cfg,
+                               cudaLaunchAttribute& attr, int& R, int& n_loc) {
+  if (B < 1 || H < 1 || HD != kMmaDh * H || CS < kT || CS % kT || S_pad % CS || S < 1 ||
+      S > S_pad || C < 1 || C > 8 || stages < 2 || stages > kHeadMaxStages)
+    return cudaErrorInvalidValue;
+  const int n = S_pad / CS;
+  if (C > n && (C % n || (n * CS / C) % kT)) return cudaErrorInvalidValue;
+  range_extent(C, n, CS, R, n_loc);
+  const size_t smem = head_smem(R, n_loc, C, stages).total;
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(kb_attn_mma_head, smem);
+  if (err != cudaSuccess) return err;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(H * C, B);
+  cfg.blockDim = dim3(kHeadThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// K7, per head (Dh == 64), clusters of C blocks over the keys and a ring of
+// `stages` tiles (kernels/kbench.py's mxub_geometry chooses both). q: bf16
+// [B, HD]; k, v: contiguous bf16 [B, HD, S_pad], 16-byte aligned; out: f32
+// [B, HD] (K7's [B, H, Dh] is the same memory). S_pad % CS == 0, CS % 64 ==
+// 0, 1 <= S <= S_pad, C <= 8 and, when C exceeds the S_pad / CS chunks, a
+// multiple of them that cuts each chunk into parts of whole 64-key tiles,
+// 2 <= stages <= 4. cudaErrorInvalidValue for any other shape or geometry,
+// or one whose shared memory exceeds a block's; 10000 + the CUresult when a
+// tensor map cannot be encoded, and cudaErrorNotSupported when the driver
+// has no cuTensorMapEncodeTiled.
+extern "C" int wtt_kb_attn_mma_head(const void* q, const void* k, const void* v, float* out,
+                                    int B, int HD, int S_pad, int S, int H, int CS, int C,
+                                    int stages, void* stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return static_cast<int>(cudaErrorNotSupported);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int R, n_loc;
+  cudaError_t err = head_config(B, HD, S_pad, S, H, CS, C, stages,
+                                static_cast<cudaStream_t>(stream), cfg, attr, R, n_loc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[2];
+  CUresult r = encode_kv_map(enc, &maps[0], k, (long long)B * HD, S_pad, kMmaDh);
+  if (r == CUDA_SUCCESS) r = encode_kv_map(enc, &maps[1], v, (long long)B * HD, S_pad, kMmaDh);
+  if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
+  err = cudaLaunchKernelEx(&cfg, kb_attn_mma_head, maps[0], maps[1],
+                           static_cast<const __nv_bfloat16*>(q), out, HD, S_pad, S, CS, R, n_loc,
+                           stages);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of K7's launch for this geometry the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *n.
+extern "C" int wtt_kb_attn_mma_head_clusters(int B, int HD, int S_pad, int H, int CS, int C,
+                                             int stages, int* n) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int R, n_loc;
+  const cudaError_t err =
+      head_config(B, HD, S_pad, S_pad, H, CS, C, stages, nullptr, cfg, attr, R, n_loc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, kb_attn_mma_head, &cfg));
 }

@@ -30,7 +30,7 @@ running max, and the bf16 rounding of p happens at the chunk's running max,
 so the plain versions walk the chunks too. The kernels are
 ``csrc/kbench.cu``; its header says what bounds them on an H100 (bytes:
 2,013,265,920 B of bf16 K + V per large-v2 pass) and how each is laid out.
-K4a and K7 walk the chunks inside one block per (head, lane). K8 walks no
+K4a walks the chunks inside one block per (head, lane). K8 walks no
 chunks: a thread-block cluster per (head, lane) splits the keys [0, S) into
 ranges of whole 16-key groups (``vpu8_geometry``), each block loads all its
 K/V bytes before it reduces, and the blocks combine their (m, l, P.V)
@@ -39,7 +39,10 @@ thread-block cluster per (head group, lane): the launch
 geometry (``mxu_geometry``: heads per group, blocks per cluster, each
 block's key range) fills the card's 132 SMs, each block reads only its
 heads' rows of its keys, and the blocks exchange per-chunk maxima so that p
-is still rounded at the walk's running max. K5 sums one row a warp with
+is still rounded at the walk's running max. K7 splits the chunks the same
+way, a cluster per (head, lane) (``mxub_geometry``: blocks per cluster,
+each block's key range, the depth of its TMA ring), each block reading only
+its head's 64 rows of its keys. K5 sums one row a warp with
 every load of the row in flight; its RB no longer sets a block.
 
 On a CPU tensor each wrapper runs its plain version (``KERNELS[name]``
@@ -69,12 +72,18 @@ SMEM_PER_SM = 233_472        # an SM's shared memory; each block also reserves 1
 # launch bounds: 112 registers a thread) where shared memory allows
 DENSE_TILE, DENSE_TILE_ROWS, DENSE_STAGES = 64, 128, 5
 DENSE_MAX_HEADS, MAX_CLUSTER, DENSE_BLOCKS_PER_SM = 16, 8, 2
-# Clusters of K4b an H100 SXM holds at once, by (blocks a cluster, blocks an
-# SM), from cudaOccupancyMaxActiveClusters (mxu_active_clusters) on an
+# Clusters an H100 SXM holds at once, by (blocks a cluster, blocks an SM),
+# from cudaOccupancyMaxActiveClusters (mxu_active_clusters for K4b,
+# mxub_active_clusters for K7; chip_smoke.py logs both at large-v2) on an
 # NVIDIA H100 80GB HBM3: clusters must sit inside one GPC, so sizes that do
 # not divide a GPC's SMs leave some idle (3 at one block an SM: 39, not 44).
 CLUSTER_SLOTS = {(1, 1): 132, (2, 1): 66, (3, 1): 39, (6, 1): 17,
-                 (1, 2): 264, (2, 2): 132, (3, 2): 79, (6, 2): 39}
+                 (1, 2): 264, (2, 2): 132, (3, 2): 79, (6, 2): 39, (3, 5): 203}
+# K7 (csrc/kbench.cu kb_attn_mma_head): TMA tiles of a head's 64 rows by 64
+# keys (8 KB) in a ring of 4 stages, fewer only where shared memory forces
+# it, blocks of 4 consumer warps and a producer warp, at most 7 blocks an SM
+# by its registers (its launch bounds: 56 registers a thread)
+MXUB_TILE_BYTES, MXUB_MIN_STAGES, MXUB_STAGES, MXUB_BLOCKS_PER_SM = 64 * 64 * 2, 2, 4, 7
 # K8 (csrc/kbench.cu kb_attn_int8_split): a lane owns 16 keys of a row (one
 # 16-byte load), so a block of 8 warps takes 512 keys a pass
 VPU8_GROUP, VPU8_PASS = 16, 512
@@ -138,12 +147,14 @@ def _lib() -> ctypes.CDLL:
     lib.wtt_kb_attn_cuda_core.argtypes = [p] * 4 + [i] * 6 + [p]
     lib.wtt_kb_attn_int8_split.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.wtt_kb_attn_int8_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
-    lib.wtt_kb_attn_mma_head.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.wtt_kb_attn_mma_head.argtypes = [p] * 4 + [i] * 8 + [p]
+    lib.wtt_kb_attn_mma_head_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     lib.wtt_kb_attn_mma_dense.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.wtt_kb_attn_mma_dense_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     for fn in (lib.wtt_kb_rowsum, lib.wtt_kb_rowsum_rows, lib.wtt_kb_attn_cuda_core,
                lib.wtt_kb_attn_int8_split, lib.wtt_kb_attn_int8_clusters,
-               lib.wtt_kb_attn_mma_head, lib.wtt_kb_attn_mma_dense,
+               lib.wtt_kb_attn_mma_head, lib.wtt_kb_attn_mma_head_clusters,
+               lib.wtt_kb_attn_mma_dense,
                lib.wtt_kb_attn_mma_dense_clusters):
         fn.restype = ctypes.c_int
     return lib
@@ -369,6 +380,13 @@ def key_ranges(s_pad: int, cs: int, cluster: int) -> list[tuple[int, int]] | Non
     return [(r * per, (r + 1) * per) for r in range(cluster)]
 
 
+def range_extent(ranges, cs: int) -> tuple[int, int]:
+    """The keys and the CS-wide chunks that a block of ``ranges`` takes at
+    most (csrc/kbench.cu's range_extent)."""
+    return (max(hi - lo for lo, hi in ranges),
+            max((hi - 1) // cs - lo // cs + 1 for lo, hi in ranges))
+
+
 def _align16(x: int) -> int:
     return -(-x // 16) * 16
 
@@ -416,11 +434,12 @@ class MxuGeometry:
         return -(-self.heads // 8)
 
 
-def blocks_at_once(cluster: int, smem: int) -> int:
-    """K4b blocks an H100 SXM runs at once in clusters of ``cluster`` with
-    ``smem`` bytes of shared memory a block (CLUSTER_SLOTS; where it has no
-    entry, as many whole clusters as the SMs' blocks hold)."""
-    per_sm = min(DENSE_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024))
+def blocks_at_once(cluster: int, smem: int, per_sm_max: int = DENSE_BLOCKS_PER_SM) -> int:
+    """Blocks an H100 SXM runs at once in clusters of ``cluster`` with
+    ``smem`` bytes of shared memory a block and at most ``per_sm_max`` blocks
+    an SM (K4b's by default) (CLUSTER_SLOTS; where it has no entry, as many
+    whole clusters as the SMs' blocks hold)."""
+    per_sm = min(per_sm_max, SMEM_PER_SM // (smem + 1024))
     return CLUSTER_SLOTS.get((cluster, per_sm), SMS * per_sm // cluster) * cluster
 
 
@@ -437,8 +456,7 @@ def mxu_geometry(lanes: int, hd: int, n_head: int, s_pad: int, cs: int) -> MxuGe
         ranges = key_ranges(s_pad, cs, cluster)
         if ranges is None:
             continue
-        keys = max(hi - lo for lo, hi in ranges)
-        chunks = max((hi - 1) // cs - lo // cs + 1 for lo, hi in ranges)
+        keys, chunks = range_extent(ranges, cs)
         for heads in range(1, min(DENSE_MAX_HEADS, n_head) + 1):
             rows = heads * dh
             smem = dense_smem(rows, heads, keys, chunks, cluster)
@@ -499,18 +517,103 @@ def kernel_mxu(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
     return out
 
 
+def mxub_smem(keys: int, chunks: int, cluster: int, stages: int) -> int:
+    """Dynamic shared memory of a K7 block of at most ``keys`` keys and
+    ``chunks`` chunks, in clusters of ``cluster``, with a ring of ``stages``
+    tiles: csrc/kbench.cu's head_smem, array by array, with its 1024 bytes
+    that align the ring."""
+    parts = (stages * MXUB_TILE_BYTES,         # the K/V ring
+             2 * stages * 8,                   # its full and empty mbarriers
+             keys * 4,                         # f32 scores
+             keys * 2,                         # bf16 p
+             keys // DENSE_TILE * 4 * 4,       # each consumer warp's max of each tile
+             cluster * chunks * 4,             # every block's prefix maxima
+             chunks * 4, chunks * 4,           # m_c and exp(m_c - M)
+             cluster * 64 * 4,                 # every block's acc
+             cluster * 4,                      # every block's l
+             4 * 4)                            # the warps' shares of l
+    return sum(_align16(x) for x in parts) + 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class MxubGeometry:
+    """K7's launch: a cluster of ``cluster`` blocks per (head, lane) pair,
+    block r over keys ``ranges[r]`` (K4b's ``key_ranges``), a TMA ring of
+    ``stages`` tiles; grid (heads * cluster, lanes)."""
+
+    heads: int
+    lanes: int
+    cluster: int
+    ranges: tuple[tuple[int, int], ...]
+    stages: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.heads * self.cluster * self.lanes
+
+
+@functools.cache
+def mxub_geometry(lanes: int, n_head: int, s_pad: int, cs: int) -> MxubGeometry:
+    """The K7 launch for this shape: of every cluster whose block fits in
+    shared memory with a ring of MXUB_STAGES tiles (or the deepest ring of
+    at least MXUB_MIN_STAGES that fits), the one with the least work on the
+    busiest SM (rounds of the blocks the card holds at once, times the
+    blocks an SM holds in a round, times one block's keys), then the fewest
+    blocks. Raises NotImplementedError where no block fits."""
+    best, best_key = None, None
+    for cluster in range(1, MAX_CLUSTER + 1):
+        ranges = key_ranges(s_pad, cs, cluster)
+        if ranges is None:
+            continue
+        keys, chunks = range_extent(ranges, cs)
+        stages = next((st for st in range(MXUB_STAGES, MXUB_MIN_STAGES - 1, -1)
+                       if mxub_smem(keys, chunks, cluster, st) <= SMEM_LIMIT), None)
+        if stages is None:
+            continue
+        smem = mxub_smem(keys, chunks, cluster, stages)
+        blocks = n_head * cluster * lanes
+        at_once = blocks_at_once(cluster, smem, MXUB_BLOCKS_PER_SM)
+        busiest = -(-min(blocks, at_once) // SMS)
+        key = (-(-blocks // at_once) * busiest * keys, blocks)
+        if best_key is None or key < best_key:
+            best_key = key
+            best = MxubGeometry(n_head, lanes, cluster, tuple(ranges), stages, smem)
+    if best is None:
+        raise NotImplementedError(
+            f"kernel_mxub: no K7 block fits S_PAD {s_pad} and CS {cs}: the scores and p over a "
+            f"block's keys, with a ring of {MXUB_MIN_STAGES} tiles, must fit in {SMEM_LIMIT} B of "
+            "shared memory")
+    return best
+
+
+def mxub_active_clusters(geo: MxubGeometry, s_pad: int, cs: int) -> int:
+    """How many of K7's clusters the current card holds at once for this
+    geometry (cudaOccupancyMaxActiveClusters): the launch's blocks run in
+    one round when that times the cluster size reaches ``geo.blocks``."""
+    n = ctypes.c_int(0)
+    _raise_on(_lib().wtt_kb_attn_mma_head_clusters(geo.lanes, 64 * geo.heads, s_pad, geo.heads,
+                                                   cs, geo.cluster, geo.stages, ctypes.byref(n)),
+              "mxub_active_clusters")
+    return n.value
+
+
 def kernel_mxub(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
     """K7: per-head tensor-core products q_h^T K_h and p_h V_h^T, bf16 p ->
-    [B, HD, 1] f32 (the TPU's [B, H, Dh], same memory)."""
+    [B, HD, 1] f32 (the TPU's [B, H, Dh], same memory). On the card each
+    (head, lane)'s keys are split over a cluster (``mxub_geometry``) that
+    exchanges per-chunk maxima, so p is rounded at the walk's running max,
+    and combines its partial P.V and l in the same launch."""
     if k.device.type == "cpu":
         return attention_ref(q, k, v, n_head, s_valid, cs, p_bf16=True)
     hd = k.shape[-2]
     b, hd, s_pad = _mma_shape("kernel_mxub", q, k, v, n_head, s_valid, cs,
                               hd == 64 * n_head, "Dh == 64")
+    geo = mxub_geometry(b, n_head, s_pad, cs)
     out = torch.empty((b, hd, 1), dtype=torch.float32, device=k.device)
     _raise_on(_lib().wtt_kb_attn_mma_head(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                           out.data_ptr(), b, hd, s_pad, s_valid, n_head, cs,
-                                          _stream(k)), "kernel_mxub")
+                                          geo.cluster, geo.stages, _stream(k)), "kernel_mxub")
     kernel_mxub.launches += 1
     return out
 
