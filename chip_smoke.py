@@ -79,6 +79,7 @@ The script imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -207,22 +208,35 @@ def event_ms(fn, n_sets: int, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, n_sets: int, iters: int, pattern: str):
+def device_ms(fn, n_sets: int, iters: int, pattern: str, per_call: int | None = None):
     """Mean device time per call of the CUDA kernels whose name contains
-    ``pattern``, from torch.profiler; None when the trace holds none."""
+    ``pattern``, from torch.profiler's kernel records; None when the trace
+    holds none. torch.profiler's traces here can lose a kernel: with
+    ``per_call`` (the kernels one call launches) the time is the mean of
+    the kernels traced times ``per_call``, and a trace short of kernels is
+    taken again, up to three times in all, and logged if it stays short."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i % n_sets)
+    pad = torch.zeros(1, device="cuda")
+    for _ in range(3):
         torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if pattern in ev.key:
-            total_us += getattr(ev, "device_time_total", 0.0) or getattr(ev, "cuda_time_total", 0.0)
-    return total_us / iters / 1e3 if total_us > 0 else None
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pad.add_(1)  # a kernel of another name first and last: traces here
+            for i in range(iters):  # have lost the first or last kernel of a session
+                fn(i % n_sets)
+            pad.add_(1)
+            torch.cuda.synchronize()
+        durs = [ev.time_range.elapsed_us() for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA and pattern in ev.name]
+        if per_call is None or len(durs) >= per_call * iters:
+            break
+    else:
+        log(f"    (the trace holds {len(durs)} of the {per_call * iters} {pattern} kernels launched)")
+    if not durs:
+        return None
+    return sum(durs) / (len(durs) / per_call if per_call else iters) / 1e3
 
 
 def breakdown(fn) -> dict:
@@ -501,7 +515,7 @@ KBENCH = [
     ("K8", "kernel_vpu8", "vpu8", "tools/kbench.py:336", "kernel_vpu8 :302-334", 1e-5),
     ("K9", "kernel_flatread", "flatread", "tools/kbench.py:397", "kernel_read :65-80", "rows"),
 ]
-KB_PATTERN = {"kernel_vpu": "kb_attn_cuda_core", "kernel_vpu8": "kb_attn_int8_split",
+KB_PATTERN = {"kernel_vpu": "kb_attn_f32_split", "kernel_vpu8": "kb_attn_int8_split",
               "kernel_mxu": "kb_attn_mma_dense", "kernel_mxub": "kb_attn_mma_head"}
 
 
@@ -626,6 +640,23 @@ def kbench_phase() -> tuple[list[dict], dict]:
         f"{g7.blocks} blocks, key ranges {list(g7.ranges)}, a ring of {g7.stages} tiles, "
         f"{g7.smem} B of shared memory a block; the card holds "
         f"{kb.mxub_active_clusters(g7, d.s_pad, d.CS)} such clusters at once")
+    g4a = kb.vpu_geometry(d.B, d.H, d.S, d.s_pad)
+    log(f"  K4a geometry: {d.H} heads x {d.B} lanes x clusters of {g4a.cluster} blocks = "
+        f"{g4a.blocks} blocks, key ranges {list(g4a.ranges)}, "
+        f"{'TMA' if g4a.tma else '4-byte cp.async'} loads, {kb.VPU_SMEM} B of static shared "
+        f"memory a block; the card holds "
+        f"{kb.vpu_active_clusters(g4a, d.HD, d.S, d.s_pad)} such clusters at once")
+    # the clusters the card holds at every size (kernels.kbench.CLUSTER_SLOTS)
+    slots = {}
+    for c in range(1, kb.MAX_CLUSTER + 1):
+        geo_c = dataclasses.replace(g4a, cluster=c, ranges=tuple(kb.vpu_ranges(d.S, c)))
+        slots[c] = kb.vpu_active_clusters(geo_c, d.HD, d.S, d.s_pad)
+    log("  K4a clusters held at once by cluster size, " + f"{kb.VPU_BLOCKS_PER_SM} blocks an SM: "
+        + ", ".join(f"{c}: {n}" for c, n in slots.items()))
+    for c, n in slots.items():
+        want_slots = kb.CLUSTER_SLOTS.get((c, kb.VPU_BLOCKS_PER_SM))
+        check(want_slots is None or want_slots == n,
+              f"K4a: the card holds {n} clusters of {c}, CLUSTER_SLOTS says {want_slots}")
     g8 = kb.vpu8_geometry(d.B, d.H, d.S, d.s_pad)
     log(f"  K8 geometry: {d.H} heads x {d.B} lanes x clusters of {g8.cluster} blocks = "
         f"{g8.blocks} blocks, key ranges {list(g8.ranges)}, {g8.vec}-byte loads; the card holds "
@@ -649,7 +680,7 @@ def kbench_phase() -> tuple[list[dict], dict]:
         v_ = variants[var]
         per_pass = v_.launches_per_pass
         pattern = KB_PATTERN.get(name, "kv_rowsum")
-        dev = device_ms(lambda _: v_.fn(), 1, 2, pattern)
+        dev = device_ms(lambda _: v_.fn(), 1, 2, pattern, per_pass)
         ref = kb.KERNELS[name][1]
         if per_layer[name]:
             plain = event_ms(lambda _: [ref(*args(name, li)) for li in range(d.L)], 1, 2)
@@ -702,17 +733,66 @@ def kbench_phase() -> tuple[list[dict], dict]:
         if name in ("kernel_vpu", "kernel_mxu", "kernel_mxub"):
             log(f"    bytes the kernel needs over the keys < S {need} a pass (the tool's, over "
                 f"S_PAD: {e['tool_bytes']}, bound {f(records[var]['bound_ms'])})")
-        if name == "kernel_mxub":
-            # K7's fixed cost a launch: the same launch at S = 1 reads one K
-            # and one V tile a (head, lane) and still pays the ramp, both
-            # cluster barriers and the combine
-            s1 = device_ms(lambda li: kb.kernel_mxub(inp["q"], inp["k"][li], inp["v"][li], d.H,
-                                                     1, d.CS), d.L, 2 * d.L, pattern)
+        if name in ("kernel_vpu", "kernel_mxub"):
+            # the fixed cost a launch: the launch at S = 1 reads one K and
+            # one V tile a (head, lane) (K7 keeps its clusters of 3, K4a takes
+            # clusters of 1) and still pays the ramp, the cluster barriers
+            # and the combine
+            wrapper = kb.KERNELS[name][0]
+            s1 = device_ms(lambda li: wrapper(inp["q"], inp["k"][li], inp["v"][li], d.H, 1, d.CS),
+                           d.L, 2 * d.L, pattern, 1)
             e["device_ms_s1"] = s1
             if s1 is not None and dev is not None:
                 rate = need / d.L / ((e["device_ms"] - s1) * 1e-3) / 1e12
                 log(f"    fixed cost: device ms a launch at S = 1 {s1:.4f} of {e['device_ms']:.4f}; "
                     f"the rest moves the launch's {need // d.L} B at {rate:.3f} TB/s")
+        if name == "kernel_vpu":
+            # the geometry's choice against its neighbours: the same launches
+            # with clusters of 2 and of 4 (two rounds on the card)
+            by_cluster = {}
+            chosen = kb.vpu_geometry
+            try:
+                for c in (2, 4):
+                    forced = dataclasses.replace(g4a, cluster=c, ranges=tuple(kb.vpu_ranges(d.S, c)))
+                    kb.vpu_geometry = lambda *_, g=forced: g
+                    by_cluster[c] = device_ms(lambda li: kb.kernel_vpu(
+                        inp["q"], inp["k"][li], inp["v"][li], d.H, d.S, d.CS), d.L, 2 * d.L, pattern,
+                        1)
+            finally:
+                kb.vpu_geometry = chosen
+            e["device_ms_by_cluster"] = {g4a.cluster: e["device_ms"], **by_cluster}
+            log("    device ms a launch by cluster size: " + ", ".join(
+                f"{c}: {f(t)}" for c, t in sorted(e["device_ms_by_cluster"].items())))
+            # the instance that fills the ring by 4-byte cp.async (S_PAD % 8 != 0):
+            # 8 layers of the tool's K/V cut to S_PAD = S + 2
+            kn, vn = (x[:8, ..., :d.S + 2].contiguous() for x in (inp["k"], inp["v"]))
+            narrow = device_ms(lambda li: kb.kernel_vpu(inp["q"], kn[li], vn[li], d.H, d.S, 2), 8, 16,
+                               pattern, 1)
+            want_n = kb.attention_ref(inp["q"], kn[1], vn[1], d.H, d.S, 2)
+            err_n = (kb.kernel_vpu(inp["q"], kn[1], vn[1], d.H, d.S, 2) - want_n).abs().max().item()
+            check(err_n <= 1e-5 * max(1.0, want_n.abs().max().item()),
+                  f"K4a at S_PAD {d.S + 2}: error {err_n}")
+            e["device_ms_narrow"] = narrow
+            log(f"    S_PAD = {d.S + 2} (4-byte cp.async instead of TMA): device ms a launch "
+                f"{f(narrow)}, max_abs_err {err_n:.3e}")
+            del kn, vn, want_n
+        if name in ("kernel_vpu", "kernel_vpu8"):
+            # the CLI's single stream: lane 0 of the tool's inputs, B = 1
+            if name == "kernel_vpu":
+                b1 = device_ms(lambda li: kb.kernel_vpu(inp["q"][:1], inp["k"][li][:1],
+                                                        inp["v"][li][:1], d.H, d.S, d.CS),
+                               d.L, 2 * d.L, pattern, 1)
+                need1 = 2 * d.HD * d.S * 2 + 4 * d.HD + 2 * d.HD
+                g1 = kb.vpu_geometry(1, d.H, d.S, d.s_pad)
+            else:
+                b1 = device_ms(lambda li: kb.kernel_vpu8(
+                    inp["q"][:1], inp["k8"][li][:1], inp["v8"][li][:1], inp["sc"][li][:1],
+                    inp["sc"][li][:1], d.H, d.S, d.CS), d.L, 2 * d.L, pattern, 1)
+                need1 = (2 * d.HD + 2 * 4) * d.S + 4 * d.HD + 2 * d.HD
+                g1 = kb.vpu8_geometry(1, d.H, d.S, d.s_pad)
+            e["device_ms_b1"], e["bound_ms_b1"] = b1, need1 / tool.HBM_BYTES_PER_S * 1e3
+            log(f"    B = 1 (lane 0): device ms a launch {f(b1)}, bound {e['bound_ms_b1']:.5f} "
+                f"(bytes), clusters of {g1.cluster}, {g1.blocks} blocks")
         if name == "kernel_vpu8":
             e["k2_int8_device_ms"] = k2_int8_dev
             log(f"    bytes the kernel needs over the keys < S {need} a pass (the tool's, over "

@@ -603,6 +603,61 @@ def test_kbench_vpu8_kernel_edges(b, h, dh, s, s_pad, cs, peak, offset):
     assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
 
 
+# K4a's cluster over the keys (kernels.kbench.vpu_geometry) at its edges,
+# each case's geometry pinned on the CPU by tests/test_torch_kbench.py
+# (VPU_SHAPES): (B, H, Dh, S, S_PAD, CS, the largest scores in the last key
+# range)
+VPU_EDGES = [
+    (8, 20, 64, 1, 1536, 512, False),      # one key: a cluster of 1, one tile
+    (8, 20, 64, 63, 1536, 512, False),     # one below, at and one above a tile
+    (8, 20, 64, 64, 1536, 512, False),
+    (8, 20, 64, 65, 1536, 512, False),     # two tiles, the second of one key
+    (8, 20, 64, 1500, 1536, 512, False),   # the tool's shape: clusters of 4
+    (8, 20, 64, 1500, 1536, 64, False),    # CS does not move the kernel's split
+    (1, 20, 64, 1500, 1536, 512, False),   # B = 1: clusters of 6
+    (8, 2, 64, 1500, 1536, 512, False),    # H = 2: clusters of 8
+    (8, 20, 16, 1500, 1536, 512, False),   # Dh = 16: a ring of 8 stages
+    (2, 3, 72, 300, 304, 16, False),       # Dh = 72: 3 stages, rows past Dh in the warps
+    (8, 20, 128, 1500, 1536, 512, False),  # Dh = 128: 2 stages, 32 rows a warp
+    (2, 4, 13, 100, 104, 8, False),        # an odd Dh: boxes of 13 rows
+    (64, 20, 64, 100, 128, 128, False),    # many pairs with few keys: clusters of 1
+    (1, 2, 64, 6000, 6144, 512, False),    # a cluster of 8, two passes a block
+    (8, 20, 64, 1500, 1536, 512, True),    # the peak in the last range
+    (1, 2, 64, 6000, 6144, 512, True),     # ... and in a block's second pass
+    (2, 3, 72, 300, 306, 18, False),       # S_PAD % 8 != 0: the producer's 4-byte copies
+    (2, 2, 128, 200, 202, 2, False),       # ... with 32 rows a warp
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,dh,s,s_pad,cs,peak", VPU_EDGES)
+def test_kbench_vpu_kernel_edges(b, h, dh, s, s_pad, cs, peak):
+    """K4a against its plain version where its key ranges, passes, ring
+    depths, rows a warp and load paths meet their edges, within 1e-5 of the
+    output's size (f32 p on both sides; only the order of the f32 sums
+    differs). With ``peak`` the last keys score far above the rest, so a
+    block weight e^(m_j - M) taken wrong shows in full."""
+    _need_card()
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    hd = h * dh
+    q = torch.randn((b, hd, 1), generator=g, device="cuda").mul(0.3).bfloat16()
+    k = torch.randn((b, hd, s_pad), generator=g, device="cuda").mul(0.3).bfloat16()
+    v = torch.randn((b, hd, s_pad), generator=g, device="cuda").bfloat16()
+    if peak:
+        # q . K at its largest on the last 3 keys
+        assert kb.vpu_geometry(b, h, s, s_pad).ranges[-1][0] <= s - 3
+        k[..., s - 3:s] = torch.where(q > 0, 2.0, -2.0).bfloat16()
+    before = kb.kernel_vpu.launches
+    got = kb.kernel_vpu(q, k, v, h, s, cs)
+    assert kb.kernel_vpu.launches == before + 1
+    want = kb.KERNELS["kernel_vpu"][1](q, k, v, h, s, cs)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, hd, 1) and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 1e-5 * max(1.0, want.abs().max().item())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead,hd,s_pad", [((3,), 13, 8), ((2,), 128, 208), ((1,), 100, 3000),
                                            ((8,), 1280, 1536)])

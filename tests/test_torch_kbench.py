@@ -664,3 +664,156 @@ def test_main_raises_without_a_card(monkeypatch):
     monkeypatch.setenv("VARIANTS", "read")
     with pytest.raises(RuntimeError, match="cuda"):
         main([])
+
+
+# ---------------------------------------------------------------------------
+# K4a: the keys of each (head, lane) split over a cluster
+# ---------------------------------------------------------------------------
+
+# (lanes, H, S, S_PAD): K4a's geometry at the card tests' edge shapes
+# (tests/test_torch_cuda.py VPU_EDGES) and a few more
+VPU_SHAPES = [
+    (8, 20, 1, 1536), (8, 20, 63, 1536), (8, 20, 64, 1536), (8, 20, 65, 1536),
+    (8, 20, 1500, 1536), (1, 20, 1500, 1536), (8, 2, 1500, 1536), (2, 3, 300, 304),
+    (2, 4, 100, 104), (64, 20, 100, 128), (1, 2, 6000, 6144), (2, 3, 300, 306),
+    (2, 2, 200, 202), (16, 20, 1500, 1536), (1, 1, 250000, 2**18), (3, 5, 1000, 1024),
+]
+
+
+@pytest.mark.parametrize("shape", VPU_SHAPES)
+def test_vpu_geometry_covers_the_keys(shape):
+    """K4a's launch geometry: the key ranges cover [0, S) once, none empty,
+    each starting on a 64-key tile; 1 to 8 blocks a cluster, at most one a
+    tile; TMA exactly where S_PAD % 8 == 0."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    lanes, h, s, s_pad = shape
+    geo = kb.vpu_geometry(lanes, h, s, s_pad)
+    assert 1 <= geo.cluster <= 8 and len(geo.ranges) == geo.cluster
+    assert geo.cluster <= -(-s // kb.VPU_TILE)
+    assert geo.ranges[0][0] == 0 and geo.ranges[-1][1] == s
+    assert all(a[1] == b[0] for a, b in zip(geo.ranges, geo.ranges[1:]))
+    assert all(lo < hi and lo % kb.VPU_TILE == 0 for lo, hi in geo.ranges)
+    assert geo.ranges == tuple(kb.vpu_ranges(s, geo.cluster))
+    assert geo.tma == (s_pad % 8 == 0)
+    assert geo.blocks == h * geo.cluster * lanes
+
+
+def test_vpu_geometry_fills_the_card_at_large_v2():
+    """At the tool's large-v2 shape: clusters of 3, one pass of 8 tiles a
+    block, 480 blocks, all of them on the card in one round (the card's
+    CLUSTER_SLOTS entry for clusters of 3 at 5 blocks an SM); clusters of
+    4 would take two rounds there."""
+    from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.tools.kbench import Dims
+
+    d = Dims()
+    geo = kb.vpu_geometry(d.B, d.H, d.S, d.s_pad)
+    assert geo.cluster == 3 and geo.ranges == ((0, 512), (512, 1024), (1024, 1500))
+    assert all(hi - lo <= kb.VPU_PASS for lo, hi in geo.ranges)
+    assert kb.SMEM_PER_SM // (kb.VPU_SMEM + 1024) == kb.VPU_BLOCKS_PER_SM == 5
+    assert kb.SMS <= geo.blocks == 480 <= kb.CLUSTER_SLOTS[(3, 5)] * 3
+    assert kb.CLUSTER_SLOTS[(4, 5)] * 4 < d.B * d.H * 4
+
+
+def test_vpu_geometry_reaches_the_kernels_edges():
+    """The card tests' edge shapes reach what they are there for: a cluster
+    of 1 at one key, a last range of one key, larger clusters at B = 1, a
+    cluster of 8 whose blocks take two passes, clusters of 1 over many
+    pairs, the producer's 4-byte copies, and a last range that holds the
+    peak's 3 keys."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    assert kb.vpu_geometry(8, 20, 1, 1536).ranges == ((0, 1),)
+    assert kb.vpu_geometry(8, 20, 65, 1536).ranges == ((0, 64), (64, 65))
+    assert kb.vpu_geometry(8, 20, 64, 1536).cluster == 1
+    assert kb.vpu_geometry(1, 20, 1500, 1536).cluster > kb.vpu_geometry(8, 20, 1500, 1536).cluster
+    geo = kb.vpu_geometry(1, 2, 6000, 6144)
+    assert geo.cluster == 8 and min(hi - lo for lo, hi in geo.ranges) > kb.VPU_PASS
+    assert kb.vpu_geometry(64, 20, 100, 128).cluster == 1
+    assert not kb.vpu_geometry(2, 3, 300, 306).tma and not kb.vpu_geometry(2, 2, 200, 202).tma
+    assert kb.vpu_geometry(8, 20, 1500, 1536).ranges[-1][0] <= 1500 - 3
+
+
+def _emulate_vpu(q, k, v, n_head, s_valid, ranges, pass_keys=512):
+    """numpy emulation of K4a's cluster (csrc/kbench.cu kb_attn_f32_split):
+    block r walks keys ``ranges[r]`` in passes of whole 64-key tiles, keys
+    >= its hi at -inf, with the online softmax's (m, l, acc) in f32; the
+    cluster combines the blocks as sum_j e^(m_j - M) acc_j / sum_j
+    e^(m_j - M) l_j. [B, HD, 1]."""
+    b, hd, _ = k.shape
+    dh, tile = hd // n_head, 64
+    q4 = q.reshape(b, n_head, dh).astype(np.float32)
+    k4, v4 = (x.reshape(b, n_head, dh, -1).astype(np.float32) for x in (k, v))
+    parts = []
+    for lo, hi in ranges:
+        m = np.full((b, n_head), -np.inf, np.float32)
+        l = np.zeros((b, n_head), np.float32)
+        acc = np.zeros((b, n_head, dh), np.float32)
+        for p0 in range(lo, hi, pass_keys):
+            keys = np.arange(p0, p0 + min(pass_keys, -(-(hi - p0) // tile) * tile))
+            sc = np.einsum("bhd,bhds->bhs", q4, k4[..., keys]).astype(np.float32)
+            sc = np.where(keys < hi, sc, np.float32(-np.inf))
+            m_new = np.maximum(m, sc.max(-1))
+            alpha = np.exp(m - m_new)
+            p = np.exp(sc - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + np.einsum("bhs,bhds->bhd", p, v4[..., keys])
+            m = m_new
+        parts.append((m, l, acc))
+    big_m = np.max([m for m, _, _ in parts], axis=0)
+    num = sum(np.exp(m - big_m)[..., None] * acc for m, _, acc in parts)
+    den = sum(np.exp(m - big_m) * l for m, l, _ in parts)
+    return (num / den[..., None]).reshape(b, hd, 1)
+
+
+_TOOLS = {}
+
+
+def _tool_at(b, s, hd, h, cs):
+    """tools/kbench.py loaded under these dimensions, once each."""
+    key = (b, s, hd, h, cs)
+    if key not in _TOOLS:
+        with pytest.MonkeyPatch.context() as mp:
+            for name, val in dict(B=b, S=s, HD=hd, H=h, CS=cs).items():
+                mp.setenv(name, str(val))
+            spec = importlib.util.spec_from_file_location(f"tools_kbench_{len(_TOOLS)}", TOOL)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        _TOOLS[key] = mod
+    return _TOOLS[key]
+
+
+# (B, H, Dh, S, S_PAD, CS, cluster): small shapes at the split's edges
+VPU_SPLITS = [
+    (2, 2, 64, 1, 128, 64, 1),        # S = 1: one key, one block
+    (2, 2, 64, 65, 128, 64, 2),       # the second block's range a tile of one key
+    (1, 2, 32, 1000, 1024, 256, 8),   # a cluster of 8, two tiles a block
+    (1, 2, 16, 1100, 1152, 128, 1),   # a cluster of 1 over 18 tiles: three passes
+    (2, 2, 64, 300, 320, 64, 3),      # CS = 64: chunks cut across the ranges
+    (2, 3, 24, 200, 256, 128, 4),     # a last range of 8 keys past whole chunks
+]
+
+
+@pytest.mark.parametrize("b,h,dh,s,s_pad,cs,cluster", VPU_SPLITS)
+def test_vpu_split_emulation_matches_pallas(b, h, dh, s, s_pad, cs, cluster):
+    """K4a's split over a cluster (the numpy emulation) and its plain
+    version against the JAX tool's K4a body (``kernel_vpu``, interpret)
+    within 1e-5: p is f32 and never rounded, so only the order of the f32
+    sums differs from the TPU's chunk walk."""
+    from whisper_tpu_torch.kernels import kbench as kb
+
+    rng = np.random.default_rng(22)
+    hd = h * dh
+    q, k, v = (_bf16(rng.standard_normal(shape) * sc) for shape, sc in (
+        ((b, hd, 1), 0.3), ((b, hd, s_pad), 0.3), ((b, hd, s_pad), 1.0)))
+    ranges = kb.vpu_ranges(s, cluster)
+    assert len(ranges) == cluster and all(lo < hi for lo, hi in ranges)
+    jkb_ = _tool_at(b, s, hd, h, cs)
+    want = _jax_attention(jkb_, jkb_.kernel_vpu, *(jnp.asarray(x).astype(jnp.bfloat16)
+                                                   for x in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    for got in (_emulate_vpu(q, k, v, h, s, ranges),
+                kb.attention_ref(tq, tk, tv, h, s, cs).numpy()):
+        assert got.shape == want.shape == (b, hd, 1) and np.all(np.isfinite(got))
+        assert np.max(np.abs(got - want)) <= TOL_F32 * max(1.0, np.max(np.abs(want)))

@@ -11,7 +11,7 @@
 // kernels compute three functions:
 //   kv_rowsum          per row, the f32 sum of k + v over every stored
 //                      column, padding included (K3, K5, K6, K9)
-//   kb_attn_cuda_core  per lane and head, softmax over the keys s < S of the
+//   kb_attn_f32_split  per lane and head, softmax over the keys s < S of the
 //   kb_attn_int8_split unscaled q . K[:, s], then P.V, all in f32 (K4a; K8 on
 //                      int8 K/V with column scales folded where kernel_vpu8
 //                      folds them: the raw dot times k_scale[s] before the
@@ -47,11 +47,15 @@
 // chunks)) differ only in the TPU's grid nesting and so are one launch
 // configuration over L * B slabs here (the split pass, then the combine).
 //
-// K4a keeps the TPU's sequential chunk walk as a loop inside the block (one
-// block per lane and head), carrying m, l and acc across CS-wide chunks, so
-// that the microbenchmark sets that structure against the decode kernel's
-// split-S at the same shape. Masked keys score -inf, as on the TPU; S >= 1
-// keeps the first chunk's max finite.
+// K4a (kb_attn_f32_split) walks no chunks: its p is f32 and never
+// rounded, so the result does not depend on how the keys are split, up to
+// f32 rounding. A thread-block cluster per (head, lane) splits [0, S) into
+// key ranges of whole 64-key tiles (tiles at or past S are not read); in
+// each block a producer warp streams the head's Dh-row x 64-key tiles of K,
+// then of V, by TMA into a 32 KB ring, each consumer warp takes its set of
+// the head's rows of every tile, its lanes two keys each, and the blocks
+// combine their (m, l, P.V) through distributed shared memory in the same
+// launch, as K8's do (see kb_attn_f32_split).
 //
 // K8 (kb_attn_int8_split) walks no chunks: its p is never rounded, so the
 // result does not depend on how the keys are split, up to f32 rounding. A
@@ -86,32 +90,6 @@ namespace {
 // shared helpers
 // ---------------------------------------------------------------------------
 
-template <int kWarps>
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
-  __syncthreads();
-  return r;
-}
-
-template <int kWarps>
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) r += red[w];
-  __syncthreads();
-  return r;
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -123,6 +101,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+constexpr int kMaxDh = 128;  // the attention kernels' largest head dim
 
 // the two bf16 of a 32-bit word, low address first, as f32 (exact)
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
@@ -213,81 +193,6 @@ __global__ void kv_rowsum_combine(const float* __restrict__ part, float* __restr
 }
 
 // ---------------------------------------------------------------------------
-// kb_attn_cuda_core: K4a (bf16 K/V)
-// ---------------------------------------------------------------------------
-
-constexpr int kAttnThreads = 256;
-constexpr int kAttnWarps = kAttnThreads / 32;
-constexpr int kMaxDh = 128;
-
-// One block per (head, lane) walks the CS-wide chunks in order. Each thread
-// owns column pairs of the chunk: it makes their scores (a 64-deep f32 dot,
-// coalesced along S), then their p; the warps then run along Dh for P.V.
-__global__ void __launch_bounds__(kAttnThreads)
-kb_attn_cuda_core(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, float* __restrict__ out, int HD, int S_pad,
-                  int S, int H, int CS) {
-  extern __shared__ float p_s[];  // [CS]: the chunk's scores, then p
-  __shared__ float q_s[kMaxDh];
-  __shared__ float acc_s[kMaxDh];
-  __shared__ float red[kAttnWarps];
-  const int h = blockIdx.x, b = blockIdx.y, dh = HD / H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long row0 = ((long long)b * HD + (long long)h * dh) * S_pad;
-  const __nv_bfloat16* kb = k + row0;
-  const __nv_bfloat16* vb = v + row0;
-  for (int d = tid; d < dh; d += kAttnThreads) {
-    q_s[d] = __bfloat162float(q[(long long)b * HD + h * dh + d]);
-    acc_s[d] = 0.f;
-  }
-  __syncthreads();
-
-  float m = -INFINITY, l = 0.f;
-  for (int c0 = 0; c0 < S_pad; c0 += CS) {
-    float t_max = -INFINITY;
-    for (int j = 2 * tid; j < CS; j += 2 * kAttnThreads) {
-      const __nv_bfloat16* kc = kb + c0 + j;
-      float a0 = 0.f, a1 = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < dh; ++d) {
-        const float2 x = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(kc + (long long)d * S_pad));
-        a0 += q_s[d] * x.x;
-        a1 += q_s[d] * x.y;
-      }
-      if (c0 + j >= S) a0 = -INFINITY;
-      if (c0 + j + 1 >= S) a1 = -INFINITY;
-      p_s[j] = a0;
-      p_s[j + 1] = a1;
-      t_max = fmaxf(t_max, fmaxf(a0, a1));
-    }
-    const float m_new = fmaxf(m, block_max<kAttnWarps>(t_max, red));
-    const float alpha = expf(m - m_new);  // 0 on the first chunk
-    float t_sum = 0.f;
-    for (int j = 2 * tid; j < CS; j += 2 * kAttnThreads) {
-      const float p0 = expf(p_s[j] - m_new), p1 = expf(p_s[j + 1] - m_new);
-      t_sum += p0 + p1;
-      p_s[j] = p0;
-      p_s[j + 1] = p1;
-    }
-    l = l * alpha + block_sum<kAttnWarps>(t_sum, red);  // syncs: p_s is complete
-    m = m_new;
-    for (int d = warp; d < dh; d += kAttnWarps) {
-      const __nv_bfloat16* vr = vb + (long long)d * S_pad + c0;
-      float a = 0.f;
-      for (int j = 2 * lane; j < CS; j += 64) {
-        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vr + j));
-        a += p_s[j] * x.x + p_s[j + 1] * x.y;
-      }
-      a = warp_sum(a);
-      if (lane == 0) acc_s[d] = acc_s[d] * alpha + a;
-    }
-    __syncthreads();  // the next chunk rewrites p_s
-  }
-  for (int d = tid; d < dh; d += kAttnThreads) out[(long long)b * HD + h * dh + d] = acc_s[d] / l;
-}
-
-// ---------------------------------------------------------------------------
 // K8: int8 K/V + column scales, the keys split over a cluster
 // ---------------------------------------------------------------------------
 
@@ -356,7 +261,7 @@ __device__ __forceinline__ void decode16(uint4 r, float (&f)[16]) {
       f[4 * i + e] = __int_as_float(__byte_perm(w[i], 0x4B000000u, 0x7650u | e)) - 8388736.f;
 }
 
-// Each of N values (N = 8 or 16) summed over the warp in N + N/2 + ... + 1
+// Each of N values (N = 8, 16 or 32) summed over the warp in N + N/2 + ... + 1
 // + 1 shuffles rather than 5 N: each step halves the values a lane carries.
 // Lane L ends with the sum of value (L >> (5 - log2 N)) % N.
 template <int N>
@@ -728,9 +633,11 @@ __host__ __device__ inline DenseSmem dense_smem(int rows, int G, int R, int n_lo
   return s;
 }
 
-// the 8 consumer warps' barrier (named barrier 1; the producer warp is not in it)
+// the barrier of a block's kThreads consumer threads (named barrier 1; the
+// producer warp is not in it)
+template <int kThreads>
 __device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kDenseConsumers) : "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
 }
 
 // max into shared memory by integer atomics: non-negative floats order as
@@ -860,7 +767,7 @@ kb_attn_mma_dense(const __grid_constant__ CUtensorMap k_map,
     qa_s[i] = make_uint4(hj == gi ? q0 : 0u, hj == gi + 8 ? q0 : 0u, hj == gi ? q8 : 0u,
                          hj == gi + 8 ? q8 : 0u);
   }
-  consumers_sync();  // (the producer is already loading)
+  consumers_sync<kDenseConsumers>();  // (the producer is already loading)
   const int n_nt = (gh + 7) / 8;  // n-tiles of 8 heads in P.V
   // Per-thread byte offsets into a [128][64] tile in the 128-byte swizzle
   // (chunk c of row r at c ^ (r % 8)): the ldmatrix rows of chunk `warp`,
@@ -931,7 +838,7 @@ kb_attn_mma_dense(const __grid_constant__ CUtensorMap k_map,
   }
 
   // --- the exchange: every score and tile max of the range is in ---
-  consumers_sync();
+  consumers_sync<kDenseConsumers>();
   for (int h = tid; h < gh; h += kDenseConsumers) {  // into every block's pm_s[rank]
     float run = -INFINITY;
     for (int t = 0; t < n_t; ++t) {
@@ -971,7 +878,7 @@ kb_attn_mma_dense(const __grid_constant__ CUtensorMap k_map,
       fc_s[h * n_loc + cg_ - c_first] = f;
     }
   }
-  consumers_sync();  // pb_s, fc_s and l's shares are whole for every warp
+  consumers_sync<kDenseConsumers>();  // pb_s, fc_s and l's shares are whole for every warp
   for (int h = tid; h < gh; h += kDenseConsumers) {  // l = sum of the f32 p exp(m_c - M)
     float l = 0.f;
     for (int t = 0; t < n_t; ++t) l += tsum_s[h * tpr + t];
@@ -1091,11 +998,6 @@ __host__ __device__ inline HeadSmem head_smem(int R, int n_loc, int C, int stage
   o = align16(o + kHeadWarps * 4);
   m.total = o + 1024;
   return m;
-}
-
-// K7's 4 consumer warps' barrier (named barrier 1; the producer is not in it)
-__device__ __forceinline__ void head_consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kHeadConsumers) : "memory");
 }
 
 // K7: a cluster of C blocks per (head, lane); grid (H * C, B); 4 consumer
@@ -1243,7 +1145,7 @@ kb_attn_mma_head(const __grid_constant__ CUtensorMap k_map,
   }
 
   // --- the exchange: every score and tile max of the range is in ---
-  head_consumers_sync();
+  consumers_sync<kHeadConsumers>();
   asm volatile("barrier.cluster.wait.aligned;" ::: "memory");  // every peer is running
   for (int lc = tid; lc < n_lc; lc += kHeadConsumers) {  // into every block's pm_s[rank]
     float run = -INFINITY;
@@ -1266,7 +1168,7 @@ kb_attn_mma_head(const __grid_constant__ CUtensorMap k_map,
     mc_s[lc] = m;
     fc_s[lc] = expf(m - mM);
   }
-  head_consumers_sync();
+  consumers_sync<kHeadConsumers>();
   float lsum = 0.f;  // l = sum of the f32 p exp(m_c - M)
   for (int j = tid; j < n_t * kT; j += kHeadConsumers) {
     const int lc = (k_lo + j) / CS - c_first;
@@ -1276,7 +1178,7 @@ kb_attn_mma_head(const __grid_constant__ CUtensorMap k_map,
   }
   lsum = warp_sum(lsum);
   if (lane == 0) red_s[warp] = lsum;
-  head_consumers_sync();  // p and the warps' shares of l are whole
+  consumers_sync<kHeadConsumers>();  // p and the warps' shares of l are whole
   if (tid < C) {
     float l = 0.f;
 #pragma unroll
@@ -1326,6 +1228,252 @@ kb_attn_mma_head(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4a: f32 attention on the CUDA cores, its keys split over a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Consumers = 128;                 // 4 consumer warps
+constexpr int kF32Warps = kF32Consumers / 32;
+constexpr int kF32Threads = kF32Consumers + 32;    // and one producer warp
+constexpr int kF32RingBytes = 32768;               // 4 tiles at Dh = 64, 2 at Dh = 128
+constexpr int kF32MaxStages = 8;
+constexpr int kF32PassTiles = 8;                   // key tiles of a pass
+constexpr int kF32Pass = kF32PassTiles * kT;       // keys of a pass: 512
+constexpr int kF32MaxCluster = 8;
+
+// K4a: a cluster of C blocks per (head, lane); grid (H * C, B); 4 consumer
+// warps and a producer warp a block. Block rank r takes keys [lo, hi): the
+// ceil(S / 64) tiles of 64 keys split as evenly as they go
+// (kernels/kbench.py's vpu_ranges), the last range ending at S, so no tile
+// at or past S is read and no range is empty when C <= ceil(S / 64). A tile
+// is the head's Dh rows by 64 keys, unswizzled: row d's 128 bytes at d * 128,
+// so a warp reading one row touches each bank once. The block walks its
+// range in passes of up to 512 keys; for each pass the producer streams its
+// K tiles, then its V tiles, into a ring of 32 KB (2 to 8 stages by Dh) with
+// a full and an empty mbarrier a stage: by TMA (kTma: S_pad % 8 == 0, so the
+// row stride is a multiple of 16 bytes), else by 4-byte cp.async of its lanes.
+// Warp w owns the rows w, w + 4, ... (kRows of them) of every tile, lane j
+// keys 2j and 2j + 1, so every warp consumes every stage in order.
+//   scores: each warp's partial f32 dots of its rows, by key, into part_s;
+//     after a barrier a thread a key sums the 4 partials, keys >= hi at -inf.
+//   softmax: the pass's max over the block (a second barrier), m and alpha
+//     as the online softmax; each thread's p = exp(s - m) of its keys into
+//     p_s and into its share of l (a third barrier: p_s is whole).
+//   P.V: lane j multiplies the p of its two keys into each of its warp's V
+//     rows and keeps a partial acc of those rows over every tile and pass;
+//     the sums over the lanes are taken once, at the end (warp_sum_many).
+//   combine, as K8's: each block stores its acc of row d into block d % C's
+//     shared memory and its (m, l) into every block's; cluster.sync(); block
+//     r writes rows d = r (mod C): sum_j e^(m_j - M) acc_j / sum_j e^(m_j -
+//     M) l_j. Each m_j is finite (every range holds a key < S). The producer
+//     joins the cluster.sync().
+// What bounds it is bytes: each K/V byte of the keys < S (up to the end of
+// the last tile) is read once, and the ring keeps up to 32 KB a block in
+// flight.
+template <int kRows, bool kTma>
+__global__ void __launch_bounds__(kF32Threads, kRows == 16 ? 5 : 4)
+kb_attn_f32_split(const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+                  float* __restrict__ out, int HD, int S_pad, int S, int H) {
+  __shared__ __align__(128) uint8_t ring[kF32RingBytes];
+  __shared__ __align__(8) uint64_t full[kF32MaxStages], empty[kF32MaxStages];
+  __shared__ __align__(16) float part_s[kF32Warps][kF32Pass];  // each warp's partial dots
+  __shared__ __align__(16) float p_s[kF32Pass];                 // the pass's p
+  __shared__ float q_s[kMaxDh];
+  __shared__ float red_s[kF32Warps];
+  // every block's acc of this block's rows: block j's of row d at
+  // [j * n_own + d / C], n_own = ceil(Dh / C), so C * n_own <= Dh + C - 1
+  __shared__ float acc_x[kMaxDh + kF32MaxCluster];
+  __shared__ float2 ml_x[kF32MaxCluster];  // every block's (m, l)
+  cg::cluster_group cluster = cg::this_cluster();
+  // a block stores into its peers' shared memory only once all are running
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int h = static_cast<int>(blockIdx.x) / C, b = blockIdx.y, dh = HD / H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tiles = (S + kT - 1) / kT;
+  const int lo = kT * (rank * tiles / C);
+  const int hi = min(S, kT * ((rank + 1) * tiles / C));
+  const int row0 = b * HD + h * dh;  // the head's first row of [B * HD, S_pad]
+  const int tile_bytes = dh * kT * 2;
+  const int stages = min(kF32MaxStages, kF32RingBytes / tile_bytes);
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], kTma ? 1 : 32);  // TMA's transaction, or each producer lane
+      mbar_init(&empty[s], kF32Warps);     // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kF32Warps) {
+    // --- producer: per pass, its K tiles, then its V tiles ---
+    int u = 0;
+    for (int p0 = lo; p0 < hi; p0 += kF32Pass) {
+      const int n_t = min(kF32PassTiles, (hi - p0 + kT - 1) / kT);
+      for (int i = 0; i < 2 * n_t; ++i, ++u) {
+        const bool is_k = i < n_t;
+        const int x = p0 + (is_k ? i : i - n_t) * kT, s = u % stages;
+        uint8_t* dst = ring + s * tile_bytes;
+        if constexpr (kTma) {
+          if (lane == 0) {
+            if (u >= stages) mbar_wait(&empty[s], ((u / stages) - 1) & 1);
+            mbar_expect_tx(&full[s], tile_bytes);
+            tma_load_2d(dst, is_k ? &k_map : &v_map, &full[s], x, row0);
+          }
+          __syncwarp();
+        } else {
+          // lane j copies keys x + 2j and x + 2j + 1 of every row (S_pad is
+          // even, so the pair lies wholly inside or wholly past the row) by
+          // 4-byte cp.async, zeros past S_pad as TMA would; the stage's full
+          // barrier counts each lane's arrival once its copies have landed
+          if (u >= stages) mbar_wait(&empty[s], ((u / stages) - 1) & 1);
+          const bool in = x + 2 * lane < S_pad;
+          const __nv_bfloat16* src = (is_k ? k : v) + (long long)row0 * S_pad + (in ? x + 2 * lane : 0);
+          const uint32_t dst0 = smem_u32(dst) + 4 * lane;
+          for (int d = 0; d < dh; ++d)
+            asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst0 + d * 128),
+                         "l"(src + (long long)d * S_pad), "r"(in ? 4 : 0)
+                         : "memory");
+          asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(&full[s]))
+                       : "memory");
+        }
+      }
+    }
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    cluster.sync();  // the combine's
+    return;
+  }
+
+  // q, while the producer's first tiles load
+  for (int d = tid; d < dh; d += kF32Consumers) q_s[d] = __bfloat162float(q[row0 + d]);
+  consumers_sync<kF32Consumers>();
+  float qv[kRows];  // q of this warp's rows w, w + 4, ...
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int d = warp + kF32Warps * i;
+    qv[i] = d < dh ? q_s[d] : 0.f;
+  }
+  float m = -INFINITY, l = 0.f;  // l: this thread's share
+  float acc[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
+  int u = 0;
+  for (int p0 = lo; p0 < hi; p0 += kF32Pass) {
+    const int n_t = min(kF32PassTiles, (hi - p0 + kT - 1) / kT);
+    // --- scores: each warp's partial dots over its rows of every K tile ---
+    for (int t = 0; t < n_t; ++t) {
+      const int ut = u + t, s = ut % stages;
+      mbar_wait(&full[s], (ut / stages) & 1);
+      const uint32_t* tile = reinterpret_cast<const uint32_t*>(ring + s * tile_bytes) + lane;
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int d = warp + kF32Warps * i;
+        if (d < dh) {
+          const uint32_t w = tile[d * 32];
+          a0 = fmaf(qv[i], bf16_lo(w), a0);
+          a1 = fmaf(qv[i], bf16_hi(w), a1);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+      *reinterpret_cast<float2*>(&part_s[warp][t * kT + 2 * lane]) = make_float2(a0, a1);
+    }
+    consumers_sync<kF32Consumers>();  // every warp's partial dots are in
+    // --- softmax: a thread the keys tid, tid + 128, ... of the pass ---
+    constexpr int kKeys = kF32Pass / kF32Consumers;
+    float sc[kKeys], t_max = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < kKeys; ++e) {
+      const int j = tid + kF32Consumers * e;
+      float a = -INFINITY;
+      if (j < n_t * kT && p0 + j < hi) {
+        a = 0.f;
+#pragma unroll
+        for (int w = 0; w < kF32Warps; ++w) a += part_s[w][j];
+      }
+      sc[e] = a;
+      t_max = fmaxf(t_max, a);
+    }
+    t_max = warp_max(t_max);
+    if (lane == 0) red_s[warp] = t_max;
+    consumers_sync<kF32Consumers>();  // the warps' maxima are in
+    float m_pass = red_s[0];
+#pragma unroll
+    for (int w = 1; w < kF32Warps; ++w) m_pass = fmaxf(m_pass, red_s[w]);
+    const float m_new = fmaxf(m, m_pass);  // finite: key p0 < hi
+    const float alpha = expf(m - m_new);   // 0 on the first pass
+    float t_sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < kKeys; ++e) {
+      const int j = tid + kF32Consumers * e;
+      const float p = expf(sc[e] - m_new);  // 0 for a masked key
+      t_sum += p;
+      if (j < n_t * kT) p_s[j] = p;
+    }
+    l = l * alpha + t_sum;
+    m = m_new;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) acc[i] *= alpha;
+    consumers_sync<kF32Consumers>();  // p_s is whole
+
+    // --- P.V: every warp takes every V tile of the pass, for its own rows ---
+    for (int t = 0; t < n_t; ++t) {
+      const int ut = u + n_t + t, s = ut % stages;
+      mbar_wait(&full[s], (ut / stages) & 1);
+      const uint32_t* tile = reinterpret_cast<const uint32_t*>(ring + s * tile_bytes) + lane;
+      const float2 p = *reinterpret_cast<const float2*>(p_s + t * kT + 2 * lane);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int d = warp + kF32Warps * i;
+        if (d < dh) {
+          const uint32_t w = tile[d * 32];
+          acc[i] = fmaf(p.x, bf16_lo(w), acc[i]);
+          acc[i] = fmaf(p.y, bf16_hi(w), acc[i]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with the stage
+    }
+    u += 2 * n_t;
+    // the next pass writes part_s, red_s and p_s only after its first
+    // barrier or later, which every warp reaches after reading them here
+  }
+
+  // --- combine over the cluster ---
+  const float l_warp = warp_sum(l);
+  if (lane == 0) red_s[warp] = l_warp;
+  const float a = warp_sum_many<kRows>(acc);
+  consumers_sync<kF32Consumers>();
+  float l_blk = 0.f;
+#pragma unroll
+  for (int w = 0; w < kF32Warps; ++w) l_blk += red_s[w];
+  constexpr int kCopies = 32 / kRows;                     // lanes that hold one row's sum
+  const int d_own = warp + kF32Warps * (lane / kCopies);  // warp_sum_many's row of this lane
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  const int n_own = (dh + C - 1) / C;
+  if (lane % kCopies == 0 && d_own < dh)
+    *cluster.map_shared_rank(&acc_x[rank * n_own + d_own / C], d_own % C) = a;
+  if (tid < C) *cluster.map_shared_rank(&ml_x[rank], tid) = make_float2(m, l_blk);
+  cluster.sync();  // every block's acc and (m, l) are in
+  for (int d = rank + C * tid; d < dh; d += C * kF32Consumers) {
+    float M = -INFINITY;
+    for (int j = 0; j < C; ++j) M = fmaxf(M, ml_x[j].x);
+    float num = 0.f, den = 0.f;
+    for (int j = 0; j < C; ++j) {
+      const float f = expf(ml_x[j].x - M);
+      num += f * acc_x[j * n_own + d / C];
+      den += f * ml_x[j].y;
+    }
+    out[row0 + d] = num / den;
+  }
+}
+
 template <typename F>
 cudaError_t allow_smem(F* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -1372,20 +1520,6 @@ extern "C" int wtt_kb_rowsum_rows(const void* k, const void* v, float* out, long
                    static_cast<cudaStream_t>(stream)>>>(static_cast<const __nv_bfloat16*>(k),
                                                         static_cast<const __nv_bfloat16*>(v), out,
                                                         n_rows, S);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K4a. q: bf16 [B, HD]; k, v: contiguous bf16 [B, HD, S_pad]; out: f32
-// [B, HD]. S_pad % CS == 0, CS even, Dh = HD / H <= 128, 1 <= S <= S_pad.
-extern "C" int wtt_kb_attn_cuda_core(const void* q, const void* k, const void* v, float* out,
-                                     int B, int HD, int S_pad, int S, int H, int CS,
-                                     void* stream) {
-  const size_t smem = (size_t)CS * sizeof(float);
-  const cudaError_t err = allow_smem(kb_attn_cuda_core, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kb_attn_cuda_core<<<dim3(H, B), kAttnThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), out, HD, S_pad, S, H, CS);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1477,15 +1611,17 @@ static EncodeTiled encode_tiled() {
 }
 
 // A 2-D map over [rows, S_pad] bf16 (row stride S_pad), boxes of box_rows
-// rows by 64 keys in the 128-byte swizzle; rows past the end read as zeros.
+// rows by 64 keys, in the 128-byte swizzle unless told otherwise; rows and
+// keys past the end read as zeros.
 static CUresult encode_kv_map(EncodeTiled enc, CUtensorMap* map, const void* base, long long rows,
-                              int S_pad, int box_rows) {
+                              int S_pad, int box_rows,
+                              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[2] = {(cuuint64_t)S_pad, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)S_pad * 2};
   const cuuint32_t box[2] = {(cuuint32_t)kT, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
@@ -1645,4 +1781,80 @@ extern "C" int wtt_kb_attn_mma_head_clusters(int B, int HD, int S_pad, int H, in
       head_config(B, HD, S_pad, S_pad, H, CS, C, stages, nullptr, cfg, attr, R, n_loc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(n, kb_attn_mma_head, &cfg));
+}
+
+using F32Kernel = void (*)(CUtensorMap, CUtensorMap, const __nv_bfloat16*, const __nv_bfloat16*,
+                           const __nv_bfloat16*, float*, int, int, int, int);
+
+// The launch of K4a for clusters of C blocks, into cfg (whose attrs point at
+// attr) and fn: cudaErrorInvalidValue for a shape or geometry the kernel
+// does not take (see wtt_kb_attn_f32_split).
+static cudaError_t f32_config(int B, int HD, int S_pad, int S, int H, int C, cudaStream_t st,
+                              cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, F32Kernel& fn) {
+  if (B < 1 || H < 1 || HD % H || HD / H > kMaxDh || S < 1 || S > S_pad || S_pad % 2 || C < 1 ||
+      C > kF32MaxCluster || C > (S + kT - 1) / kT)
+    return cudaErrorInvalidValue;
+  const bool tma = S_pad % 8 == 0;
+  if (HD / H <= 16 * kF32Warps)
+    fn = tma ? kb_attn_f32_split<16, true> : kb_attn_f32_split<16, false>;
+  else
+    fn = tma ? kb_attn_f32_split<32, true> : kb_attn_f32_split<32, false>;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(H * C, B);
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// K4a, clusters of C blocks over the keys (kernels/kbench.py's vpu_geometry
+// chooses C). q: bf16 [B, HD]; k, v: contiguous bf16 [B, HD, S_pad], 16-byte
+// aligned; out: f32 [B, HD]. Dh = HD / H <= 128, 1 <= S <= S_pad, S_pad
+// even, 1 <= C <= min(8, ceil(S / 64)). The ring is filled by TMA where
+// S_pad % 8 == 0 (tensor maps encoded per call, boxes of Dh rows by 64
+// keys), else by the producer's 4-byte cp.async. cudaErrorInvalidValue for any
+// other shape or geometry; 10000 + the CUresult when a tensor map cannot be
+// encoded, and cudaErrorNotSupported when the driver has no
+// cuTensorMapEncodeTiled.
+extern "C" int wtt_kb_attn_f32_split(const void* q, const void* k, const void* v, float* out,
+                                     int B, int HD, int S_pad, int S, int H, int C,
+                                     void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  F32Kernel fn;
+  cudaError_t err = f32_config(B, HD, S_pad, S, H, C, static_cast<cudaStream_t>(stream), cfg,
+                               attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap maps[2] = {};
+  if (S_pad % 8 == 0) {
+    const EncodeTiled enc = encode_tiled();
+    if (!enc) return static_cast<int>(cudaErrorNotSupported);
+    const int dh = HD / H;
+    CUresult r = encode_kv_map(enc, &maps[0], k, (long long)B * HD, S_pad, dh,
+                               CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (r == CUDA_SUCCESS)
+      r = encode_kv_map(enc, &maps[1], v, (long long)B * HD, S_pad, dh, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
+  }
+  err = cudaLaunchKernelEx(&cfg, fn, maps[0], maps[1], static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v), out, HD, S_pad, S, H);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// How many clusters of K4a's launch the card holds at once, into *n.
+extern "C" int wtt_kb_attn_f32_clusters(int B, int HD, int S_pad, int S, int H, int C, int* n) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  F32Kernel fn;
+  const cudaError_t err = f32_config(B, HD, S_pad, S, H, C, nullptr, cfg, attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(n, fn, &cfg));
 }

@@ -30,11 +30,13 @@ running max, and the bf16 rounding of p happens at the chunk's running max,
 so the plain versions walk the chunks too. The kernels are
 ``csrc/kbench.cu``; its header says what bounds them on an H100 (bytes:
 2,013,265,920 B of bf16 K + V per large-v2 pass) and how each is laid out.
-K4a walks the chunks inside one block per (head, lane). K8 walks no
-chunks: a thread-block cluster per (head, lane) splits the keys [0, S) into
-ranges of whole 16-key groups (``vpu8_geometry``), each block loads all its
-K/V bytes before it reduces, and the blocks combine their (m, l, P.V)
-through distributed shared memory. K4b splits the chunks over a
+K4a and K8 walk no chunks: a thread-block cluster per (head, lane)
+splits the keys [0, S) into ranges, and the blocks combine their (m, l,
+P.V) through distributed shared memory. K4a's ranges are whole 64-key
+tiles (``vpu_geometry``), which a producer warp streams by TMA into a ring
+for the block's consumer warps; K8's are whole 16-key groups
+(``vpu8_geometry``), each block loading all its K/V bytes before it
+reduces. K4b splits the chunks over a
 thread-block cluster per (head group, lane): the launch
 geometry (``mxu_geometry``: heads per group, blocks per cluster, each
 block's key range) fills the card's 132 SMs, each block reads only its
@@ -74,11 +76,14 @@ DENSE_TILE, DENSE_TILE_ROWS, DENSE_STAGES = 64, 128, 5
 DENSE_MAX_HEADS, MAX_CLUSTER, DENSE_BLOCKS_PER_SM = 16, 8, 2
 # Clusters an H100 SXM holds at once, by (blocks a cluster, blocks an SM),
 # from cudaOccupancyMaxActiveClusters (mxu_active_clusters for K4b,
-# mxub_active_clusters for K7; chip_smoke.py logs both at large-v2) on an
-# NVIDIA H100 80GB HBM3: clusters must sit inside one GPC, so sizes that do
-# not divide a GPC's SMs leave some idle (3 at one block an SM: 39, not 44).
+# mxub_active_clusters for K7, vpu_active_clusters for K4a at every cluster
+# size; chip_smoke.py logs them at large-v2) on an NVIDIA H100 80GB HBM3:
+# clusters must sit inside one GPC, so sizes that do not divide a GPC's SMs
+# leave some idle (3 at one block an SM: 39, not 44; 4 at five: 154, not 165).
 CLUSTER_SLOTS = {(1, 1): 132, (2, 1): 66, (3, 1): 39, (6, 1): 17,
-                 (1, 2): 264, (2, 2): 132, (3, 2): 79, (6, 2): 39, (3, 5): 203}
+                 (1, 2): 264, (2, 2): 132, (3, 2): 79, (6, 2): 39,
+                 (1, 5): 660, (2, 5): 330, (3, 5): 203, (4, 5): 154, (5, 5): 124, (6, 5): 101,
+                 (7, 5): 84, (8, 5): 77}
 # K7 (csrc/kbench.cu kb_attn_mma_head): TMA tiles of a head's 64 rows by 64
 # keys (8 KB) in a ring of 4 stages, fewer only where shared memory forces
 # it, blocks of 4 consumer warps and a producer warp, at most 7 blocks an SM
@@ -87,6 +92,12 @@ MXUB_TILE_BYTES, MXUB_MIN_STAGES, MXUB_STAGES, MXUB_BLOCKS_PER_SM = 64 * 64 * 2,
 # K8 (csrc/kbench.cu kb_attn_int8_split): a lane owns 16 keys of a row (one
 # 16-byte load), so a block of 8 warps takes 512 keys a pass
 VPU8_GROUP, VPU8_PASS = 16, 512
+# K4a (csrc/kbench.cu kb_attn_f32_split): key ranges of whole 64-key tiles,
+# walked in passes of 512 keys; blocks of 4 consumer warps and a producer
+# warp with 44,272 B of static shared memory (a 32 KB ring of tiles, the
+# warps' partial dots and p of a pass, q, the combine's arrays), so 5
+# blocks an SM
+VPU_TILE, VPU_PASS, VPU_SMEM, VPU_BLOCKS_PER_SM = 64, 512, 44_272, 5
 
 
 # ---------------------------------------------------------------------------
@@ -144,14 +155,16 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wtt_kb_rowsum.argtypes = [p] * 4 + [i] * 4 + [p]
     lib.wtt_kb_rowsum_rows.argtypes = [p] * 3 + [ctypes.c_longlong, i, p]
-    lib.wtt_kb_attn_cuda_core.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.wtt_kb_attn_f32_split.argtypes = [p] * 4 + [i] * 6 + [p]
+    lib.wtt_kb_attn_f32_clusters.argtypes = [i] * 6 + [ctypes.POINTER(i)]
     lib.wtt_kb_attn_int8_split.argtypes = [p] * 6 + [i] * 7 + [p]
     lib.wtt_kb_attn_int8_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     lib.wtt_kb_attn_mma_head.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.wtt_kb_attn_mma_head_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
     lib.wtt_kb_attn_mma_dense.argtypes = [p] * 4 + [i] * 8 + [p]
     lib.wtt_kb_attn_mma_dense_clusters.argtypes = [i] * 7 + [ctypes.POINTER(i)]
-    for fn in (lib.wtt_kb_rowsum, lib.wtt_kb_rowsum_rows, lib.wtt_kb_attn_cuda_core,
+    for fn in (lib.wtt_kb_rowsum, lib.wtt_kb_rowsum_rows, lib.wtt_kb_attn_f32_split,
+               lib.wtt_kb_attn_f32_clusters,
                lib.wtt_kb_attn_int8_split, lib.wtt_kb_attn_int8_clusters,
                lib.wtt_kb_attn_mma_head, lib.wtt_kb_attn_mma_head_clusters,
                lib.wtt_kb_attn_mma_dense,
@@ -276,17 +289,80 @@ def _cuda_core_shape(name: str, q, k, v, n_head, s_valid, cs) -> tuple[int, int,
     return b, hd, s_pad
 
 
+def vpu_ranges(s_valid: int, cluster: int) -> list[tuple[int, int]]:
+    """K4a's key range [lo, hi) of each block of a cluster: the ceil(S / 64)
+    tiles of 64 keys split as evenly as they go, the last range ending at S
+    (csrc/kbench.cu's kb_attn_f32_split computes the same)."""
+    tiles = -(-s_valid // VPU_TILE)
+    return [(VPU_TILE * (r * tiles // cluster),
+             min(s_valid, VPU_TILE * ((r + 1) * tiles // cluster))) for r in range(cluster)]
+
+
+@dataclasses.dataclass(frozen=True)
+class VpuGeometry:
+    """K4a's launch: a cluster of ``cluster`` blocks per (head, lane) pair,
+    block r over keys ``ranges[r]``; grid (heads * cluster, lanes); ``tma``:
+    the ring is filled by TMA (S_PAD % 8 == 0, a row stride of whole 16
+    bytes), else by the producer warp's 4-byte cp.async copies."""
+
+    heads: int
+    lanes: int
+    cluster: int
+    ranges: tuple[tuple[int, int], ...]
+    tma: bool
+
+    @property
+    def blocks(self) -> int:
+        return self.heads * self.cluster * self.lanes
+
+
+@functools.cache
+def vpu_geometry(lanes: int, n_head: int, s: int, s_pad: int) -> VpuGeometry:
+    """The K4a launch for this shape: of every cluster of at most 8 blocks
+    and at most one a 64-key tile, the one with the least work on the
+    busiest SM (rounds of the blocks the card holds at once, times the
+    blocks an SM holds in a round, times one block's keys in whole tiles),
+    then the fewest blocks. The head dim does not move it: a block's shared
+    memory is the same whatever Dh <= 128."""
+    tiles = -(-s // VPU_TILE)
+    best, best_key = None, None
+    for cluster in range(1, min(MAX_CLUSTER, tiles) + 1):
+        ranges = vpu_ranges(s, cluster)
+        keys = max(-(-(hi - lo) // VPU_TILE) for lo, hi in ranges) * VPU_TILE
+        blocks = n_head * cluster * lanes
+        at_once = blocks_at_once(cluster, VPU_SMEM, VPU_BLOCKS_PER_SM)
+        busiest = -(-min(blocks, at_once) // SMS)
+        key = (-(-blocks // at_once) * busiest * keys, blocks)
+        if best_key is None or key < best_key:
+            best_key = key
+            best = VpuGeometry(n_head, lanes, cluster, tuple(ranges), s_pad % 8 == 0)
+    return best
+
+
+def vpu_active_clusters(geo: VpuGeometry, hd: int, s: int, s_pad: int) -> int:
+    """How many of K4a's clusters the current card holds at once for this
+    geometry (cudaOccupancyMaxActiveClusters): the launch's blocks run in
+    one round when that times the cluster size reaches ``geo.blocks``."""
+    n = ctypes.c_int(0)
+    _raise_on(_lib().wtt_kb_attn_f32_clusters(geo.lanes, hd, s_pad, s, geo.heads, geo.cluster,
+                                              ctypes.byref(n)), "vpu_active_clusters")
+    return n.value
+
+
 def kernel_vpu(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
-    """K4a: f32 single-query attention, one block per (head, lane) walking
-    the chunks -> [B, HD, 1] f32."""
+    """K4a: f32 single-query attention -> [B, HD, 1] f32. On the card the
+    keys [0, S) of each (head, lane) are split over a cluster
+    (``vpu_geometry``) whose blocks are fed by a TMA ring, and the blocks'
+    softmax partials are combined in the same launch."""
     if k.device.type == "cpu":
         return attention_ref(q, k, v, n_head, s_valid, cs)
     _check_kv("kernel_vpu", torch.bfloat16, k, v)
     b, hd, s_pad = _cuda_core_shape("kernel_vpu", q, k, v, n_head, s_valid, cs)
+    geo = vpu_geometry(b, n_head, s_valid, s_pad)
     out = torch.empty((b, hd, 1), dtype=torch.float32, device=k.device)
-    _raise_on(_lib().wtt_kb_attn_cuda_core(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                           out.data_ptr(), b, hd, s_pad, s_valid, n_head, cs,
-                                           _stream(k)), "kernel_vpu")
+    _raise_on(_lib().wtt_kb_attn_f32_split(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           out.data_ptr(), b, hd, s_pad, s_valid, n_head,
+                                           geo.cluster, _stream(k)), "kernel_vpu")
     kernel_vpu.launches += 1
     return out
 

@@ -11,7 +11,8 @@ kernels here (``whisper_tpu_torch/kernels/kbench.py``):
   rows      K5  the same, whole rows in one launch (a warp a row; RB sets no block)
   read1     K6  the same over all layers in one call, summed to a scalar
   flatread  K9  the same launches, flat [L * B, HD, 1] output
-  vpu       K4a single-query attention on the CUDA cores, sequential chunk walk
+  vpu       K4a single-query attention on the CUDA cores, its keys split over a
+                thread-block cluster fed by a TMA ring
   mxu       K4b the same on the tensor cores, head-masked dense product, its
                 keys split over a thread-block cluster
   mxub      K7  the same on the tensor cores, per-head products
