@@ -20,7 +20,11 @@ result line:
                 bound (least time the card could take: bytes over 3.35 TB/s
                 or operations over 989 TFLOP/s); each case's share of the
                 bound and its ratio to the library call. K1 on strided views
-                (as the encoder passes them) and on contiguous tensors
+                (as the encoder passes them) and on contiguous tensors; K1's
+                f32 instance (DtypePolicy.f32()) at B=1 on strided f32 views,
+                held to 1e-5 x max(1, max |plain|), bound by the f32 FMA
+                rate (67 TFLOP/s), with SDPA on the same views and the
+                backend SDPA took
   3b. kbench    the port's microbenchmark of the decode-attention stream
                 (whisper_tpu_torch.tools.kbench, the JAX tool's large-v2
                 defaults B=8 S=1500 HD=1280 H=20 L=32 CS=512): each of its
@@ -52,8 +56,12 @@ result line:
                 BatchTranscriber (batch 4, 6 clips, greedy and beam 5) and
                 the server of cli/serve.py (3 concurrent POSTs); the card's
                 counters show K1 and K2, K2's grouped launches on every beam
-                run; a small random model's encoder on the card must agree
-                with the CPU path
+                run; then run_full under DtypePolicy.f32() (K1's f32
+                instance) and run_capture over a paced source (bf16 tier;
+                run_full on the capture runner's worker thread), each the
+                CPU's segments (and buffers) with exact K1/K2 counts; a small
+                random model's encoder on the card must agree with the CPU
+                path
   5. main path  a synthetic large-v2 GGML checkpoint (full width and depth,
                 f16 weights from a seeded generator), once per tier: the bf16
                 tier (load_model), then the serving tier (load_model with
@@ -69,9 +77,20 @@ result line:
                 bytes it stores (int8 cross K/V, decoder weights, token
                 table) and profiles the two passes XLA fused and eager
                 PyTorch does not: int8 -> bf16 weight conversion and the
-                self cache's quantize-and-write
+                self cache's quantize-and-write. The bf16 tier also runs
+                Context.run_capture over a seeded 6 s source in 100 ms
+                chunks, paced (buffers, ms per buffer, exact counts); then
+                the f32 tier (load_model with DtypePolicy.f32()) runs
+                run_full on the 3 s clip (32 f32 K1 launches a window) and
+                one profiled encode at B=1
+  5b. bench     the port's bench (whisper_tpu_torch.tools.bench) at large-v2
+                on the serving tier (the JAX bench's default) and the bf16
+                tier, BENCH_TOKENS token steps a window: each tier's JSON
+                line with the card's name and power limit, and the exact
+                K1/K2 counts of its encodes and token steps
   6. report     one JSON line of every kernel's numbers (with the serving
-                path's in ``serving_path``), then the result line
+                path's in ``serving_path``, the bench's in ``bench``), then
+                the result line
                 {"ok": true, "device": {...}}
 
 The script imports nothing of JAX or of the JAX package.
@@ -93,6 +112,7 @@ import numpy as np
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12              # H100 SXM f32 peak outside the tensor cores
 L2_BYTES = 50 * 2**20
 FORCE_STEPS = 128
 PROFILE_STEPS = 16             # decode steps under the profiler (the trace stays small)
@@ -249,6 +269,8 @@ def breakdown(fn) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     def group(name: str) -> str:
+        if "flash_attention_f32_kernel" in name:
+            return "K1 flash_attention (f32)"
         if "flash_attention_kernel" in name:
             return "K1 flash_attention"
         if "decode_attention" in name:
@@ -363,6 +385,69 @@ def flash_case(b: int, t: int, h: int = 20, dh: int = 64, contiguous: bool = Fal
         # both block shapes, forced, against which the kernel's own choice is made
         shape_device_ms={shape: device_ms(lambda i: flash_attention_shape(*sets[i], shape), n, 20,
                                           "flash_attention_kernel") for shape in ("wide", "deep")},
+        bound_ms=max(bound_flops, bound_bytes),
+        bound_by="operations" if bound_flops >= bound_bytes else "bytes",
+    )
+
+
+def sdpa_backend(fn) -> str:
+    """The backend SDPA took for ``fn()``, from the kernels it launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA})
+    low = " ".join(names).lower()
+    kind = ("cuDNN" if "cudnn" in low else "flash" if "flash" in low
+            else "memory-efficient" if "fmha" in low or "efficient" in low else "math")
+    return f"{kind} ({'; '.join(n[:60] for n in names[:3])})"
+
+
+def flash_f32_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
+    """K1's f32 instance (DtypePolicy.f32()) at the encoder's shapes: q, k, v
+    as strided f32 views of one [B, T, H, 3, Dh] tensor; bound by the f32
+    FMA rate (no tensor-core type keeps the f32 tier's 1e-5)."""
+    import torch
+    import torch.nn.functional as F
+
+    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    set_bytes = 4 * b * t * h * dh * 4
+    n = _n_sets(set_bytes)
+    sets = [(torch.randn((b, t, h, 3, dh), generator=g, device="cuda") * 0.5).unbind(3)
+            for _ in range(n)]
+    before = flash_attention.launches_f32
+    got = flash_attention(*sets[0])
+    check(flash_attention.launches_f32 == before + 1, "flash_attention f32: the f32 kernel did not launch")
+    want = flash_attention_ref(*sets[0])
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == torch.float32, "flash_attention f32 shape/dtype")
+    check(bool(torch.isfinite(got).all()), "flash_attention f32 output not finite")
+    err = (got - want).abs().max().item()
+
+    def lib(i):
+        q, k, v = sets[i]
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                              v.transpose(1, 2), scale=1.0)
+
+    bound_flops = 4 * b * h * t * t * dh / F32_FLOPS * 1e3
+    bound_bytes = set_bytes / HBM_BYTES_PER_S * 1e3
+    return dict(
+        case=f"B={b} T={t} H={h} Dh={dh} f32, strided q/k/v",
+        max_abs_err=err, tol=1e-5 * max(1.0, want.abs().max().item()),
+        tol_reason="1e-5 x max(1, max |plain|): f32 throughout, only the summation order "
+                   "and expf's rounding differ",
+        ms=event_ms(lambda i: flash_attention(*sets[i]), n, 20),
+        device_ms=device_ms(lambda i: flash_attention(*sets[i]), n, 10, "flash_attention_f32_kernel"),
+        plain_ms=event_ms(lambda i: flash_attention_ref(*sets[i]), n, 3),
+        library_ms=event_ms(lib, n, 20),
+        library_device_ms=library_device_ms(lib, n, 10),
+        library_backend=sdpa_backend(lambda: lib(0)),
         bound_ms=max(bound_flops, bound_bytes),
         bound_by="operations" if bound_flops >= bound_bytes else "bytes",
     )
@@ -485,6 +570,8 @@ def show_case(name: str, c: dict) -> None:
         f"{f(c['library_device_ms'])}), bound_ms {f(c['bound_ms'])} ({c['bound_by']}); "
         f"share of bound {f(c['bound_share'])}, x library {f(c['vs_library'])} (device "
         f"{f(c['vs_library_device'])})")
+    if "library_backend" in c:
+        log(f"    SDPA took {c['library_backend']}")
     if "shape_device_ms" in c:
         log("    device ms by block shape: " + ", ".join(f"{k} {f(v)}" for k, v in
                                                    c["shape_device_ms"].items()))
@@ -495,7 +582,6 @@ def show_case(name: str, c: dict) -> None:
 # phase 3b: the microbenchmark's kernels (K3-K9)
 # ---------------------------------------------------------------------------
 
-F32_FLOPS = 67e12              # H100 SXM f32 peak outside the tensor cores
 # kernel id, wrapper, variant, the TPU's pallas_call, its body, tolerance
 # against the plain version (times max(1, max |plain|); "rows": 1e-5 of the
 # row's sum of |k| + |v|). For bf16 p (K4b, K7) 1e-4, since an ulp of exp
@@ -822,7 +908,7 @@ def counters():
 
 def reset_counts() -> None:
     k1, k2 = counters()
-    k1.launches = k2.launches = k2.launches_int8 = k2.launches_grouped = 0
+    k1.launches = k1.launches_f32 = k2.launches = k2.launches_int8 = k2.launches_grouped = 0
 
 
 def read_counts() -> tuple[int, int, int, int]:
@@ -830,6 +916,103 @@ def read_counts() -> tuple[int, int, int, int]:
     and those with kv_group > 1 (beam search's cross-attention)."""
     k1, k2 = counters()
     return k1.launches, k2.launches, k2.launches_int8, k2.launches_grouped
+
+
+def k1_f32_count() -> int:
+    """K1 launches of its f32 instance (DtypePolicy.f32()), of those that
+    read_counts gives."""
+    return counters()[0].launches_f32
+
+
+class counting:
+    """Records a runtime's encodes (their batch widths, ``widths``) and each
+    window's token steps (``window_steps``) while in the ``with`` block, from
+    whichever thread calls it (run_capture's worker too): the K1 and K2
+    launches a run implies are L_enc per encode and 2 L_dec per token step."""
+
+    def __init__(self, rt):
+        self.rt, self.widths, self.window_steps = rt, [], []
+
+    @property
+    def encodes(self) -> int:
+        return len(self.widths)
+
+    @property
+    def steps(self) -> int:
+        return sum(self.window_steps)
+
+    def __enter__(self):
+        encode, run = self.rt.encode_window, self.rt.run_window
+
+        def counted_encode(mel):
+            self.widths.append(mel.shape[0])
+            return encode(mel)
+
+        def counted_run(*a, **kw):
+            res = run(*a, **kw)
+            self.window_steps.append(int(res.steps))
+            return res
+
+        self.rt.encode_window, self.rt.run_window = counted_encode, counted_run
+        return self
+
+    def __exit__(self, *exc):
+        del self.rt.encode_window, self.rt.run_window
+
+
+def speechy(n: int, seed: int) -> np.ndarray:
+    """A loud modulated 1.2 kHz tone with noise, which the VAD takes for speech."""
+    t = np.arange(n) / 16_000
+    noise = 0.05 * np.random.default_rng(seed).standard_normal(n)
+    return ((0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)) * np.sin(2 * np.pi * 1200 * t)
+            + noise).astype(np.float32)
+
+
+def noise_floor(n: int, seed: int = 1) -> np.ndarray:
+    """A quiet 60 Hz hum, the silence the VAD's thresholds adapt to."""
+    t = np.arange(n) / 16_000
+    noise = 1e-5 * np.random.default_rng(seed).standard_normal(n)
+    return (1e-3 * np.sin(2 * np.pi * 60 * t) + noise).astype(np.float32)
+
+
+def chunks_of(audio: np.ndarray, n: int = 1600) -> list:
+    return [audio[i : i + n] for i in range(0, len(audio), n)]
+
+
+def paced(chunks):
+    """Yield each chunk once no thread started since the first chunk is
+    alive: the capture runner then never finds its worker busy (it would
+    cut other buffers, STALLED), so the card and the CPU see the same
+    buffers however fast each transcribes."""
+    import threading
+
+    base = set(threading.enumerate())
+    for chunk in chunks:
+        while any(t.is_alive() for t in threading.enumerate() if t not in base):
+            time.sleep(0.001)
+        yield chunk
+
+
+def recorded_capture(ctx, params, chunks, capture_params) -> tuple[list, list, object]:
+    """Context.run_capture over paced ``chunks``; the buffers handed to
+    run_full, the ms each took (run_full returns segments read back to the
+    host, so its device work has ended), and the result."""
+    buffers, ms = [], []
+    run_full = ctx.run_full
+
+    def recording_run_full(p, pcm):
+        t0 = time.perf_counter()
+        res = run_full(p, pcm)
+        buffers.append(len(pcm))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    ctx.run_full = recording_run_full
+    try:
+        res = ctx.run_capture(params, paced(chunks), capture_params=capture_params)
+    finally:
+        del ctx.run_full
+    return buffers, ms, res
 
 
 def serving_model(path: str, device: str):
@@ -990,6 +1173,55 @@ def golden_phase(tmp: str) -> dict:
             check(got[name, "cuda"] == got[name, "cpu"],
                   f"{name}, {tier} tier: card {got[name, 'cuda']} != CPU {got[name, 'cpu']}")
 
+    # DtypePolicy.f32() (K1's f32 instance on the card), and run_capture on
+    # the bf16 tier over a paced source (1 s of noise floor, 4 s of speech,
+    # 1 s of floor, 2 s of speech; max_duration 2 s, no prompt carried from
+    # buffer to buffer): each the CPU's result, with the exact counts (K1:
+    # L_enc per encode, all f32 under the f32 policy; K2: 2 L_dec per token
+    # step), counted on the capture runner's worker thread.
+    from whisper_tpu_torch.api.params import Flags
+    from whisper_tpu_torch.audio.capture import CaptureParams
+
+    chunks = chunks_of(np.concatenate([noise_floor(16_000), speechy(16_000 * 4, 0), noise_floor(16_000),
+                                       speechy(16_000 * 2, 2)]))
+    cap_params = CaptureParams(min_duration=1.0, max_duration=2.0)
+    no_context = FullParams(language="en", flags=Flags.NO_CONTEXT)
+    n_enc, n_dec = dims.n_audio_layer, dims.n_text_layer
+    more = {}
+    for device in ("cuda", "cpu"):
+        for name in ("f32 run_full", "bf16 run_capture"):
+            f32 = name.startswith("f32")
+            model = Model(path, policy=DtypePolicy.f32() if f32 else None, device=device)
+            ctx = model.create_context()
+            reset_counts()
+            t0 = time.perf_counter()
+            with counting(model.runtime) as rec:
+                if f32:
+                    res = (None, segs(ctx.run_full(greedy, silence)))
+                else:
+                    buffers, _, result = recorded_capture(ctx, no_context, chunks, cap_params)
+                    res = (buffers, segs(result))
+            sec = time.perf_counter() - t0
+            k1, k2, k2_int8, k2_grouped = read_counts()
+            k1_f32 = k1_f32_count()
+            more[name, device] = res
+            log(f"  {name}, on {device} ({sec:.2f} s): buffers {res[0]}, {res[1]}; {rec.encodes} "
+                f"encode(s), {rec.steps} token steps; launches K1 {k1} ({k1_f32} f32), K2 {k2}")
+            check(res[1] == (want if f32 else want * 2) and (f32 or res[0][:2] == [32_000, 32_000]),
+                  f"scripted {name} on {device}: {res}")
+            if device == "cuda":
+                check(rec.encodes >= 1 and k1 == n_enc * rec.encodes and k1_f32 == (k1 if f32 else 0)
+                      and k2 == 2 * n_dec * rec.steps and k2_int8 == k2_grouped == 0,
+                      f"{name} on the card: K1 {k1} ({k1_f32} f32) / K2 {k2} for {rec.encodes} "
+                      f"encodes and {rec.steps} token steps")
+                out[name] = dict(k1=k1, k1_f32=k1_f32, k2=k2, encodes=rec.encodes, steps=rec.steps, s=sec)
+            else:
+                check(k1 == k2 == 0, f"{name} on the CPU: K1 {k1} / K2 {k2} launches")
+            del model, ctx
+    for name in ("f32 run_full", "bf16 run_capture"):
+        check(more[name, "cuda"] == more[name, "cpu"],
+              f"{name}: card {more[name, 'cuda']} != CPU {more[name, 'cpu']}")
+
     # a small random model: the card's encoder (kernels) against the CPU path
     path = os.path.join(tmp, "random.bin")
     write_checkpoint(path, dims, random_tensors(dims, SEED + 1))
@@ -1028,20 +1260,12 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
     # --- the user's entry point: Context.run_full on a seeded 3 s clip ---
     rng = np.random.default_rng(SEED)
     clip = (0.1 * rng.standard_normal(16_000 * 3)).astype(np.float32)
-    steps = []
-    run_window = model.runtime.run_window
-
-    def counted_run_window(*a, **kw):
-        res = run_window(*a, **kw)
-        steps.append(int(res.steps))
-        return res
-
-    model.runtime.run_window = counted_run_window
     ctx = model.create_context()
     reset_counts()
-    ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), clip))
+    with counting(model.runtime) as rec:
+        ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), clip))
     k1, k2, k2_int8, k2_grouped = read_counts()
-    model.runtime.run_window = run_window
+    steps = rec.window_steps
     log(f"  {tier} run_full (3 s clip): {ms:.1f} ms, {len(steps)} window(s), token steps {steps}, "
         f"{len(res.segments)} segment(s); launches K1 {k1}, K2 {k2} ({k2_int8} on int8 K/V)")
     check(len(steps) >= 1, "run_full decoded no window")
@@ -1182,26 +1406,12 @@ def scheduler_run(model, dims, tier) -> dict:
              for sec in rng.uniform(2.0, 8.0, 12)]
     audio_s = sum(len(c) for c in clips) / 16_000
     rt = model.runtime
-    encode_window, run_window = rt.encode_window, rt.run_window
-    rounds, steps = [], []
-
-    def counted_encode(mel):
-        rounds.append(mel.shape[0])
-        return encode_window(mel)
-
-    def counted_run(*a, **kw):
-        res = run_window(*a, **kw)
-        steps.append(int(res.steps))
-        return res
-
-    rt.encode_window, rt.run_window = counted_encode, counted_run
-    try:
-        bt = BatchTranscriber(model, batch=8)
-        reset_counts()
+    bt = BatchTranscriber(model, batch=8)
+    reset_counts()
+    with counting(rt) as rec:
         ms, results = sync_ms(lambda: bt.transcribe(clips, FullParams(language="en")))
-        k1, k2, k2_int8, k2_grouped = read_counts()
-    finally:
-        rt.encode_window, rt.run_window = encode_window, run_window
+    k1, k2, k2_int8, k2_grouped = read_counts()
+    rounds, steps = rec.widths, rec.window_steps
     n_seg = sum(len(r.segments) for r in results)
     log(f"  {tier} BatchTranscriber(batch=8), 12 clips, {audio_s:.2f} s of audio: {ms:.1f} ms wall, "
         f"{len(rounds)} rounds of width {set(rounds)}, token steps {steps}, "
@@ -1219,6 +1429,77 @@ def scheduler_run(model, dims, tier) -> dict:
                   "scheduler segment out of range")
     return dict(clips=len(clips), audio_s=audio_s, wall_ms=ms, rounds=len(rounds), steps=steps,
                 audio_s_per_s=audio_s / (ms / 1e3), segments=n_seg, k1=k1, k2=k2)
+
+
+def f32_runs(model, dims) -> dict:
+    """DtypePolicy.f32() on the synthetic large-v2 model: Context.run_full
+    on the seeded 3 s clip of ``tier_runs`` (every encoder layer on K1's f32
+    instance: 32 f32 launches a window; K2 2 L_dec a token step), then one
+    encode_window at B=1 timed and profiled."""
+    import torch
+
+    from whisper_tpu_torch.api.params import FullParams
+
+    rt = model.runtime
+    n_enc, n_dec = dims.n_audio_layer, dims.n_text_layer
+    clip = (0.1 * np.random.default_rng(SEED).standard_normal(16_000 * 3)).astype(np.float32)
+    ctx = model.create_context()
+    reset_counts()
+    with counting(rt) as rec:
+        ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), clip))
+    k1, k2, k2_int8, k2_grouped = read_counts()
+    k1_f32 = k1_f32_count()
+    log(f"  f32 run_full (3 s clip): {ms:.1f} ms, {rec.encodes} window(s), {rec.steps} token steps, "
+        f"{len(res.segments)} segment(s); launches K1 {k1} ({k1_f32} f32), K2 {k2}")
+    check(rec.encodes >= 1 and k1 == k1_f32 == n_enc * rec.encodes,
+          f"f32 run_full: K1 {k1} ({k1_f32} f32) != {n_enc} x {rec.encodes} encodes, all f32")
+    check(k2 == 2 * n_dec * rec.steps and k2_int8 == k2_grouped == 0,
+          f"f32 run_full: K2 {k2} != {2 * n_dec} x {rec.steps} token steps")
+    for seg in res.segments:
+        check(seg.t1 >= seg.t0 >= 0 and all(0 <= t.id < dims.n_vocab for t in seg.tokens),
+              "f32 run_full segment out of range")
+    mel = np.zeros((1, dims.n_mels, 2 * dims.n_audio_ctx), np.float32)
+    m = model.mel(clip).cpu().numpy()
+    mel[0, :, : m.shape[1]] = m
+    sync_ms(lambda: rt.encode_window(mel))                                    # warm-up
+    enc_ms, (feats, _) = sync_ms(lambda: rt.encode_window(mel))
+    check(bool(torch.isfinite(feats).all()), "f32 encoder output not finite")
+    log(f"  f32 B=1: encode {enc_ms:.2f} ms/window")
+    bd = breakdown(lambda: rt.encode_window(mel))
+    show_breakdown("f32 B=1 encode, per window", bd)
+    return dict(run_full=dict(ms=ms, windows=rec.encodes, steps=rec.steps, k1=k1, k1_f32=k1_f32, k2=k2,
+                              k2_int8=k2_int8, k2_grouped=k2_grouped),
+                encode_ms=enc_ms, encode_breakdown=bd)
+
+
+def capture_run(model, dims) -> dict:
+    """Context.run_capture on the bf16 tier over a seeded 6 s source (1 s of
+    noise floor, 2 s of speech, 1 s of floor, 2 s of speech) in 100 ms
+    chunks, paced, with the default CaptureParams (buffers of 2-3 s): the
+    buffers, ms per buffer (run_full on the runner's worker thread) and
+    the counts the encodes and token steps imply."""
+    from whisper_tpu_torch.api.params import FullParams
+
+    n_enc, n_dec = dims.n_audio_layer, dims.n_text_layer
+    audio = np.concatenate([noise_floor(16_000, SEED + 3), speechy(16_000 * 2, SEED + 4),
+                            noise_floor(16_000, SEED + 5), speechy(16_000 * 2, SEED + 6)])
+    ctx = model.create_context()
+    reset_counts()
+    t0 = time.perf_counter()
+    with counting(model.runtime) as rec:
+        buffers, ms, res = recorded_capture(ctx, FullParams(language="en"), chunks_of(audio), None)
+    wall = (time.perf_counter() - t0) * 1e3
+    k1, k2, k2_int8, k2_grouped = read_counts()
+    log(f"  bf16 run_capture (6 s source, 100 ms chunks, paced): {wall:.1f} ms wall, buffers "
+        f"{buffers} samples, run_full ms per buffer {[round(x, 1) for x in ms]}, {rec.encodes} "
+        f"encode(s), {rec.steps} token steps, {len(res.segments)} segment(s); launches K1 {k1}, K2 {k2}")
+    check(len(buffers) >= 1 and rec.encodes >= 1, f"run_capture: buffers {buffers}, {rec.encodes} encodes")
+    check(k1 == n_enc * rec.encodes and k1_f32_count() == 0,
+          f"run_capture: K1 {k1} != {n_enc} x {rec.encodes} encodes")
+    check(k2 == 2 * n_dec * rec.steps and k2_int8 == k2_grouped == 0,
+          f"run_capture: K2 {k2} != {2 * n_dec} x {rec.steps} token steps")
+    return dict(wall_ms=wall, buffers=buffers, ms_per_buffer=ms, encodes=rec.encodes, steps=rec.steps,
+                segments=len(res.segments), k1=k1, k2=k2)
 
 
 def stored_bytes(params) -> dict:
@@ -1290,6 +1571,7 @@ def main_path_phase(tmp: str) -> dict:
 
     from whisper_tpu_torch.api.model import load_model
     from whisper_tpu_torch.hparams import KNOWN_MODELS
+    from whisper_tpu_torch.model.params import DtypePolicy
 
     dims = KNOWN_MODELS["large-v2"]
     n_dec, d, t = dims.n_text_layer, dims.n_text_state, dims.n_audio_ctx
@@ -1315,12 +1597,24 @@ def main_path_phase(tmp: str) -> dict:
         stored[tier] = dict(stored_bytes(model.runtime.params),
                             cross_kv_B8=out[tier]["cross_kv_bytes_B8"],
                             cross_scales_B8=out[tier]["cross_scale_bytes_B8"])
+        if tier == "bf16":
+            out["bf16"]["capture"] = capture_run(model, dims)
         if tier == "serving":
             out["serving_passes"] = int8_pass_costs(model.runtime.params, dims,
                                                     model.runtime.compute_dtype)
         del model
         gc.collect()
         torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = load_model(path, policy=DtypePolicy.f32())
+    torch.cuda.synchronize()
+    log(f"  [f32 tier] load_model on {model.device}: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    out["f32"] = f32_runs(model, dims)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     os.remove(path)
 
     # stored bytes, from the shapes: cross K/V [L, 8, HD, T] x2, the decoder's
@@ -1338,6 +1632,51 @@ def main_path_phase(tmp: str) -> dict:
         log(f"  [{tier} tier] stored bytes: " + ", ".join(f"{k} {v:,}" for k, v in stored[tier].items()))
         check(stored[tier] == want[tier], f"{tier} stored bytes {stored[tier]} != {want[tier]}")
     out["stored_bytes"] = stored
+    return out
+
+
+BENCH_TOKENS = 32              # token steps a window in the [bench] phase (the tool's default is 128)
+
+
+def bench_phase(smi: str) -> dict:
+    """The port's bench (whisper_tpu_torch.tools.bench) at large-v2, 4
+    windows single-stream and batch 8, BENCH_TOKENS token steps a window, on
+    the serving tier (the JAX bench's default) and on the bf16 tier; each
+    tier's JSON line printed with the card's name and power limit, and the
+    kernel counts the run implies (K1 L_enc per encode, K2 2 L_dec per
+    token step: warm-up and 2 passes of 4 windows, warm-up and 3 batched
+    rounds)."""
+    import gc
+
+    import torch
+
+    from whisper_tpu_torch.hparams import KNOWN_MODELS
+    from whisper_tpu_torch.tools import bench
+
+    dims = KNOWN_MODELS["large-v2"]
+    out = {}
+    for tier in ("serving", "bf16"):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = bench.run(model="large-v2", tier=tier, decode_tokens=BENCH_TOKENS, windows=4, batch=8)
+        sec = time.perf_counter() - t0
+        k1, k2, k2_int8, k2_grouped = read_counts()
+        encodes = 3 * res["passes"][0]["windows"] + 4
+        line = {k: v for k, v in res.items() if k not in ("passes", "rounds")}
+        print(json.dumps(dict(line, card=smi)), flush=True)
+        log(f"  bench {tier} ({sec:.1f} s): launches K1 {k1}, K2 {k2} ({k2_int8} on int8 K/V) for "
+            f"{encodes} encodes and {encodes * BENCH_TOKENS} token steps")
+        check(k1 == dims.n_audio_layer * encodes and k1_f32_count() == 0,
+              f"bench {tier}: K1 {k1} != {dims.n_audio_layer} x {encodes} encodes")
+        check(k2 == 2 * dims.n_text_layer * BENCH_TOKENS * encodes and k2_grouped == 0
+              and k2_int8 == (k2 if tier == "serving" else 0),
+              f"bench {tier}: K2 {k2} ({k2_int8} int8) for {encodes * BENCH_TOKENS} token steps")
+        check(line["value"] > 0 and line["single_stream_rtf"] > 0, f"bench {tier}: {line}")
+        out[tier] = dict(line=line, passes=res["passes"], rounds=res["rounds"], k1=k1, k2=k2,
+                         k2_int8=k2_int8, seconds=sec)
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1375,6 +1714,7 @@ def main() -> int:
     t0 = time.perf_counter()
     log("[kernels]")
     k1_cases = [flash_case(1, 1500), flash_case(8, 1500), flash_case(8, 1500, contiguous=True)]
+    k1_f32_cases = [flash_f32_case(1, 1500)]
     k2_cases = [decode_case(1, 1500, int8=int8, path="greedy B=1") for int8 in (False, True)]
     k2_cases += [decode_case(8, 1500, int8=int8, path="greedy B=8") for int8 in (False, True)]
     # beam search: the cross K/V of U utterances read by U x 5 query lanes
@@ -1385,6 +1725,8 @@ def main() -> int:
     k2_cases += [decode_case(4, 448, int8=True, empty=True)]
     for c in k1_cases:
         show_case("flash_attention", c)
+    for c in k1_f32_cases:
+        show_case("flash_attention f32", c)
     for c in k2_cases:
         show_case("decode_attention_hd", c)
 
@@ -1402,6 +1744,11 @@ def main() -> int:
         log("[main path] synthetic large-v2")
         main = main_path_phase(tmp)
         phase_s["main path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log(f"[bench] python -m whisper_tpu_torch.tools.bench at large-v2, BENCH_DECODE_TOKENS={BENCH_TOKENS}, "
+        "serving and bf16 tiers")
+    benches = bench_phase(smi.splitlines()[0])
+    phase_s["bench"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # the serving path: beam windows (natural end) per tier and U, and the
@@ -1411,13 +1758,11 @@ def main() -> int:
                   if k.startswith("beam U=")}
     serving_path = dict(beams=beam_paths, scheduler=main["bf16"]["scheduler"], golden=golden)
 
-    def entry(name, source, replaces, cases, key):
+    def entry(name, source, replaces, cases, by_path):
         """``launches``: the kernel's count over the main path's runs, each
-        counted from 0: run_full per tier, the beam windows, the scheduler."""
+        counted from 0: run_full per tier, the beam windows, the scheduler,
+        run_capture, the bench's tiers."""
         head = cases[0]
-        by_path = {f"{tier} run_full": main[tier]["run_full"][key] for tier in ("bf16", "serving")}
-        by_path.update({label: run[key] for label, run in beam_paths.items()})
-        by_path["bf16 scheduler"] = main["bf16"]["scheduler"][key]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path,
                     max_abs_err=max(c["max_abs_err"] for c in cases), ms=head["ms"],
@@ -1425,20 +1770,36 @@ def main() -> int:
                     library_ms=head["library_ms"], device_ms=head["device_ms"],
                     library_device_ms=head["library_device_ms"], shape=head["case"], cases=cases)
 
+    def paths(key):
+        by_path = {f"{tier} run_full": main[tier]["run_full"][key] for tier in ("bf16", "serving")}
+        by_path.update({label: run[key] for label, run in beam_paths.items()})
+        by_path["bf16 scheduler"] = main["bf16"]["scheduler"][key]
+        by_path["bf16 run_capture"] = main["bf16"]["capture"][key]
+        by_path.update({f"{tier} bench": b[key] for tier, b in benches.items()})
+        return by_path
+
+    k2_paths = paths("k2")
+    k2_paths["f32 run_full"] = main["f32"]["run_full"]["k2"]
     k2 = entry("decode_attention_hd", "whisper_tpu_torch/csrc/decode_attention.cu",
-               "whisper_tpu/kernels/decode_attention.py:187", k2_cases, "k2")
-    k2["launches_int8"] = (main["serving"]["run_full"]["k2_int8"]
+               "whisper_tpu/kernels/decode_attention.py:187", k2_cases, k2_paths)
+    k2["launches_int8"] = (main["serving"]["run_full"]["k2_int8"] + benches["serving"]["k2_int8"]
                            + sum(run["k2_int8"] for run in beam_paths.values()))
     k2["launches_grouped"] = sum(run["k2_grouped"] for run in beam_paths.values())
     check(k2["launches_grouped"] > 0, "no grouped K2 launch on the beam path")
     kernels = [
         entry("flash_attention", "whisper_tpu_torch/csrc/flash_attention.cu",
-              "whisper_tpu/kernels/attention.py:90", k1_cases, "k1"),
+              "whisper_tpu/kernels/attention.py:90", k1_cases, paths("k1")),
+        entry("flash_attention_f32", "whisper_tpu_torch/csrc/flash_attention_f32.cu",
+              "whisper_tpu/kernels/attention.py:90", k1_f32_cases,
+              {"f32 run_full": main["f32"]["run_full"]["k1_f32"]}),
         k2,
         *kb_entries,
     ]
+    kernels[1]["library_backend"] = k1_f32_cases[0]["library_backend"]
+    for k in kernels[:3]:
+        check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels, "serving_path": serving_path, "main_path": main,
-                      "kbench": kb_records, "card": smi, "phase_s": phase_s}),
+                      "bench": benches, "kbench": kb_records, "card": smi, "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -105,19 +105,62 @@ def test_cli_golden_speedup_doubles_times(files, capsys):
     assert "[00:00:00.000 --> 00:00:03.840]  hi" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("what", ["capture", "mesh"])
+@pytest.mark.parametrize("what", ["mesh"])
 def test_unported_features_raise(files, what):
     from whisper_tpu_torch.api.model import Model
+
+    scripted, _, _, _ = files
+    with pytest.raises(NotImplementedError, match="mesh"):
+        Model(scripted, mesh=object(), device="cpu")
+
+
+def _capture_audio():
+    """1 s of noise floor, 4 s of speech, a 1 s pause, 2 s of speech, in
+    100 ms chunks (the VAD's adaptive thresholds need silence first)."""
+    from chip_smoke import chunks_of, noise_floor, speechy
+
+    sr = 16_000
+    return chunks_of(np.concatenate([noise_floor(sr), speechy(sr * 4, 0), noise_floor(sr),
+                                     speechy(sr * 2, 2)]))
+
+
+@pytest.mark.parametrize("policy", ["f32", "bf16"])
+def test_run_capture_matches_jax(files, policy):
+    """Context.run_capture over a paced source on the scripted checkpoint,
+    max_duration 2 s (each buffer within the 1.92 s window and the 2.5 s the
+    script holds for) and no prompt carried from buffer to buffer (a carried
+    prompt shifts the script's positions): the buffers handed to run_full
+    and the accumulated segments equal the JAX package's, one " hi" for
+    each of the two 2 s buffers."""
+    from chip_smoke import recorded_capture
+    from whisper_tpu.api.model import Model as JModel
+    from whisper_tpu.api.params import Flags as JFlags
+    from whisper_tpu.api.params import FullParams as JParams
+    from whisper_tpu.audio.capture import CaptureParams as JCaptureParams
+    from whisper_tpu.model.params import DtypePolicy as JPolicy
+    from whisper_tpu_torch.api.model import Model
+    from whisper_tpu_torch.api.params import Flags, FullParams
+    from whisper_tpu_torch.audio.capture import CaptureParams
     from whisper_tpu_torch.model.params import DtypePolicy
 
     scripted, _, _, _ = files
-    if what == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh"):
-            Model(scripted, mesh=object(), device="cpu")
-        return
-    ctx = Model(scripted, policy=DtypePolicy.f32(), device="cpu").create_context()
-    with pytest.raises(NotImplementedError):
-        ctx.run_capture(None, iter([np.zeros(16_000 * 2, np.float32)]))
+    chunks = _capture_audio()
+    out = {}
+    for name, ctx, params, cap in (
+        ("jax", JModel(scripted, policy=getattr(JPolicy, policy, JPolicy)()).create_context(),
+         JParams(language="en", flags=JFlags.NO_CONTEXT), JCaptureParams(min_duration=1.0, max_duration=2.0)),
+        ("torch", Model(scripted, policy=getattr(DtypePolicy, policy, DtypePolicy)(),
+                        device="cpu").create_context(),
+         FullParams(language="en", flags=Flags.NO_CONTEXT),
+         CaptureParams(min_duration=1.0, max_duration=2.0)),
+    ):
+        buffers, _, res = recorded_capture(ctx, params, chunks, cap)
+        out[name] = (buffers, _segments(res))
+    assert out["torch"] == out["jax"]
+    buffers, segments = out["torch"]
+    assert buffers and max(buffers) <= 2.5 * 16_000
+    assert buffers[:2] == [32_000, 32_000]
+    assert segments == [(" hi", 0, 192, SCRIPT[:5])] * 2
 
 
 def test_model_on_cpu_keeps_tensors_on_cpu(files):

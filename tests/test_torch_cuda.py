@@ -8,7 +8,7 @@ On a machine with a card, which need not have JAX (hence no conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: K1 (bf16 output) 2e-2, one bf16 ulp being 7.8e-3 in [1, 2);
-K2 (f32 output from identical inputs) 2e-3, bf16 inputs (int8 K/V with a
+K1's f32 instance 1e-5 x max(1, max |plain|), f32 throughout; K2 (f32 output from identical inputs) 2e-3, bf16 inputs (int8 K/V with a
 bf16 query too), and 1e-5 for f32 inputs, only the f32 summation order
 differing.
 """
@@ -36,6 +36,58 @@ def test_flash_attention_kernel_matches_plain(b, tq, tk):
     assert flash_attention.launches == before + 1
     err = (got.float() - flash_attention_ref(q, k, v).float()).abs().max().item()
     assert err < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,tq,tk,strided",
+    [(1, 1500, 1500, True), (8, 1500, 1500, True), (1, 75, 150, False), (2, 150, 75, True),
+     (1, 1, 1, False), (3, 129, 257, False), (1, 64, 65, True)],
+)
+def test_flash_attention_f32_kernel_matches_plain(b, tq, tk, strided):
+    """K1's f32 instance (DtypePolicy.f32()): large-v2's shape on the strided
+    views the encoder passes, ragged Tq and Tk off the 64-row and 64-key
+    tiles, one row and one key. Tolerance 1e-5 x max(1, max |plain|): f32
+    throughout, only the summation order and expf's rounding differ."""
+    _need_card()
+    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    if strided and tq == tk:
+        q, k, v = torch.randn((b, tq, 20, 3, 64), generator=g, device="cuda").mul(0.5).unbind(3)
+    else:
+        q = torch.randn((b, tq, 20, 64), generator=g, device="cuda").mul(0.5)
+        k, v = torch.randn((2, b, tk, 20, 64), generator=g, device="cuda").mul(0.5)
+        if strided:
+            k, v = torch.stack((k, v), dim=3).unbind(3)
+    before = flash_attention.launches, flash_attention.launches_f32
+    got = flash_attention(q, k, v)
+    assert (flash_attention.launches, flash_attention.launches_f32) == (before[0] + 1, before[1] + 1)
+    want = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, tq, 20, 64)
+    assert bool(torch.isfinite(got).all())
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_refuses_what_it_cannot_read():
+    """16-byte loads: 16-byte aligned bases and strides of 16-byte multiples
+    (4 f32 elements)."""
+    _need_card()
+    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_shape
+
+    x = torch.zeros((1, 16, 2, 64), device="cuda")
+    odd = torch.zeros((1, 16, 2, 66), device="cuda")[..., :64]      # H stride 66 = 264 B
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(odd, x, x)
+    flat = torch.zeros(16 * 2 * 64 + 4, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(x, flat[2:-2].view(1, 16, 2, 64), x)         # base 8 B past an aligned one
+    flash_attention(x, flat[4:].view(1, 16, 2, 64), x)               # 16 B past: taken
+    with pytest.raises(NotImplementedError, match="bf16"):
+        flash_attention_shape(x, x, x, "wide")                       # one shape only in f32
 
 
 def _qkv(g, b, tq, tk, strided):
@@ -287,9 +339,11 @@ def test_kernel_wrappers_refuse_what_they_do_not_take():
     from whisper_tpu_torch.kernels.attention import flash_attention
     from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
 
-    x = torch.zeros((1, 16, 2, 64), device="cuda")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        flash_attention(x, x, x)                                # f32 on the card
+    x = torch.zeros((1, 16, 2, 64), device="cuda", dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):
+        flash_attention(x, x, x)                                # f16 on the card
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):
+        flash_attention(x.float(), x.float(), x.bfloat16())    # mixed dtypes
     y = torch.zeros((1, 16, 2, 32), device="cuda", dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="Dh=64"):
         flash_attention(y, y, y)
@@ -798,3 +852,70 @@ def test_batch_transcriber_on_card_matches_cpu(scripted_path, beam):
     got = {device: _segments(BatchTranscriber(_model(scripted_path, device, "bf16"), batch=4)
                              .transcribe(clips, params)) for device in ("cuda", "cpu")}
     assert got["cuda"] == got["cpu"] == [[(" hi", 0, 192, SCRIPT[:5])]] * 6
+
+
+@pytest.mark.cuda
+def test_run_full_f32_policy_on_card_matches_cpu(scripted_path):
+    """DtypePolicy.f32() through run_full: the encoder runs K1's f32
+    instance (one launch per encoder layer and window), and the card gives
+    the CPU's transcript."""
+    _need_card()
+    import numpy as np
+
+    from whisper_tpu_torch.api.model import Model
+    from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.kernels.attention import flash_attention as k1
+    from whisper_tpu_torch.model.params import DtypePolicy
+
+    audio = np.zeros(16_000 * 2, np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        k1.launches = k1.launches_f32 = 0
+        model = Model(scripted_path, policy=DtypePolicy.f32(), device=device)
+        out[device] = _segments([model.create_context().run_full(FullParams(language="en"), audio)])
+        if device == "cuda":
+            assert k1.launches == k1.launches_f32 == model.dims.n_audio_layer
+        else:
+            assert k1.launches == 0
+    assert out["cuda"] == out["cpu"] == [[(" hi", 0, 192, SCRIPT[:5])]]
+
+
+@pytest.mark.cuda
+def test_run_capture_on_card_matches_cpu(scripted_path):
+    """run_capture over a paced source: run_full runs on the runner's worker
+    thread, where the kernels launch on that thread's current stream; the
+    card gives the CPU's buffers and segments, with K1 and K2 counted from
+    the worker thread (L_enc K1 launches per encode, 2 L_dec K2 per token
+    step). The source is tests/test_torch_capture.py's, from chip_smoke.py
+    (no JAX here)."""
+    _need_card()
+    import numpy as np
+
+    from chip_smoke import chunks_of, counting, noise_floor, recorded_capture, speechy
+    from whisper_tpu_torch.api.model import Model
+    from whisper_tpu_torch.api.params import Flags, FullParams
+    from whisper_tpu_torch.audio.capture import CaptureParams
+    from whisper_tpu_torch.kernels.attention import flash_attention as k1
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+
+    sr = 16_000
+    chunks = chunks_of(np.concatenate([noise_floor(sr), speechy(sr * 4, 0), noise_floor(sr),
+                                       speechy(sr * 2, 2)]))
+    out = {}
+    for device in ("cuda", "cpu"):
+        k1.launches = k2.launches = 0
+        model = Model(scripted_path, device=device)
+        with counting(model.runtime) as rec:
+            buffers, _, res = recorded_capture(
+                model.create_context(), FullParams(language="en", flags=Flags.NO_CONTEXT), chunks,
+                CaptureParams(min_duration=1.0, max_duration=2.0))
+        out[device] = (buffers, _segments([res]))
+        if device == "cuda":
+            assert k1.launches == model.dims.n_audio_layer * rec.encodes and rec.encodes >= 2
+            assert k2.launches == 2 * model.dims.n_text_layer * rec.steps
+        else:
+            assert k1.launches == k2.launches == 0
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0][:2] == [32_000, 32_000]
+    assert out["cuda"][1] == [[(" hi", 0, 192, SCRIPT[:5])] * 2]
+

@@ -48,6 +48,28 @@ SLICE_MODULES = [
     "whisper_tpu_torch.cli.writers",
     "whisper_tpu_torch.cli.main",
     "whisper_tpu_torch.cli.serve",
+    "whisper_tpu_torch.audio",
+    "whisper_tpu_torch.audio.capture",
+    "whisper_tpu_torch.audio.vad",
+    "whisper_tpu_torch.features",
+    "whisper_tpu_torch.features.filters",
+    "whisper_tpu_torch.model",
+    "whisper_tpu_torch.kernels",
+    "whisper_tpu_torch.tools.synthetic",
+    "whisper_tpu_torch.tools.bench",
+    "whisper_tpu_torch.tools.compare_traces",
+    "whisper_tpu_torch.tools.convert_hf_to_ggml",
+    "whisper_tpu_torch.obs.trace",
+    "whisper_tpu_torch.obs.nandebug",
+    "whisper_tpu_torch.obs.logging",
+    "whisper_tpu_torch.api.devices",
+    "whisper_tpu_torch._language_data",
+    "whisper_tpu_torch.api",
+    "whisper_tpu_torch.cli",
+    "whisper_tpu_torch.kernels._build",
+    "whisper_tpu_torch.obs",
+    "whisper_tpu_torch.runtime",
+    "whisper_tpu_torch.tools",
 ]
 
 
@@ -64,6 +86,14 @@ def test_import_leaves_out_jax_and_whisper_tpu():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_every_port_module_is_in_the_import_check():
+    """Each module of the port is imported by the fresh-interpreter check
+    above."""
+    names = {".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+             for p in PORT.rglob("*.py")}
+    assert names <= set(SLICE_MODULES), sorted(names - set(SLICE_MODULES))
 
 
 @pytest.mark.parametrize(

@@ -16,10 +16,9 @@ Times are centiseconds (1 mel frame = 10 ms), the reference's native unit.
 
 Beam search (``runtime/beam.py``), token-level timestamps and segment
 wrapping (``api/timestamps.py``), stereo input with diarization
-(``api/diarize.py``) and streamed input (``run_streamed`` over
-``features/stream.py``) are ported. ``run_capture`` (live capture and VAD)
-is not, and raises ``NotImplementedError`` rather than running something
-else.
+(``api/diarize.py``), streamed input (``run_streamed`` over
+``features/stream.py``) and live capture with VAD (``run_capture`` over
+``audio/capture.py``) are ported.
 """
 
 from __future__ import annotations
@@ -153,10 +152,31 @@ class Context:
         src._pull_until(101)
         return self._run_full_impl(params, src)
 
-    def run_capture(self, params, source, capture_params=None, on_status=None,
-                    should_cancel=None) -> TranscribeResult:
-        raise NotImplementedError("Context.run_capture (live capture) is not ported to "
-                                  "whisper_tpu_torch yet")
+    def run_capture(self, params: Optional[FullParams], source, capture_params=None,
+                    on_status=None, should_cancel=None) -> TranscribeResult:
+        """Real-time capture transcription (runCapture analogue,
+        ContextImpl.capture.cpp:398-429). ``source`` is an iterable of
+        float32 mono chunks @ 16 kHz (e.g. audio.capture.sounddevice_source).
+        Each VAD-segmented buffer is one ``run_full`` on the runner's worker
+        thread; the segments accumulate across buffers."""
+        from whisper_tpu_torch.audio.capture import CaptureParams, CaptureRunner
+
+        params = params or full_default_params()
+        all_segments: list[Segment] = []
+
+        def on_transcribe(pcm: np.ndarray):
+            res = self.run_full(params, pcm)
+            all_segments.extend(res.segments)
+
+        runner = CaptureRunner(
+            on_transcribe,
+            capture_params or CaptureParams(),
+            on_status=on_status,
+            should_cancel=should_cancel,
+        )
+        runner.run(source)
+        self.result_all = all_segments
+        return TranscribeResult(segments=list(all_segments))
 
     # ------------------------------------------------------------------
     # the main loop

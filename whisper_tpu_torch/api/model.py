@@ -7,6 +7,7 @@ device, ``"cuda"`` unless the caller asks for the CPU.
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Optional
 
@@ -67,6 +68,12 @@ class Model:
 
     def string_from_token(self, token_id: int) -> Optional[str]:
         return self.vocab.string(token_id)
+
+    def clone(self) -> "Model":
+        """A second Model over the same weights and runtime: nothing is
+        copied, on the host or on the device (the reference needed D3D
+        shared-resource handles, ModelImpl.cpp:40-60)."""
+        return copy.copy(self)
 
 
 def load_model(

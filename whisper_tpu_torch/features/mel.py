@@ -124,3 +124,10 @@ class LogMelSpectrogram:
         audio = torch.as_tensor(np.asarray(audio, np.float32)).to(self.device)
         lm = self._log_mel(audio)
         return normalize_log_mel(lm) if normalize else lm
+
+
+def log_mel_spectrogram(audio, filters, mode: str = "openai", normalize: bool = True,
+                        device: str | torch.device = "cuda") -> torch.Tensor:
+    """One-shot helper (builds the bases on every call; prefer
+    LogMelSpectrogram)."""
+    return LogMelSpectrogram(np.asarray(filters), mode=mode, device=device)(audio, normalize)

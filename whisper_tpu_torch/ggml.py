@@ -18,7 +18,8 @@ The classic whisper.cpp GGML format, as parsed by the reference loader
 
 This module is pure host-side NumPy; conversion to torch tensors happens in
 ``whisper_tpu_torch.model.params``. It also carries the Slaney mel
-filterbank (``mel_filter_bank``) used to synthesize checkpoints.
+filterbank (``mel_filter_bank``) used to synthesize checkpoints, which
+``whisper_tpu_torch.features.filters`` re-exports.
 """
 
 from __future__ import annotations

@@ -14,8 +14,15 @@ softmax. TMA reads q, k and v in place through their strides, which must be
 multiples of 16 bytes on 16-byte aligned bases; the wrapper refuses
 anything else.
 
+f32 q/k/v (``DtypePolicy.f32()``) go to a second kernel,
+``csrc/flash_attention_f32.cu``: f32 scores, softmax, P and PV on the CUDA
+cores (no tensor-core type holds the f32 tier's 1e-5), K/V tiles of 64 keys
+in shared memory, read through the same strides (16-byte aligned bases and
+strides of 16-byte multiples).
+
 On a CPU tensor ``flash_attention`` runs ``flash_attention_ref``. On a CUDA
-tensor it launches the kernel or raises; it never falls back.
+tensor it launches the kernel of v's dtype (bf16 or f32) or raises; it never
+falls back.
 """
 
 from __future__ import annotations
@@ -35,12 +42,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return attention(q, k, v, compute_dtype=v.dtype).to(v.dtype)
 
 
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     fn = lib.wtt_flash_attention_bf16
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
-                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = _ARGS + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    lib = load_library("flash_attention_f32")
+    fn = lib.wtt_flash_attention_f32
+    fn.argtypes = _ARGS + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -48,9 +66,10 @@ def _lib() -> ctypes.CDLL:
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or len({q.device, k.device, v.device}) != 1:
         raise ValueError("flash_attention: q, k and v must lie on one CUDA device")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+    if not (q.dtype == k.dtype == v.dtype) or v.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(
-            f"flash_attention on CUDA takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}"
+            f"flash_attention on CUDA takes bf16 or f32 q/k/v (all of one dtype), got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}"
         )
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, T, H, Dh]")
@@ -62,8 +81,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.shape[1] == 0 or k.shape[1] == 0:
         raise ValueError(f"flash_attention: empty q or k (Tq {q.shape[1]}, Tk {k.shape[1]})")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        # TMA's tensor map: a 16-byte aligned base, strides of 16-byte multiples
-        if t.stride(3) != 1 or any(s * 2 % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        # TMA's tensor map (bf16) and the 16-byte loads (f32): a 16-byte
+        # aligned base, strides of 16-byte multiples
+        isz = t.element_size()
+        if t.stride(3) != 1 or any(s * isz % 16 for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(
                 f"flash_attention: {name} needs unit stride along Dh, B/T/H strides of "
                 f"16-byte multiples and a 16-byte aligned base (strides {t.stride()}, "
@@ -78,15 +99,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Unmasked fused attention -> [B, Tq, H, Dh] in v.dtype."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v)
+    if v.dtype == torch.float32:
+        return _flash_attention_f32(q, k, v)
     return flash_attention_shape(q, k, v, "auto")
+
+
+def _flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    _check(q, k, v)
+    b, tq, h, dh = q.shape
+    out = torch.empty((b, tq, h, dh), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib_f32().wtt_flash_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, k.shape[1],
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention f32 kernel launch failed: CUDA error {rc}")
+    flash_attention.launches += 1
+    flash_attention.launches_f32 += 1
+    return out
 
 
 def flash_attention_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           shape: str) -> torch.Tensor:
     """The kernel in one block shape: "wide" (two consumer warpgroups,
     128-key tiles), "deep" (three, 64-key tiles) or "auto" (the kernel
-    chooses by the number of blocks per SM), so the choice can be timed."""
+    chooses by the number of blocks per SM), so the choice can be timed.
+    bf16 only: the f32 kernel has one shape."""
     _check(q, k, v)
+    if v.dtype != torch.bfloat16:
+        raise NotImplementedError(f"flash_attention_shape takes bf16 q/k/v, got {v.dtype}")
     b, tq, h, dh = q.shape
     tk = k.shape[1]
     out = torch.empty((b, tq, h, dh), dtype=v.dtype, device=q.device)
@@ -102,3 +144,4 @@ def flash_attention_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.launches_f32 = 0   # of those, launches of the f32 kernel

@@ -192,6 +192,20 @@ def decode_attention_hd(
     return out
 
 
+def decode_attention(
+    q: torch.Tensor,                    # [B, H, Dh] (pre-scaled)
+    k_t: torch.Tensor,                  # [B, H, Dh, S] (pre-scaled)
+    v_t: torch.Tensor,                  # [B, H, Dh, S]
+    valid_len: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Convenience wrapper over decode_attention_hd -> [B, H, Dh] f32."""
+    b, h, dh = q.shape
+    s = k_t.shape[-1]
+    out = decode_attention_hd(q.reshape(b, h * dh, 1), k_t.reshape(b, h * dh, s),
+                              v_t.reshape(b, h * dh, s), h, valid_len)
+    return out.reshape(b, h, dh)
+
+
 decode_attention_hd.launches = 0
 decode_attention_hd.launches_int8 = 0
 decode_attention_hd.launches_grouped = 0

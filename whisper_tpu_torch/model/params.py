@@ -28,7 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from whisper_tpu_torch.ggml import Checkpoint, RawTensor
+from whisper_tpu_torch.config import resolve_device
+from whisper_tpu_torch.ggml import Checkpoint, RawTensor, load_checkpoint
+from whisper_tpu_torch.hparams import ModelDims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -254,9 +256,22 @@ def params_from_numpy(
         t = torch.from_numpy(np.require(arr, np.float32, ["C", "W"]))
         return t.to(device=device, dtype=dt)
 
+    def cast_sub(sub: dict) -> dict:
+        out = {k: cast(k, v) for k, v in sub.items() if k != "blocks"}
+        out["blocks"] = {k: cast(k, v) for k, v in sub["blocks"].items()}
+        return out
+
+    return params_from_tensors({"enc": cast_sub(tree["enc"]), "dec": cast_sub(tree["dec"])})
+
+
+def params_from_tensors(tree: dict) -> WhisperParams:
+    """The modules over a tree of tensors in the JAX layout, blocks stacked
+    [n_layer, ...]: each ``Block`` holds per-layer views of the stacked
+    tensors, which are neither copied nor cast."""
+
     def build(sub: dict, cls):
-        tensors = {k: cast(k, v) for k, v in sub.items() if k != "blocks"}
-        stacked = {k: cast(k, v) for k, v in sub["blocks"].items()}
+        tensors = {k: v for k, v in sub.items() if k != "blocks"}
+        stacked = sub["blocks"]
         n_layer = next(iter(stacked.values())).shape[0]
         blocks = [Block({k: t[i] for k, t in stacked.items()}) for i in range(n_layer)]
         return cls(tensors, blocks)
@@ -297,3 +312,12 @@ def params_from_checkpoint(
     """Build the parameter modules from a loaded checkpoint (int8 decoder
     weights under ``policy.weights_int8``)."""
     return params_from_numpy(host_tree_from_checkpoint(cp), device, policy)
+
+
+def load_params(
+    path: str, policy: DtypePolicy = DtypePolicy(), progress=None,
+    device: str | torch.device = "cuda",
+) -> tuple[ModelDims, WhisperParams, Checkpoint]:
+    """Read a GGML checkpoint and build its parameters on ``device``."""
+    cp = load_checkpoint(path, progress=progress)
+    return cp.dims, params_from_checkpoint(cp, policy, resolve_device(device)), cp

@@ -1,1 +1,2 @@
-"""Observability (phase profiler) of the PyTorch port."""
+"""Observability of the PyTorch port: the phase profiler and device traces,
+tensor traces and their compare, the NaN sanitizer, the logger."""
