@@ -21,10 +21,11 @@ result line:
                 or operations over 989 TFLOP/s); each case's share of the
                 bound and its ratio to the library call. K1 on strided views
                 (as the encoder passes them) and on contiguous tensors; K1's
-                f32 instance (DtypePolicy.f32()) at B=1 on strided f32 views,
-                held to 1e-5 x max(1, max |plain|), bound by the f32 FMA
-                rate (67 TFLOP/s), with SDPA on the same views and the
-                backend SDPA took
+                f32 instance (DtypePolicy.f32()) at B=1 and B=8 on strided
+                f32 views, held to 1e-5 x max(1, max |plain|), bound by the
+                f32 FMA rate (67 TFLOP/s), with SDPA on the same views and
+                the backend SDPA took, and its launch geometry (q rows and
+                threads a block, shared memory, blocks per SM, rounds)
   3b. kbench    the port's microbenchmark of the decode-attention stream
                 (whisper_tpu_torch.tools.kbench, the JAX tool's large-v2
                 defaults B=8 S=1500 HD=1280 H=20 L=32 CS=512): each of its
@@ -414,7 +415,11 @@ def flash_f32_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
+    from whisper_tpu_torch.kernels.attention import (
+        flash_attention,
+        flash_attention_f32_geometry,
+        flash_attention_ref,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     set_bytes = 4 * b * t * h * dh * 4
@@ -448,6 +453,7 @@ def flash_f32_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
         library_ms=event_ms(lib, n, 20),
         library_device_ms=library_device_ms(lib, n, 10),
         library_backend=sdpa_backend(lambda: lib(0)),
+        geometry=flash_attention_f32_geometry(b, h, t),
         bound_ms=max(bound_flops, bound_bytes),
         bound_by="operations" if bound_flops >= bound_bytes else "bytes",
     )
@@ -572,6 +578,9 @@ def show_case(name: str, c: dict) -> None:
         f"{f(c['vs_library_device'])})")
     if "library_backend" in c:
         log(f"    SDPA took {c['library_backend']}")
+    if "geometry" in c:
+        log("    launch geometry: " + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                                             for k, v in c["geometry"].items()))
     if "shape_device_ms" in c:
         log("    device ms by block shape: " + ", ".join(f"{k} {f(v)}" for k, v in
                                                    c["shape_device_ms"].items()))
@@ -1714,7 +1723,7 @@ def main() -> int:
     t0 = time.perf_counter()
     log("[kernels]")
     k1_cases = [flash_case(1, 1500), flash_case(8, 1500), flash_case(8, 1500, contiguous=True)]
-    k1_f32_cases = [flash_f32_case(1, 1500)]
+    k1_f32_cases = [flash_f32_case(1, 1500), flash_f32_case(8, 1500)]
     k2_cases = [decode_case(1, 1500, int8=int8, path="greedy B=1") for int8 in (False, True)]
     k2_cases += [decode_case(8, 1500, int8=int8, path="greedy B=8") for int8 in (False, True)]
     # beam search: the cross K/V of U utterances read by U x 5 query lanes

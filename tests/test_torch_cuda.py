@@ -46,9 +46,9 @@ def test_flash_attention_kernel_matches_plain(b, tq, tk):
 )
 def test_flash_attention_f32_kernel_matches_plain(b, tq, tk, strided):
     """K1's f32 instance (DtypePolicy.f32()): large-v2's shape on the strided
-    views the encoder passes, ragged Tq and Tk off the 64-row and 64-key
-    tiles, one row and one key. Tolerance 1e-5 x max(1, max |plain|): f32
-    throughout, only the summation order and expf's rounding differ."""
+    views the encoder passes, ragged Tq and Tk off the q and key tiles, one
+    row and one key. Tolerance 1e-5 x max(1, max |plain|): f32 throughout,
+    only the summation order and the exponent's rounding differ."""
     _need_card()
     from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
 
@@ -88,6 +88,54 @@ def test_flash_attention_f32_refuses_what_it_cannot_read():
     flash_attention(x, flat[4:].view(1, 16, 2, 64), x)               # 16 B past: taken
     with pytest.raises(NotImplementedError, match="bf16"):
         flash_attention_shape(x, x, x, "wide")                       # one shape only in f32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,tq,tk,scale",
+    [(1, 255, 300, 0.5), (1, 256, 300, 0.5), (2, 257, 300, 0.5), (1, 513, 64, 0.5),
+     (1, 100, 63, 0.5), (1, 100, 65, 0.5), (1, 100, 191, 0.5), (1, 100, 192, 0.5),
+     (1, 100, 193, 0.5), (3, 40, 384, 0.5), (1, 300, 129, 0.5), (1, 1500, 1500, 2.0),
+     (2, 257, 129, 2.0)],
+)
+def test_flash_attention_f32_kernel_tile_edges(b, tq, tk, scale):
+    """The f32 kernel's tiling: Tq at its 256-row q tile +-1 (and two tiles
+    +1), Tk at a 64-key ring stage's end +-1, at the 3-stage ring's 192 +-1
+    and at twice it, fewer tiles than stages (large-v2 at B=8 is a case of
+    the test above); inputs x4 (scores up to ~+-30 and beyond) so the
+    running max is rescaled across tiles and exp2 sees wide arguments.
+    Tolerance 1e-5 x max(1, max |plain|)."""
+    _need_card()
+    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    if tq == tk:
+        q, k, v = torch.randn((b, tq, 20, 3, 64), generator=g, device="cuda").mul(scale).unbind(3)
+    else:
+        q = torch.randn((b, tq, 20, 64), generator=g, device="cuda").mul(scale)
+        k, v = torch.randn((b, tk, 20, 2, 64), generator=g, device="cuda").mul(scale).unbind(3)
+    before = flash_attention.launches_f32
+    got = flash_attention(q, k, v)
+    assert flash_attention.launches_f32 == before + 1
+    want = flash_attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (b, tq, 20, 64) and bool(torch.isfinite(got).all())
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_flash_attention_f32_geometry_fills_the_card():
+    """One block of 256 q rows a SM; large-v2 at B=1 (6 q tiles x 20 heads)
+    is one round on an H100's 132 SMs."""
+    _need_card()
+    from whisper_tpu_torch.kernels.attention import flash_attention_f32_geometry
+
+    geo = flash_attention_f32_geometry(1, 20, 1500)
+    assert geo["rows_per_block"] == 256 and geo["threads"] == 256
+    assert geo["blocks_per_sm"] >= 1 and geo["blocks"] == 120
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert geo["rounds"] == pytest.approx(120 / (geo["blocks_per_sm"] * sms))
 
 
 def _qkv(g, b, tq, tk, strided):

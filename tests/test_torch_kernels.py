@@ -56,6 +56,75 @@ def test_flash_attention_ref_reads_strided_views():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _f32_kernel_mirror(q, k, v):
+    """numpy mirror of csrc/flash_attention_f32.cu's tiling: blocks of 256 q
+    rows, 8 warps of 32; lane (rg, kg) owns rows rg + 4r and keys kg + 8i of
+    each 64-key tile (S), columns 4kg + c and 32 + 4kg + c (P.V); P goes
+    through the warp's buffer in two halves of 32 keys, permuted as
+    P'[row][4kg + t] = P[row][32 * half + kg + 8t], and is read back 4
+    entries at a time as the kernel reads it; the running max is kept in
+    log2 units, keys past Tk are -inf, row sums stay per lane until the end."""
+    b_, tq, h_, dh = q.shape
+    tk = k.shape[1]
+    log2e = np.float32(1.4426950408889634)
+    w, g, kg, r, i = np.ix_(*(range(n) for n in (8, 4, 8, 8, 8)))   # lane (w, g, kg), row r, key i
+    rows = (w * 32 + g + 4 * r)[:, :, 0, :, 0]                      # [w, g, r]
+    keys = (kg + 8 * i)[0, 0, :, 0, :]                              # [kg, i]
+    cols = np.concatenate([4 * np.arange(8)[:, None] + np.arange(4),
+                           32 + 4 * np.arange(8)[:, None] + np.arange(4)], axis=1)  # [kg, c]
+    out = np.zeros_like(q)
+    for b in range(b_):
+        for h in range(h_):
+            for q0 in range(0, tq, 256):
+                qt = np.zeros((256, dh), np.float32)
+                qt[:min(256, tq - q0)] = q[b, q0:q0 + 256, h]
+                o = np.zeros((8, 4, 8, 8, 8), np.float32)       # w, g, kg, r, c
+                m = np.full((8, 4, 8, 8), -np.inf, np.float32)  # w, g, kg, r
+                l = np.zeros((8, 4, 8, 8), np.float32)
+                for k0 in range(0, tk, 64):
+                    kt, vt = (np.zeros((64, dh), np.float32) for _ in range(2))
+                    kt[:min(64, tk - k0)] = k[b, k0:k0 + 64, h]
+                    vt[:min(64, tk - k0)] = v[b, k0:k0 + 64, h]
+                    sc = np.einsum("wgrd,kid->wgkri", qt[rows], kt[keys])
+                    sc = np.where((keys < tk - k0)[None, None, :, None, :], sc, -np.inf)
+                    m_new = np.maximum(m, sc.max(axis=4).max(axis=2, keepdims=True) * log2e)
+                    alpha = np.exp2(m - m_new)
+                    pr = np.exp2(sc * log2e - m_new[..., None]).astype(np.float32)
+                    l = l * alpha + pr.sum(axis=4)
+                    o = o * alpha[..., None]
+                    m = m_new
+                    for half in range(2):
+                        pp = np.full((8, 32, 32), np.nan, np.float32)   # P', as the lanes write it
+                        pp[w, g + 4 * r, 4 * kg + i[..., :4]] = pr[..., 4 * half:4 * half + 4]
+                        for u in range(8):
+                            for t in range(4):
+                                key = 32 * half + u + 8 * t
+                                pf = pp[:, np.arange(4)[:, None] + 4 * np.arange(8), 4 * u + t]
+                                o += pf[:, :, None, :, None] * vt[key][cols][None, None, :, None, :]
+                res = o / l.sum(axis=2, keepdims=True)[..., None]
+                for rr in range(8):
+                    row = q0 + rows[:, :, rr]
+                    ok = row < tq
+                    for kk in range(8):
+                        out[b, row[ok][:, None], h, cols[kk][None, :]] = res[:, :, kk, rr][ok]
+    return out
+
+
+@pytest.mark.parametrize("b,tq,tk,h,scale", [(1, 257, 129, 2, 0.3), (2, 40, 65, 1, 1.2)])
+def test_flash_attention_f32_tiling_matches_pallas(b, tq, tk, h, scale):
+    """The f32 CUDA kernel's tiling, lane ownership, permuted P buffer and
+    log2-unit online softmax, mirrored in numpy, against the Pallas kernel
+    (interpret): two q tiles with a row past the first, a last key tile of
+    1 key, a large-score case (x4). Tolerance 1e-5 x max(1, max |ref|)."""
+    from whisper_tpu.kernels.attention import flash_attention as jax_flash
+
+    q, k, v = (x * np.float32(scale / 0.3) for x in _flash_inputs(3, b, tq, tk, h, 64))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                q_blk=32, interpret=True))
+    got = _f32_kernel_mirror(q, k, v)
+    assert np.max(np.abs(got - want)) <= TOL * max(1.0, float(np.abs(want).max()))
+
+
 def _decode_inputs(seed, b, u, h, dh, s):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, h * dh, 1)).astype(np.float32) * 0.3

@@ -16,9 +16,12 @@ anything else.
 
 f32 q/k/v (``DtypePolicy.f32()``) go to a second kernel,
 ``csrc/flash_attention_f32.cu``: f32 scores, softmax, P and PV on the CUDA
-cores (no tensor-core type holds the f32 tier's 1e-5), K/V tiles of 64 keys
-in shared memory, read through the same strides (16-byte aligned bases and
-strides of 16-byte multiples).
+cores (no tensor-core type holds the f32 tier's 1e-5). Blocks of 256 q rows,
+8 warps whose lanes compute 8 x 8 register tiles from broadcast
+shared-memory reads, 64-key K/V tiles streamed by every thread's cp.async
+into a 3-stage mbarrier ring, read through the same strides (16-byte
+aligned bases and strides of 16-byte multiples);
+``flash_attention_f32_geometry`` reports its launch geometry.
 
 On a CPU tensor ``flash_attention`` runs ``flash_attention_ref``. On a CUDA
 tensor it launches the kernel of v's dtype (bf16 or f32) or raises; it never
@@ -60,6 +63,9 @@ def _lib_f32() -> ctypes.CDLL:
     fn = lib.wtt_flash_attention_f32
     fn.argtypes = _ARGS + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    geo = lib.wtt_flash_attention_f32_geometry
+    geo.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    geo.restype = ctypes.c_int
     return lib
 
 
@@ -118,6 +124,21 @@ def _flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     flash_attention.launches += 1
     flash_attention.launches_f32 += 1
     return out
+
+
+def flash_attention_f32_geometry(b: int, h: int, tq: int) -> dict:
+    """The f32 kernel's launch for [B, Tq, H, 64] on the current card: q rows
+    and threads a block, dynamic shared memory, blocks per SM (the card's
+    occupancy), the grid's blocks and its rounds over the card's SMs."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    rc = _lib_f32().wtt_flash_attention_f32_geometry(*(ctypes.byref(x) for x in vals))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention f32 geometry query failed: CUDA error {rc}")
+    rows, threads, smem, per_sm = (x.value for x in vals)
+    blocks = -(-tq // rows) * b * h
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return dict(rows_per_block=rows, threads=threads, smem_bytes=smem, blocks_per_sm=per_sm,
+                blocks=blocks, rounds=blocks / (per_sm * sms) if per_sm else None)
 
 
 def flash_attention_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
