@@ -68,13 +68,27 @@ result line:
                 tier (load_model), then the serving tier (load_model with
                 DtypePolicy.serving(), runtime with kv_int8=True). Each runs
                 Context.run_full on a seeded 3 s clip, then the runtime's
-                encode_window + run_window(force_steps=128) at B=1 and B=8.
+                encode_window + run_window at B=1 and B=8, with
+                force_steps=128 and to its natural end: the token step
+                replayed as a CUDA graph (the path), then the same window on
+                the eager step, which must give an identical WindowResult.
                 Every kernel counter is set to 0 right before each of these
                 and must show the launches the path implies (32 encoder
                 layers per encode, 2 x 32 decoder layers per token step, all
-                of them on int8 K/V in the serving tier). After each timed
-                run, one profiled run splits the card's time by kernel group
-                and gives the idle share. The serving tier also checks the
+                of them on int8 K/V in the serving tier; a replay adds what
+                its capture recorded). Graph and eager ms per token step,
+                the host's cost of the loop's read of ``stop`` per step
+                (replays with and without it), each graph slot's bytes and
+                capture + instantiate ms, the tier's peak device memory.
+                After the timed runs, profiled runs split the card's time by
+                kernel group and give the idle share, for the encode and for
+                the eager and the graph step (whether the trace lists the
+                graph's kernels is logged). Beam 5 (U=1, U=8; serving U=8)
+                runs on the graphs, natural and forced, and its natural
+                window again on the eager step (identical winners); at the
+                largest U the cache reorder's cost by the columns it moves.
+                The scheduler and f32 run_full run on the graphs and again
+                on the eager step (the same segments). The serving tier also checks the
                 bytes it stores (int8 cross K/V, decoder weights, token
                 table) and profiles the two passes XLA fused and eager
                 PyTorch does not: int8 -> bf16 weight conversion and the
@@ -88,7 +102,8 @@ result line:
                 on the serving tier (the JAX bench's default) and the bf16
                 tier, BENCH_TOKENS token steps a window: each tier's JSON
                 line with the card's name and power limit, and the exact
-                K1/K2 counts of its encodes and token steps
+                K1/K2 counts of its encodes and token steps; its first
+                window at B=1 and at B=8 again on the eager step (identical)
   6. report     one JSON line of every kernel's numbers (with the serving
                 path's in ``serving_path``, the bench's in ``bench``), then
                 the result line
@@ -118,6 +133,7 @@ L2_BYTES = 50 * 2**20
 FORCE_STEPS = 128
 PROFILE_STEPS = 16             # decode steps under the profiler (the trace stays small)
 BEAM = 5                       # beam width of the beam-search runs
+GAP_STEPS = 64                 # replays a pass when timing the loop's read of `stop`
 
 
 def log(msg: str) -> None:
@@ -300,14 +316,16 @@ def breakdown(fn) -> dict:
     busy = sum(groups.values())
     top = sorted(names.items(), key=lambda kv: -kv[1])[:6]
     return dict(wall_ms=wall_ms, busy_ms=busy, idle_share=max(0.0, 1.0 - busy / wall_ms),
-                launches=n, groups_ms=groups, top_kernels_ms=dict(top))
+                launches=n, groups_ms=groups, top_kernels_ms=dict(top),
+                profile_s=time.perf_counter() - t0)
 
 
 def show_breakdown(label: str, bd: dict, per: int = 1) -> None:
     parts = ", ".join(f"{k} {v / per:.3f}" for k, v in sorted(bd["groups_ms"].items(),
                                                               key=lambda kv: -kv[1]))
     log(f"  {label}: busy {bd['busy_ms'] / per:.3f} ms of {bd['wall_ms'] / per:.3f} ms wall "
-        f"(profiler on; idle share {bd['idle_share']:.3f}), {bd['launches'] / per:.0f} kernels; {parts}")
+        f"(profiler on; idle share {bd['idle_share']:.3f}), {bd['launches'] / per:.0f} kernels; {parts} "
+        f"[{bd['profile_s']:.1f} s with the trace's processing]")
     log("    top kernels: " + "; ".join(f"{k} {v / per:.3f}" for k, v in bd["top_kernels_ms"].items()))
     check(bd["launches"] > 0, f"{label}: the profiler saw no kernel on the card")
 
@@ -933,14 +951,127 @@ def k1_f32_count() -> int:
     return counters()[0].launches_f32
 
 
-class counting:
-    """Records a runtime's encodes (their batch widths, ``widths``) and each
-    window's token steps (``window_steps``) while in the ``with`` block, from
-    whichever thread calls it (run_capture's worker too): the K1 and K2
-    launches a run implies are L_enc per encode and 2 L_dec per token step."""
+def saved_counts() -> tuple:
+    k1, k2 = counters()
+    return k1.launches, k1.launches_f32, k2.launches, k2.launches_int8, k2.launches_grouped
+
+
+def restore_counts(saved: tuple) -> None:
+    k1, k2 = counters()
+    (k1.launches, k1.launches_f32, k2.launches, k2.launches_int8, k2.launches_grouped) = saved
+
+
+class eager:
+    """Within the block the runtime ``rt`` runs its token steps eagerly,
+    launch by launch (``cuda_graphs=False``): the plain version that the
+    replayed graphs are held against."""
 
     def __init__(self, rt):
-        self.rt, self.widths, self.window_steps = rt, [], []
+        self.rt = rt
+
+    def __enter__(self):
+        self.rt.cuda_graphs = False
+        return self.rt
+
+    def __exit__(self, *exc):
+        self.rt.cuda_graphs = True
+
+
+def same_window(a, b) -> bool:
+    """Every array of two WindowResults equal, bit for bit."""
+    import torch
+
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def graph_slot(rt, kind: str, lanes: int):
+    """The runtime's one slot of a ``kind`` loop over ``lanes`` lanes."""
+    slots = [s for key, s in rt.graphs.slots.items() if key[:2] == (kind, lanes)]
+    check(len(slots) == 1, f"{len(slots)} {kind} slots of {lanes} lanes")
+    return slots[0]
+
+
+def slot_record(slot) -> dict:
+    """What one slot holds: its static tensors' bytes, the bytes of its
+    graphs' memory pool, and each captured step's capture + instantiate ms
+    and replays."""
+    return dict(static_bytes=slot.nbytes, pool_bytes=slot.pool_bytes(),
+                steps={str(k): dict(capture_ms=v.capture_ms, replays=v.replays,
+                                    k2_per_replay=v.launches[2])
+                       for k, v in slot.steps.items()})
+
+
+def show_slot(label: str, rec: dict) -> None:
+    caps = ", ".join(f"{k} {v['capture_ms']:.1f} ms" for k, v in rec["steps"].items())
+    log(f"  {label} graph slot: {rec['static_bytes'] / 1e9:.3f} GB of static tensors + "
+        f"{rec['pool_bytes'] / 1e9:.3f} GB of graph pool; capture + instantiate per step key: {caps}")
+
+
+def read_gap_ms(slot, key: tuple, n: int) -> dict:
+    """The host's cost of the loop's read of ``stop``: ``run_steps`` over
+    ``n`` replays of the slot's captured step ``key`` with no read, with a
+    read after every step, and with the read one step behind (what the
+    loop does on graphs), in turns twice each, ms per step (the least of
+    the two). Its flag is never set in ``n`` steps, so every pass runs
+    ``n``. They run over the slot's state with its counter set to 0, so no
+    replay writes past the cache (the next window resets the state); their
+    kernel counts are taken back."""
+    import torch
+
+    from whisper_tpu_torch.runtime.decode import run_steps
+
+    st, step = slot.state, slot.steps[key]
+    check(key[2] == 0 or key[2] > n, f"the step of {key} would set its flag within {n} steps")
+    saved = saved_counts()
+    modes = {"no read": dict(force_steps=n), "read each step": dict(force_steps=0),
+             "read one behind": dict(force_steps=0, behind=True)}
+    ms = {m: [] for m in modes}
+    for mode in [*modes, *reversed(modes)]:
+        with torch.inference_mode():          # the slot's tensors are inference tensors
+            st.i.zero_()
+            st.stop.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps = run_steps(lambda _: step(), st.stop, n, **modes[mode])
+            torch.cuda.synchronize()
+        ms[mode].append((time.perf_counter() - t0) * 1e3 / n)
+        check(steps == n, f"{mode}: {steps} of {n} steps")
+    restore_counts(saved)
+    best = {m: min(v) for m, v in ms.items()}
+    return dict(ms_per_step=best, gap_each_ms=best["read each step"] - best["no read"],
+                gap_behind_ms=best["read one behind"] - best["no read"])
+
+
+def show_graph_breakdown(label: str, bd: dict, per: int, want_kernels: int) -> None:
+    """show_breakdown for replayed graphs: whether the profiler's trace
+    lists the graph's kernels (``want_kernels`` a step); a trace without
+    them gives no device time (logged, not failed)."""
+    listed = bd["launches"] / per
+    log(f"  {label}: the trace lists {listed:.0f} kernels a step of the {want_kernels} the "
+        f"eager step launches" + ("" if listed else " (graph kernels not traced: no device time)"))
+    if listed:
+        show_breakdown(label, bd, per)
+
+
+def launched(rt, fn):
+    """(result of ``fn()``, the token steps the card ran for it): the
+    runtime's replays when it replays its steps (a window that ends before
+    its cap runs one more, frozen, step: its flag is read one step behind),
+    else the window's ``steps``."""
+    before = rt.graphs.replays()
+    res = fn()
+    return res, (rt.graphs.replays() - before) if rt.replays else int(res.steps)
+
+
+class counting:
+    """Records a runtime's encodes (their batch widths, ``widths``) and each
+    window's token steps (``window_steps``) and the steps the card ran for
+    it (``window_launched``, ``launched``) while in the ``with`` block, from
+    whichever thread calls it (run_capture's worker too): the K1 and K2
+    launches a run implies are L_enc per encode and 2 L_dec per step run."""
+
+    def __init__(self, rt):
+        self.rt, self.widths, self.window_steps, self.window_launched = rt, [], [], []
 
     @property
     def encodes(self) -> int:
@@ -950,6 +1081,10 @@ class counting:
     def steps(self) -> int:
         return sum(self.window_steps)
 
+    @property
+    def launched(self) -> int:
+        return sum(self.window_launched)
+
     def __enter__(self):
         encode, run = self.rt.encode_window, self.rt.run_window
 
@@ -958,8 +1093,9 @@ class counting:
             return encode(mel)
 
         def counted_run(*a, **kw):
-            res = run(*a, **kw)
+            res, n = launched(self.rt, lambda: run(*a, **kw))
             self.window_steps.append(int(res.steps))
+            self.window_launched.append(n)
             return res
 
         self.rt.encode_window, self.rt.run_window = counted_encode, counted_run
@@ -1215,14 +1351,15 @@ def golden_phase(tmp: str) -> dict:
             k1_f32 = k1_f32_count()
             more[name, device] = res
             log(f"  {name}, on {device} ({sec:.2f} s): buffers {res[0]}, {res[1]}; {rec.encodes} "
-                f"encode(s), {rec.steps} token steps; launches K1 {k1} ({k1_f32} f32), K2 {k2}")
+                f"encode(s), {rec.steps} token steps ({rec.launched} run); launches K1 {k1} ({k1_f32} "
+                f"f32), K2 {k2}")
             check(res[1] == (want if f32 else want * 2) and (f32 or res[0][:2] == [32_000, 32_000]),
                   f"scripted {name} on {device}: {res}")
             if device == "cuda":
                 check(rec.encodes >= 1 and k1 == n_enc * rec.encodes and k1_f32 == (k1 if f32 else 0)
-                      and k2 == 2 * n_dec * rec.steps and k2_int8 == k2_grouped == 0,
+                      and k2 == 2 * n_dec * rec.launched and k2_int8 == k2_grouped == 0,
                       f"{name} on the card: K1 {k1} ({k1_f32} f32) / K2 {k2} for {rec.encodes} "
-                      f"encodes and {rec.steps} token steps")
+                      f"encodes and {rec.launched} token steps run")
                 out[name] = dict(k1=k1, k1_f32=k1_f32, k2=k2, encodes=rec.encodes, steps=rec.steps, s=sec)
             else:
                 check(k1 == k2 == 0, f"{name} on the CPU: K1 {k1} / K2 {k2} launches")
@@ -1248,11 +1385,15 @@ def golden_phase(tmp: str) -> dict:
 
 def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = False) -> dict:
     """One tier on the synthetic large-v2 model: Context.run_full on a
-    seeded 3 s clip, then encode_window + run_window(force_steps=128) at B=1
-    and B=8, each with its kernel counts, then a profiled run of each; at
-    the B in ``beam_units``, beam search (``beam_runs``) over the same cross
-    K/V with U = B; with ``scheduler``, the BatchTranscriber
-    (``scheduler_run``). Every tier gets the same seeded inputs."""
+    seeded 3 s clip, then encode_window and run_window at B=1 and B=8, with
+    force_steps=128 and to its natural end, each on the replayed graph and
+    on the eager step (identical WindowResults and kernel counts; ms per
+    token step of each), the host's cost of the read of ``stop`` per step,
+    a profiled run of the encode and of each step, and what the graph slot
+    holds; at the B in ``beam_units``, beam search (``beam_runs``) over the
+    same cross K/V with U = B; with ``scheduler``, the BatchTranscriber
+    (``scheduler_run``); the tier's peak device memory. Every tier gets the
+    same seeded inputs."""
     import torch
 
     from whisper_tpu_torch.api.params import FullParams
@@ -1260,6 +1401,7 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
     n_enc, n_dec = dims.n_audio_layer, dims.n_text_layer
     int8 = model.runtime.kv_int8
     out = {}
+    torch.cuda.reset_peak_memory_stats()
 
     def check_k2(label, k2, k2_int8, want, k2_grouped=0):
         check(k2 == want and k2_int8 == (k2 if int8 else 0) and k2_grouped == 0,
@@ -1275,11 +1417,12 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
         ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), clip))
     k1, k2, k2_int8, k2_grouped = read_counts()
     steps = rec.window_steps
-    log(f"  {tier} run_full (3 s clip): {ms:.1f} ms, {len(steps)} window(s), token steps {steps}, "
-        f"{len(res.segments)} segment(s); launches K1 {k1}, K2 {k2} ({k2_int8} on int8 K/V)")
+    log(f"  {tier} run_full (3 s clip): {ms:.1f} ms, {len(steps)} window(s), token steps {steps} "
+        f"({rec.window_launched} run), {len(res.segments)} segment(s); launches K1 {k1}, K2 {k2} "
+        f"({k2_int8} on int8 K/V)")
     check(len(steps) >= 1, "run_full decoded no window")
     check(k1 == n_enc * len(steps), f"K1 launches {k1} != {n_enc} x {len(steps)} encodes")
-    check_k2("run_full", k2, k2_int8, 2 * n_dec * sum(steps), k2_grouped)
+    check_k2("run_full", k2, k2_int8, 2 * n_dec * rec.launched, k2_grouped)
     for seg in res.segments:
         check(seg.t1 >= seg.t0 >= 0 and all(0 <= t.id < dims.n_vocab for t in seg.tokens),
               "run_full segment out of range")
@@ -1287,6 +1430,7 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
 
     # --- the runtime at B=1 and B=8: encode ms, decode ms per token step ---
     rt = model.runtime
+    peaks = []
     for b in (1, 8):
         audio = rng.standard_normal((b, 16_000 * 30)).astype(np.float32) * 0.1
         mel = np.stack([model.mel(a).cpu().numpy()[:, : 2 * dims.n_audio_ctx]
@@ -1306,49 +1450,100 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
         check(tuple(cross.k.shape) == (n_dec, b, dims.n_text_state, dims.n_audio_ctx), f"B={b}: cross K/V")
         check(cross.k.dtype == (torch.int8 if int8 else rt.compute_dtype), f"B={b}: cross K/V dtype")
 
-        sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end, force_steps=8))  # warm-up
-        reset_counts()
-        dec_ms, win = sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end,
-                                                    force_steps=FORCE_STEPS))
-        k1, k2, k2_int8, k2_grouped = read_counts()
-        check(int(win.steps) == FORCE_STEPS, f"B={b}: {int(win.steps)} steps")
-        check(k1 == 0, f"B={b}: K1 launched {k1} times in decode")
-        check_k2(f"B={b} decode", k2, k2_int8, 2 * n_dec * FORCE_STEPS, k2_grouped)
-        tok = win.tokens.cpu()
-        check(bool(((tok >= 0) & (tok < dims.n_vocab)).all()) and bool(torch.isfinite(win.p).all())
-              and bool(((win.p >= 0) & (win.p <= 1)).all()), f"B={b}: window tokens/probabilities")
-        log(f"  {tier} B={b}: encode {enc_ms:.2f} ms/window; decode {dec_ms / FORCE_STEPS:.3f} ms/token "
-            f"step ({FORCE_STEPS} steps, {dec_ms:.1f} ms incl. prompt ingest); launches K2 {k2} "
-            f"({k2_int8} on int8 K/V)")
+        def window(force=FORCE_STEPS, ends=seek_end):
+            return rt.run_window(prompt, plen, cross, seek, ends, force_steps=force)
+
+        # the window on the replayed graph (its first window captures the
+        # step), then the same window on the eager step: identical, with the
+        # same K2 counts; forced, then to its natural end (seek_end past the
+        # audio, so only EOT, the rules and the cap end a lane)
+        natural_end = np.full(b, 10**6, np.int32)
+        runs = {}
+        for label, force, ends in (("forced", FORCE_STEPS, seek_end), ("natural", 0, natural_end)):
+            sync_ms(lambda: window(force, ends))                            # warm-up: capture
+            for mode in ("graph", "eager"):
+                reset_counts()
+                if mode == "graph":
+                    ms, (win, run) = sync_ms(lambda: launched(rt, lambda: window(force, ends)))
+                else:
+                    with eager(rt):
+                        ms, (win, run) = sync_ms(lambda: launched(rt, lambda: window(force, ends)))
+                k1, k2, k2_int8, k2_grouped = read_counts()
+                steps = int(win.steps)
+                check(steps == force if force else 1 <= steps <= rt.n_max_steps,
+                      f"B={b} {label} {mode}: {steps} steps")
+                # a read one step behind runs one frozen step past a natural end before the cap
+                check(run == steps + (mode == "graph" and steps < (force or rt.n_max_steps)),
+                      f"B={b} {label} {mode}: {run} steps run for {steps}")
+                check(k1 == 0, f"B={b}: K1 launched {k1} times in decode")
+                check_k2(f"B={b} {label} decode ({mode})", k2, k2_int8, 2 * n_dec * run, k2_grouped)
+                tok = win.tokens.cpu()
+                check(bool(((tok >= 0) & (tok < dims.n_vocab)).all()) and bool(torch.isfinite(win.p).all())
+                      and bool(((win.p >= 0) & (win.p <= 1)).all()), f"B={b}: window tokens/probabilities")
+                runs[label, mode] = dict(ms=ms, steps=steps, run=run, ms_per_step=ms / steps, k2=k2,
+                                         k2_int8=k2_int8, win=win)
+            g, e = runs[label, "graph"], runs[label, "eager"]
+            check(same_window(g.pop("win"), e.pop("win")),
+                  f"{tier} B={b} {label}: the graph's WindowResult differs from the eager step's")
+            log(f"  {tier} B={b} decode, {label} ({g['steps']} steps): graph {g['ms_per_step']:.3f} "
+                f"ms/token step, eager {e['ms_per_step']:.3f} ({g['ms']:.1f} / {e['ms']:.1f} ms incl. "
+                f"prompt ingest); identical WindowResults; launches K2 {g['k2']} ({g['k2_int8']} on "
+                f"int8 K/V) each")
+        slot = graph_slot(rt, "greedy", b)
+        gap = read_gap_ms(slot, (0, False, FORCE_STEPS), GAP_STEPS)
+        step_ms = gap["ms_per_step"]["no read"]
+        log(f"  {tier} B={b} the loop's read of `stop`, ms per replayed step: " + ", ".join(
+            f"{m} {v:.4f}" for m, v in gap["ms_per_step"].items()) + f"; a read each step costs "
+            f"{gap['gap_each_ms'] * 1e3:.1f} us ({gap['gap_each_ms'] / step_ms:.2%} of the step), one "
+            f"behind {gap['gap_behind_ms'] * 1e3:.1f} us ({gap['gap_behind_ms'] / step_ms:.2%})")
+        sync_ms(lambda: window(PROFILE_STEPS))                                 # warm-up: capture
         bd_enc = breakdown(lambda: rt.encode_window(mel))
         show_breakdown(f"{tier} B={b} encode, per window", bd_enc)
-        bd_dec = breakdown(lambda: rt.run_window(prompt, plen, cross, seek, seek_end,
-                                                 force_steps=PROFILE_STEPS))
-        show_breakdown(f"{tier} B={b} decode, per token step ({PROFILE_STEPS} steps)", bd_dec,
+        bd_dec = breakdown(lambda: window(PROFILE_STEPS))
+        with eager(rt):
+            bd_eager = breakdown(lambda: window(PROFILE_STEPS))
+        show_breakdown(f"{tier} B={b} eager decode, per token step ({PROFILE_STEPS} steps)", bd_eager,
                        PROFILE_STEPS)
-        out[f"B{b}"] = dict(encode_ms=enc_ms, decode_ms_per_step=dec_ms / FORCE_STEPS, k2=k2,
-                            k2_int8=k2_int8, encode_breakdown=bd_enc, decode_breakdown=bd_dec,
-                            decode_breakdown_steps=PROFILE_STEPS)
+        show_graph_breakdown(f"{tier} B={b} graph decode, per token step ({PROFILE_STEPS} steps)", bd_dec,
+                             PROFILE_STEPS, round(bd_eager["launches"] / PROFILE_STEPS))
+        slot_rec = slot_record(slot)
+        show_slot(f"{tier} B={b} greedy", slot_rec)
+        out[f"B{b}"] = dict(encode_ms=enc_ms, decode_ms_per_step=runs["forced", "graph"]["ms_per_step"],
+                            eager_decode_ms_per_step=runs["forced", "eager"]["ms_per_step"],
+                            k2=runs["forced", "graph"]["k2"], k2_int8=runs["forced", "graph"]["k2_int8"],
+                            runs={f"{k[0]} {k[1]}": v for k, v in runs.items()}, read_gap=gap,
+                            graph_slot=slot_rec, encode_breakdown=bd_enc, decode_breakdown=bd_dec,
+                            eager_decode_breakdown=bd_eager, decode_breakdown_steps=PROFILE_STEPS)
         if b in beam_units:
+            peaks.append(torch.cuda.max_memory_allocated())
             out[f"beam U={b}"] = beam_runs(rt, dims, tier, prompt, plen, cross, seek, seek_end,
                                            profile=b == max(beam_units))
+            peaks += [v["peak_bytes"] for v in out[f"beam U={b}"].values()
+                      if isinstance(v, dict) and "peak_bytes" in v]
     out["cross_kv_bytes_B8"] = cross.k.nbytes + cross.v.nbytes
     out["cross_scale_bytes_B8"] = (cross.k_s.nbytes + cross.v_s.nbytes) if int8 else 0
     del feats, cross
     if scheduler:
         out["scheduler"] = scheduler_run(model, dims, tier)
+    out["max_memory_allocated"] = max(peaks + [torch.cuda.max_memory_allocated()])
+    log(f"  [{tier} tier] torch.cuda.max_memory_allocated(): {out['max_memory_allocated'] / 1e9:.2f} GB "
+        f"(the graphs' slots: " + ", ".join(
+            f"{'/'.join(map(str, k[:2]))} {(s.nbytes + s.pool_bytes()) / 1e9:.3f}"
+            for k, s in rt.graphs.slots.items()) + " GB)")
     return out
 
 
 def beam_runs(rt, dims, tier, prompt, plen, cross, seek, seek_end, profile: bool) -> dict:
     """Beam search (width BEAM) at U = prompt's rows over the cross K/V of
     the greedy runs, [L, U, HD, T], handed to the loop as it is (never
-    broadcast per beam): a window to its natural end, then one of
-    FORCE_STEPS steps, each with its kernel counts (K2: 2L a step, L of
-    them grouped; all on int8 K/V on the serving tier; no K1) and the peak
-    memory it adds, which must stay under the bytes of a per-beam
-    broadcast of the cross K/V; with ``profile``, one profiled window of
-    PROFILE_STEPS steps."""
+    broadcast per beam), on the replayed graphs: a window to its natural
+    end, then one of FORCE_STEPS steps, each with its kernel counts (K2: 2L
+    a step, L of them grouped; all on int8 K/V on the serving tier; no K1)
+    and the peak memory it adds, which must stay under the bytes of a
+    per-beam broadcast of the cross K/V; then the natural window on the
+    eager step, which must give the same winners, window rules and counts.
+    With ``profile``: one profiled window of PROFILE_STEPS steps on each,
+    and the cost of the cache reorder by the columns it moves."""
     import torch
 
     from whisper_tpu_torch.api.params import FullParams, SamplingStrategy
@@ -1366,41 +1561,95 @@ def beam_runs(rt, dims, tier, prompt, plen, cross, seek, seek_end, profile: bool
         return decode_window_beam(rt, params, prompt, plen, cross, seek, seek_end,
                                   force_steps=force_steps)
 
-    sync_ms(lambda: window(8))                                                   # warm-up
+    sync_ms(lambda: window())                                  # warm-up: every range's capture
     out = dict(u=u, lanes=u * BEAM, cross_kv_bytes=cross_bytes, broadcast_bytes=broadcast)
-    for label, force in (("natural", 0), ("forced", FORCE_STEPS)):
+    wins = {}
+    for label, force, mode in (("natural", 0, "graph"), ("forced", FORCE_STEPS, "graph"),
+                               ("natural", 0, "eager")):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        ms, res = sync_ms(lambda: window(force))
+        if mode == "graph":
+            ms, (res, run) = sync_ms(lambda: launched(rt, lambda: window(force)))
+        else:
+            with eager(rt):
+                ms, (res, run) = sync_ms(lambda: launched(rt, lambda: window(force)))
         k1, k2, k2_int8, k2_grouped = read_counts()
         extra = torch.cuda.max_memory_allocated() - base
         steps = int(res.steps)
-        log(f"  {tier} beam {BEAM} U={u} ({u * BEAM} lanes), {label}: {steps} steps, {ms:.1f} ms, "
-            f"{ms / steps:.3f} ms/beam step; launches K1 {k1}, K2 {k2} ({k2_grouped} grouped, "
-            f"{k2_int8} on int8 K/V); peak extra memory {extra / 1e9:.3f} GB (a per-beam "
+        log(f"  {tier} beam {BEAM} U={u} ({u * BEAM} lanes), {label}, {mode}: {steps} steps ({run} "
+            f"run), {ms:.1f} ms, {ms / steps:.3f} ms/beam step; launches K1 {k1}, K2 {k2} ({k2_grouped} "
+            f"grouped, {k2_int8} on int8 K/V); peak extra memory {extra / 1e9:.3f} GB (a per-beam "
             f"broadcast of the cross K/V: {broadcast / 1e9:.3f} GB)")
         check(steps >= 1 and (steps == force if force else steps <= rt.n_max_steps),
               f"beam U={u} {label}: {steps} steps")
+        check(run == steps + (mode == "graph" and steps < (force or rt.n_max_steps)),
+              f"beam U={u} {label} {mode}: {run} steps run for {steps}")
         check(k1 == 0, f"beam U={u} {label}: K1 launched {k1} times")
-        check(k2 == 2 * n_dec * steps and k2_grouped == n_dec * steps
+        check(k2 == 2 * n_dec * run and k2_grouped == n_dec * run
               and k2_int8 == (k2 if int8 else 0),
               f"beam U={u} {label}: K2 {k2} ({k2_grouped} grouped, {k2_int8} int8), want "
-              f"{2 * n_dec * steps} ({n_dec * steps} grouped" + (", all int8)" if int8 else ")"))
+              f"{2 * n_dec * run} ({n_dec * run} grouped" + (", all int8)" if int8 else ")"))
         check(extra < broadcast, f"beam U={u} {label}: peak extra memory {extra} B >= {broadcast} B")
         tok = res.tokens.cpu()
         check(tuple(tok.shape) == (u, rt.n_max_steps)
               and bool(((tok >= 0) & (tok < dims.n_vocab)).all())
               and bool(torch.isfinite(res.p).all()), f"beam U={u} {label}: window tokens")
-        out[label] = dict(steps=steps, ms=ms, ms_per_step=ms / steps, k1=k1, k2=k2,
-                          k2_grouped=k2_grouped, k2_int8=k2_int8, peak_extra_bytes=extra)
+        wins[label, mode] = res
+        key = label if mode == "graph" else f"{label} eager"
+        out[key] = dict(steps=steps, run=run, ms=ms, ms_per_step=ms / steps, k1=k1, k2=k2,
+                        k2_grouped=k2_grouped, k2_int8=k2_int8, peak_extra_bytes=extra,
+                        peak_bytes=torch.cuda.max_memory_allocated())
+    check(same_window(wins["natural", "graph"], wins["natural", "eager"]),
+          f"{tier} beam U={u}: the graph's winners and window rules differ from the eager step's")
+    log(f"  {tier} beam {BEAM} U={u}: graph and eager give identical winners, window rules and counts")
+    out["graph_slot"] = slot_record(graph_slot(rt, "beam", u * BEAM))
+    show_slot(f"{tier} beam U={u}", out["graph_slot"])
     if profile:
         bd = breakdown(lambda: window(PROFILE_STEPS))
-        show_breakdown(f"{tier} beam {BEAM} U={u}, per beam step ({PROFILE_STEPS} steps)", bd,
-                       PROFILE_STEPS)
-        out["breakdown"], out["breakdown_steps"] = bd, PROFILE_STEPS
+        with eager(rt):
+            bd_eager = breakdown(lambda: window(PROFILE_STEPS))
+        show_breakdown(f"{tier} beam {BEAM} U={u}, eager, per beam step ({PROFILE_STEPS} steps)",
+                       bd_eager, PROFILE_STEPS)
+        show_graph_breakdown(f"{tier} beam {BEAM} U={u}, graph, per beam step ({PROFILE_STEPS} steps)",
+                             bd, PROFILE_STEPS, round(bd_eager["launches"] / PROFILE_STEPS))
+        out["breakdown"], out["eager_breakdown"], out["breakdown_steps"] = bd, bd_eager, PROFILE_STEPS
+        out["reorder"] = reorder_costs(rt, u * BEAM, prompt.shape[1], out["graph_slot"])
     return out
+
+
+def reorder_costs(rt, lanes: int, p_max: int, slot_rec: dict) -> dict:
+    """The beam reorder's choice, measured: device ms (CUDA events) of
+    ``reorder_self_kv`` over n generated columns of a [L, lanes, HD, C]
+    cache for each range width a captured step takes, summed over a
+    window of n_max steps, against the whole region [p_max, p_max + n_max)
+    every step (one graph; the JAX package's reorder) and against the
+    written columns only (the eager loop before graphs); with the capture
+    ms the extra ranges cost once per slot."""
+    import torch
+
+    from whisper_tpu_torch.model.decoder import reorder_self_kv
+    from whisper_tpu_torch.runtime.beam import reorder_columns
+
+    n_max = rt.n_max_steps
+    kv = rt.self_kv(lanes)
+    parent = torch.randperm(lanes, device="cuda")
+    widths = sorted({reorder_columns(i, n_max) for i in range(n_max)})
+    ms = {n: event_ms(lambda _: reorder_self_kv(kv, parent, p_max, n), 1, 10) for n in widths}
+    ranged = sum(ms[reorder_columns(i, n_max)] for i in range(n_max))
+    whole = n_max * ms[n_max]
+    written = sum(event_ms(lambda _: reorder_self_kv(kv, parent, p_max, i), 1, 3)
+                  for i in range(1, n_max, 16)) * 16
+    captures = [v["capture_ms"] for k, v in slot_rec["steps"].items()]
+    log(f"  beam reorder at {lanes} lanes, device ms by columns moved: "
+        + ", ".join(f"{n} {t:.3f}" for n, t in ms.items())
+        + f"; a window of {n_max} steps: by ranges {ranged:.1f} ms, the whole region {whole:.1f} ms, "
+        f"the written columns (~{written:.1f} ms); the {len(captures)} ranges' captures "
+        f"{sum(captures):.1f} ms once (one graph: {max(captures):.1f})")
+    del kv
+    return dict(ms_by_columns=ms, window_ms_ranges=ranged, window_ms_whole=whole,
+                window_ms_written=written, capture_ms=captures)
 
 
 def scheduler_run(model, dims, tier) -> dict:
@@ -1429,15 +1678,26 @@ def scheduler_run(model, dims, tier) -> dict:
     check(len(results) == len(clips) and set(rounds) == {8}, "scheduler: results or round width")
     check(k1 == dims.n_audio_layer * len(rounds),
           f"scheduler: K1 {k1} != {dims.n_audio_layer} x {len(rounds)} rounds")
-    check(k2 == 2 * dims.n_text_layer * sum(steps) and k2_grouped == 0
+    check(k2 == 2 * dims.n_text_layer * rec.launched and k2_grouped == 0
           and k2_int8 == (k2 if rt.kv_int8 else 0),
-          f"scheduler: K2 {k2} != {2 * dims.n_text_layer} x {sum(steps)} token steps")
+          f"scheduler: K2 {k2} != {2 * dims.n_text_layer} x {rec.launched} token steps run")
     for r in results:
         for seg in r.segments:
             check(seg.t1 >= seg.t0 >= 0 and all(0 <= t.id < dims.n_vocab for t in seg.tokens),
                   "scheduler segment out of range")
-    return dict(clips=len(clips), audio_s=audio_s, wall_ms=ms, rounds=len(rounds), steps=steps,
-                audio_s_per_s=audio_s / (ms / 1e3), segments=n_seg, k1=k1, k2=k2)
+    with eager(rt):
+        eager_ms, eager_results = sync_ms(lambda: bt.transcribe(clips, FullParams(language="en")))
+    check([segments(r) for r in results] == [segments(r) for r in eager_results],
+          "scheduler: the graph's segments differ from the eager step's")
+    log(f"  {tier} BatchTranscriber on the eager step: {eager_ms:.1f} ms wall, the same segments")
+    return dict(clips=len(clips), audio_s=audio_s, wall_ms=ms, eager_wall_ms=eager_ms,
+                rounds=len(rounds), steps=steps, audio_s_per_s=audio_s / (ms / 1e3), segments=n_seg,
+                k1=k1, k2=k2)
+
+
+def segments(result) -> list:
+    """A TranscribeResult's segments as comparable tuples."""
+    return [(s.text, s.t0, s.t1, [t.id for t in s.tokens]) for s in result.segments]
 
 
 def f32_runs(model, dims) -> dict:
@@ -1462,11 +1722,16 @@ def f32_runs(model, dims) -> dict:
         f"{len(res.segments)} segment(s); launches K1 {k1} ({k1_f32} f32), K2 {k2}")
     check(rec.encodes >= 1 and k1 == k1_f32 == n_enc * rec.encodes,
           f"f32 run_full: K1 {k1} ({k1_f32} f32) != {n_enc} x {rec.encodes} encodes, all f32")
-    check(k2 == 2 * n_dec * rec.steps and k2_int8 == k2_grouped == 0,
-          f"f32 run_full: K2 {k2} != {2 * n_dec} x {rec.steps} token steps")
+    check(k2 == 2 * n_dec * rec.launched and k2_int8 == k2_grouped == 0,
+          f"f32 run_full: K2 {k2} != {2 * n_dec} x {rec.launched} token steps run")
     for seg in res.segments:
         check(seg.t1 >= seg.t0 >= 0 and all(0 <= t.id < dims.n_vocab for t in seg.tokens),
               "f32 run_full segment out of range")
+    with eager(rt):
+        eager_ms, eager_res = sync_ms(lambda: model.create_context().run_full(FullParams(language="en"),
+                                                                              clip))
+    check(segments(res) == segments(eager_res), "f32 run_full: the graph's segments differ from the eager step's")
+    log(f"  f32 run_full on the eager step: {eager_ms:.1f} ms, the same segments")
     mel = np.zeros((1, dims.n_mels, 2 * dims.n_audio_ctx), np.float32)
     m = model.mel(clip).cpu().numpy()
     mel[0, :, : m.shape[1]] = m
@@ -1476,8 +1741,8 @@ def f32_runs(model, dims) -> dict:
     log(f"  f32 B=1: encode {enc_ms:.2f} ms/window")
     bd = breakdown(lambda: rt.encode_window(mel))
     show_breakdown("f32 B=1 encode, per window", bd)
-    return dict(run_full=dict(ms=ms, windows=rec.encodes, steps=rec.steps, k1=k1, k1_f32=k1_f32, k2=k2,
-                              k2_int8=k2_int8, k2_grouped=k2_grouped),
+    return dict(run_full=dict(ms=ms, eager_ms=eager_ms, windows=rec.encodes, steps=rec.steps, k1=k1,
+                              k1_f32=k1_f32, k2=k2, k2_int8=k2_int8, k2_grouped=k2_grouped),
                 encode_ms=enc_ms, encode_breakdown=bd)
 
 
@@ -1505,8 +1770,8 @@ def capture_run(model, dims) -> dict:
     check(len(buffers) >= 1 and rec.encodes >= 1, f"run_capture: buffers {buffers}, {rec.encodes} encodes")
     check(k1 == n_enc * rec.encodes and k1_f32_count() == 0,
           f"run_capture: K1 {k1} != {n_enc} x {rec.encodes} encodes")
-    check(k2 == 2 * n_dec * rec.steps and k2_int8 == k2_grouped == 0,
-          f"run_capture: K2 {k2} != {2 * n_dec} x {rec.steps} token steps")
+    check(k2 == 2 * n_dec * rec.launched and k2_int8 == k2_grouped == 0,
+          f"run_capture: K2 {k2} != {2 * n_dec} x {rec.launched} token steps run")
     return dict(wall_ms=wall, buffers=buffers, ms_per_buffer=ms, encodes=rec.encodes, steps=rec.steps,
                 segments=len(res.segments), k1=k1, k2=k2)
 
@@ -1603,6 +1868,7 @@ def main_path_phase(tmp: str) -> dict:
         # tier; the scheduler on the bf16 tier
         out[tier] = tier_runs(model, dims, tier, beam_units=(1, 8) if tier == "bf16" else (8,),
                               scheduler=tier == "bf16")
+        log(f"  [{tier} tier] runs: {time.perf_counter() - t0:.1f} s")
         stored[tier] = dict(stored_bytes(model.runtime.params),
                             cross_kv_B8=out[tier]["cross_kv_bytes_B8"],
                             cross_scales_B8=out[tier]["cross_scale_bytes_B8"])
@@ -1647,6 +1913,39 @@ def main_path_phase(tmp: str) -> dict:
 BENCH_TOKENS = 32              # token steps a window in the [bench] phase (the tool's default is 128)
 
 
+class eager_check:
+    """Within the block, the first window of each width that any
+    WhisperRuntime replays on its graphs through run_window is run again on
+    the eager step: the two must be identical. The eager run's launches are
+    taken back from the counters (a comparison, not the path); ``checked``
+    maps each width to its window's steps."""
+
+    def __enter__(self):
+        from whisper_tpu_torch.runtime.context import WhisperRuntime
+
+        self.cls, self.real, self.checked = WhisperRuntime, WhisperRuntime.run_window, {}
+        real, checked = self.real, self.checked
+
+        def run_window(rt, prompt, *args, **kw):
+            res = real(rt, prompt, *args, **kw)
+            width = np.shape(prompt)[0]
+            if rt.replays and width not in checked:
+                saved = saved_counts()
+                with eager(rt):
+                    plain = real(rt, prompt, *args, **kw)
+                restore_counts(saved)
+                check(same_window(res, plain),
+                      f"a window of width {width}: the graph's WindowResult differs from the eager step's")
+                checked[width] = int(res.steps)
+            return res
+
+        WhisperRuntime.run_window = run_window
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.run_window = self.real
+
+
 def bench_phase(smi: str) -> dict:
     """The port's bench (whisper_tpu_torch.tools.bench) at large-v2, 4
     windows single-stream and batch 8, BENCH_TOKENS token steps a window, on
@@ -1654,7 +1953,8 @@ def bench_phase(smi: str) -> dict:
     tier's JSON line printed with the card's name and power limit, and the
     kernel counts the run implies (K1 L_enc per encode, K2 2 L_dec per
     token step: warm-up and 2 passes of 4 windows, warm-up and 3 batched
-    rounds)."""
+    rounds). Its first window at B=1 and at B=8 (both warm-ups) is run
+    again on the eager step and must be identical (``eager_check``)."""
     import gc
 
     import torch
@@ -1667,8 +1967,11 @@ def bench_phase(smi: str) -> dict:
     for tier in ("serving", "bf16"):
         reset_counts()
         t0 = time.perf_counter()
-        res = bench.run(model="large-v2", tier=tier, decode_tokens=BENCH_TOKENS, windows=4, batch=8)
+        with eager_check() as compared:
+            res = bench.run(model="large-v2", tier=tier, decode_tokens=BENCH_TOKENS, windows=4, batch=8)
         sec = time.perf_counter() - t0
+        check(sorted(compared.checked) == [1, 8], f"bench {tier}: windows compared {compared.checked}")
+        log(f"  bench {tier}: its first window at B=1 and at B=8 on the graph equal the eager step's")
         k1, k2, k2_int8, k2_grouped = read_counts()
         encodes = 3 * res["passes"][0]["windows"] + 4
         line = {k: v for k, v in res.items() if k not in ("passes", "rounds")}
@@ -1794,6 +2097,13 @@ def main() -> int:
     k2["launches_int8"] = (main["serving"]["run_full"]["k2_int8"] + benches["serving"]["k2_int8"]
                            + sum(run["k2_int8"] for run in beam_paths.values()))
     k2["launches_grouped"] = sum(run["k2_grouped"] for run in beam_paths.values())
+    # every token step of the path is a replayed graph: its K2 launches a step, as captured
+    k2["launches_per_graph_step"] = {
+        tier: dict(greedy=main[tier]["B1"]["graph_slot"]["steps"][str((0, False, FORCE_STEPS))]
+                   ["k2_per_replay"],
+                   beam=[v["k2_per_replay"] for v in main[tier][f"beam U={u}"]["graph_slot"]["steps"]
+                         .values()][0])
+        for tier, u in (("bf16", 1), ("serving", 8))}
     check(k2["launches_grouped"] > 0, "no grouped K2 launch on the beam path")
     kernels = [
         entry("flash_attention", "whisper_tpu_torch/csrc/flash_attention.cu",

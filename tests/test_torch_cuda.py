@@ -13,6 +13,7 @@ bf16 query too), and 1e-5 for f32 inputs, only the f32 summation order
 differing.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -934,7 +935,7 @@ def test_run_capture_on_card_matches_cpu(scripted_path):
     thread, where the kernels launch on that thread's current stream; the
     card gives the CPU's buffers and segments, with K1 and K2 counted from
     the worker thread (L_enc K1 launches per encode, 2 L_dec K2 per token
-    step). The source is tests/test_torch_capture.py's, from chip_smoke.py
+    step the card ran). The source is tests/test_torch_capture.py's, from chip_smoke.py
     (no JAX here)."""
     _need_card()
     import numpy as np
@@ -960,10 +961,189 @@ def test_run_capture_on_card_matches_cpu(scripted_path):
         out[device] = (buffers, _segments([res]))
         if device == "cuda":
             assert k1.launches == model.dims.n_audio_layer * rec.encodes and rec.encodes >= 2
-            assert k2.launches == 2 * model.dims.n_text_layer * rec.steps
+            assert k2.launches == 2 * model.dims.n_text_layer * rec.launched
         else:
             assert k1.launches == k2.launches == 0
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0][:2] == [32_000, 32_000]
     assert out["cuda"][1] == [[(" hi", 0, 192, SCRIPT[:5])] * 2]
 
+
+
+# ---------------------------------------------------------------------------
+# the token loops' steps replayed as CUDA graphs against the eager steps
+# ---------------------------------------------------------------------------
+
+GRAPH_DIMS = {  # TINY_TEST_DIMS of tests/helpers.py, and large-v2's widths with one layer each
+    "tiny": (51_864, 96, 64, 4, 2, 48, 64, 4, 2, 80, 1),
+    "large-v2-1": (51_865, 1500, 1280, 20, 1, 448, 1280, 20, 1, 80, 1),
+}
+GRAPH_CASES = {  # loop, lanes (utterances for beam 5), force_steps
+    "greedy-B1-natural": ("greedy", 1, 0), "greedy-B1-forced": ("greedy", 1, 17),
+    "greedy-B3-natural": ("greedy", 3, 0), "greedy-B3-forced": ("greedy", 3, 17),
+    "beam-U1": ("beam", 1, 0), "beam-U2": ("beam", 2, 0),
+}
+
+
+@pytest.fixture(scope="module")
+def graph_runtimes(tmp_path_factory):
+    """Runtimes on the card by (dims, tier), made at first use: random
+    weights from chip_smoke.py's writer (no JAX here); the int8 tier with
+    int8 decoder weights and int8 K/V caches."""
+    made = {}
+
+    def get(dims_name, tier):
+        if (dims_name, tier) not in made:
+            import chip_smoke
+            from whisper_tpu_torch.hparams import ModelDims
+
+            path = tmp_path_factory.mktemp("graph") / f"{dims_name}.bin"
+            dims = ModelDims(*GRAPH_DIMS[dims_name])
+            chip_smoke.write_checkpoint(str(path), dims, chip_smoke.random_tensors(dims, 5))
+            made[(dims_name, tier)] = _model(str(path), "cuda",
+                                             "serving" if tier == "int8" else "bf16").runtime
+        return made[(dims_name, tier)]
+
+    return get
+
+
+def _graph_inputs(rt, lanes, seed):
+    """Seeded right-padded prompts of lengths 1, 4, 2, ... and a seeded
+    cross K/V [L, lanes, HD, T] of the runtime's tier (int8 codes with
+    column scales from ``quantize_cols``), made on the card."""
+    from whisper_tpu_torch.kernels.quant import quantize_cols
+    from whisper_tpu_torch.model.encoder import CrossKV
+
+    dims = rt.dims
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (dims.n_text_layer, lanes, dims.n_text_state, dims.n_audio_ctx)
+    k, v = (torch.randn(shape, generator=g, device="cuda") * 0.5 for _ in range(2))
+    if rt.kv_int8:
+        (k, ks), (v, vs) = (quantize_cols(x, axis=-2) for x in (k, v))
+        cross = CrossKV(k, v, ks, vs)
+    else:
+        cross = CrossKV(k.to(rt.compute_dtype), v.to(rt.compute_dtype))
+    prompts = np.zeros((lanes, rt.prompt_capacity), np.int32)
+    plens = np.array([[1, 4, 2][i % 3] for i in range(lanes)], np.int32)
+    for i, n in enumerate(plens):
+        prompts[i, :n] = [rt.ids.sot, 300 + i, 400, rt.ids.transcribe][-n:]
+    return prompts, plens, cross
+
+
+def _graph_window(rt, case, prompts, plens, cross, seek_end=10**6):
+    """One window of ``case``, the K2 counts it adds and the token steps the
+    card ran for it (replays on the graph, else the window's steps):
+    (WindowResult as numpy arrays, (launches, int8, grouped), steps run)."""
+    from whisper_tpu_torch.api.params import FullParams, SamplingStrategy
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+    from whisper_tpu_torch.runtime.beam import decode_window_beam
+
+    loop, lanes, force = case
+    before = (k2.launches, k2.launches_int8, k2.launches_grouped)
+    replays = rt.graphs.replays()
+    seeks, ends = np.zeros(lanes, np.int32), np.full(lanes, seek_end, np.int32)
+    if loop == "greedy":
+        res = rt.run_window(prompts, plens, cross, seeks, ends, force_steps=force)
+    else:
+        params = FullParams(strategy=SamplingStrategy.BEAM_SEARCH, beam_width=5)
+        res = decode_window_beam(rt, params, prompts, plens, cross, seeks, ends, force_steps=force)
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip((k2.launches, k2.launches_int8, k2.launches_grouped), before))
+    run = rt.graphs.replays() - replays if rt.replays else int(res.steps)
+    return {k: v.cpu().numpy() for k, v in res._asdict().items()}, counts, run
+
+
+def _assert_identical(a, b):
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES), ids=list(GRAPH_CASES))
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("dims", list(GRAPH_DIMS))
+def test_graph_window_matches_eager(graph_runtimes, dims, tier, case):
+    """The window replayed as CUDA graphs gives every array of the eager
+    window's WindowResult, bit for bit, and K2 counts of 2 L a step run (L
+    of them grouped on the beam path; all int8 on the int8 tier). The
+    graph's loop reads its flag one step behind, so a window that ends
+    before its cap runs one more step, which changes nothing. A second
+    window through the same graph (other prompts and cross K/V, and a
+    short seek_end) equals a fresh eager window: the runtime's tensors are
+    reset between windows."""
+    _need_card()
+    rt = graph_runtimes(dims, tier)
+    loop, lanes, force = GRAPH_CASES[case]
+    n_dec = rt.dims.n_text_layer
+    out = {}
+    for mode in ("graph", "eager"):
+        rt.cuda_graphs = mode == "graph"
+        try:
+            first = _graph_window(rt, GRAPH_CASES[case], *_graph_inputs(rt, lanes, 1))
+            second = _graph_window(rt, GRAPH_CASES[case], *_graph_inputs(rt, lanes, 2),
+                                   seek_end=1_700)
+        finally:
+            rt.cuda_graphs = True
+        out[mode] = (first, second)
+    for (g_res, g_counts, g_run), (e_res, e_counts, e_run) in zip(out["graph"], out["eager"]):
+        _assert_identical(g_res, e_res)
+        steps = int(g_res["steps"])
+        assert steps == force if force else 1 <= steps <= rt.n_max_steps
+        assert e_run == steps and g_run == steps + (steps < (force or rt.n_max_steps))
+        for counts, run in ((g_counts, g_run), (e_counts, e_run)):
+            assert counts == (2 * n_dec * run, 2 * n_dec * run if tier == "int8" else 0,
+                              n_dec * run if loop == "beam" else 0)
+    assert not all(np.array_equal(out["graph"][0][0][k], out["graph"][1][0][k])
+                   for k in out["graph"][0][0])
+
+
+@pytest.mark.cuda
+def test_graph_slots_hold_static_tensors(graph_runtimes):
+    """The runtime keeps one slot per loop shape, whose graphs bake in its
+    tensors: replayed windows reuse them (the slot's cache is the one the
+    K2 launches read: ``vector_keys`` saw its addresses), and a window of
+    other constants adds a graph, not a slot."""
+    _need_card()
+    from whisper_tpu_torch.kernels.decode_attention import vector_keys
+
+    rt = graph_runtimes("tiny", "bf16")
+    prompts, plens, cross = _graph_inputs(rt, 3, 3)
+    _graph_window(rt, ("greedy", 3, 0), prompts, plens, cross)
+    slots = dict(rt.graphs.slots)
+    _graph_window(rt, ("greedy", 3, 5), prompts, plens, cross)
+    assert rt.graphs.slots == slots
+    slot = next(s for key, s in slots.items() if key[:2] == ("greedy", 3))
+    assert set(slot.steps) >= {(0, False, 0), (0, False, 5)}
+    assert slot.nbytes > sum(a.nbytes for a in slot.kv if a is not None) > 0
+    assert vector_keys(slot.kv.k.shape[-1], 2, slot.kv.k[0].data_ptr(), slot.kv.v[0].data_ptr()) == 4
+    launches = slot.steps[(0, False, 0)].launches
+    assert launches[2] == 2 * rt.dims.n_text_layer and launches[0] == 0   # K2 per step, no K1
+    replays = rt.graphs.replays()
+    _, _, run = _graph_window(rt, ("greedy", 3, 5), prompts, plens, cross)
+    assert run == 5 == rt.graphs.replays() - replays and slot.steps[(0, False, 5)].replays >= 10
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises(graph_runtimes, monkeypatch):
+    """A step that cannot be captured (here: a host read of the device
+    state inside the step) makes run_window raise; nothing falls back to
+    the eager step, and the kernel counters are left as they were."""
+    _need_card()
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+    from whisper_tpu_torch.runtime import context
+
+    rt = graph_runtimes("tiny", "bf16")
+    real = context.greedy_step
+
+    def reads_the_host(params, dims, ids, st, *args):
+        real(params, dims, ids, st, *args)
+        bool(st.stop)
+
+    monkeypatch.setattr(context, "greedy_step", reads_the_host)
+    prompts, plens, cross = _graph_inputs(rt, 2, 4)
+    before = k2.launches
+    with pytest.raises(RuntimeError):
+        rt.run_window(prompts, plens, cross, np.zeros(2, np.int32), np.full(2, 10**6, np.int32),
+                      force_steps=3)
+    assert k2.launches == before

@@ -34,6 +34,7 @@ SLICE_MODULES = [
     "whisper_tpu_torch.runtime.decode",
     "whisper_tpu_torch.runtime.context",
     "whisper_tpu_torch.runtime.beam",
+    "whisper_tpu_torch.runtime.graph",
     "whisper_tpu_torch.runtime.batch",
     "whisper_tpu_torch.features.mel",
     "whisper_tpu_torch.features.stream",

@@ -22,7 +22,11 @@ On a CPU tensor ``decode_attention_hd`` runs ``decode_attention_hd_ref``.
 On a CUDA tensor it launches the kernel or raises; it never falls back.
 ``decode_attention_hd.launches`` counts every launch, ``launches_int8``
 those on int8 K/V, ``launches_grouped`` those with ``kv_group`` > 1 (beam
-search's cross-attention).
+search's cross-attention). Inside a token step captured as a CUDA graph
+(``runtime/graph.py``) the wrapper runs once, at capture, and allocates
+``out`` and its scratch from the graph's pool; every replay launches the
+captured kernels at those addresses and adds to the counters what the
+capture recorded.
 """
 
 from __future__ import annotations

@@ -10,8 +10,13 @@ Counterpart of ``whisper_tpu.model.decoder``:
   - logits = ln(x) @ token_embedding^T
 
 The cache is one stacked [L, B, H*Dh, C] pair per K and V. A step writes its
-new column IN PLACE by slice assignment (never a copy of the cache: on
-large-v2 at B=8 a whole-cache copy per step would cost more than the step).
+new column IN PLACE (never a copy of the cache: on large-v2 at B=8 a
+whole-cache copy per step would cost more than the step): the prompt
+ingest by slice assignment at a host column, a single-token step by
+``index_copy_`` at ``write_pos`` given as a device int32 scalar, so that
+the step reads no host value and can be captured as a CUDA graph. A
+device column cannot be range-checked without a host read: the token
+loops check ``p_max + n_max <= n_text_ctx`` once, before their first step.
 Padded prompts are LEFT-aligned, so every lane's last real token sits in
 the same column and the logits row is always the last row; lanes with
 shorter prompts hold garbage in columns < ``attn_start``, which the mask
@@ -81,10 +86,15 @@ def reorder_self_kv(kv: SelfKV, parent: torch.Tensor, col0: int, n_cols: int) ->
             gen.copy_(gen.index_select(1, parent))
 
 
-def _cache_write(cache: torch.Tensor, li: int, new: torch.Tensor, col: int) -> None:
+def _cache_write(cache: torch.Tensor, li: int, new: torch.Tensor, col) -> None:
     """In-place column write: cache [L,B,HD,C], new [B,S,HD] at columns
-    col..col+S-1 of layer li. Where JAX's dynamic_update_slice would clamp
-    the start (and silently overwrite the last columns), this raises."""
+    col..col+S-1 of layer li. A host ``col`` is checked: where JAX's
+    dynamic_update_slice would clamp the start (and silently overwrite the
+    last columns), this raises. A device ``col`` (int64 [1], S = 1) is
+    written by ``index_copy_`` unchecked; its caller checks the range."""
+    if isinstance(col, torch.Tensor):
+        cache[li].index_copy_(2, col, new.transpose(1, 2))
+        return
     s, c = new.shape[1], cache.shape[-1]
     if col < 0 or col + s > c:
         raise ValueError(f"cache write at columns [{col}, {col + s}) outside cache length {c}")
@@ -120,7 +130,7 @@ def _cross_attention(h, blk: Block, xk, xv, xk_s, xv_s, n_head: int, compute_dty
     return out.reshape(b, s, d)
 
 
-def _self_attention(q, k_cache, v_cache, k_s, v_s, write_pos: int, attn_start, valid_len,
+def _self_attention(q, k_cache, v_cache, k_s, v_s, write_pos, attn_start, valid_len,
                     n_head: int, compute_dtype):
     """Masked self-attention over the transposed cache [B, HD, C] (int8 with
     column scales k_s/v_s [B, 1, C], or None).
@@ -151,7 +161,7 @@ def _self_attention(q, k_cache, v_cache, k_s, v_s, write_pos: int, attn_start, v
     return out.reshape(b, s, d)
 
 
-def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos: int, attn_start, valid_len,
+def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos, attn_start, valid_len,
                    xk, xv, xk_s, xv_s, n_head: int, compute_dtype, cross_group: int = 1):
     """One decoder block; writes layer li's new K/V columns (and, for an
     int8 cache, their scales) in place. x [B,S,d]; xk/xv [B/G,HD,Sx] with
@@ -198,7 +208,8 @@ def decode_step(
     pos0: torch.Tensor,          # [B] int32: REAL position of tokens[:, 0]
     self_kv: SelfKV,             # [L, B, HD, C] x2 (+ int8 scales), written in place
     cross_kv,                    # (k, v) [L, B/G, HD, Sx] x2, or a CrossKV (+ int8 scales)
-    write_pos: int = 0,          # cache column of tokens[:, 0]
+    write_pos=0,                 # cache column of tokens[:, 0]: a host int, or for S = 1
+                                 # a device int32 scalar
     attn_start: torch.Tensor | None = None,  # [B] int32 first valid cache column
     compute_dtype: torch.dtype = torch.bfloat16,
     last_only: bool = True,
@@ -211,16 +222,30 @@ def decode_step(
     (pad rows clamp to position 0: their outputs are masked garbage).
     Returns (logits, self_kv): logits [B, n_vocab] f32 when ``last_only``,
     else [B, S, n_vocab]; self_kv is the same cache, updated in place.
+
+    A single-token step (S = 1) reads no host value when ``write_pos`` and
+    ``attn_start`` are device tensors: the token loops capture it in a CUDA
+    graph. A host ``write_pos`` there is checked against the cache length
+    and becomes a device scalar. Prompt ingest (S > 1) takes a host int.
     """
     dec = params.dec
     b, s = tokens.shape
     device = tokens.device
-    write_pos = int(write_pos)
     if attn_start is None:
         attn_start = torch.zeros((b,), dtype=torch.int32, device=device)
-    # single-token steps: keys < write_pos + 1, one [B] vector for all layers
-    valid_len = (torch.full((b,), write_pos + 1, dtype=torch.int32, device=device)
-                 if s == 1 else None)
+    valid_len = None
+    if s == 1:
+        if not isinstance(write_pos, torch.Tensor):
+            c = self_kv.k.shape[-1]
+            if not 0 <= int(write_pos) < c:
+                raise ValueError(f"cache write at column {int(write_pos)} outside cache length {c}")
+            write_pos = torch.full((), int(write_pos), dtype=torch.int32, device=device)
+        # keys < write_pos + 1, one [B] vector for all layers; the column index
+        # of the K/V write, int64 [1]
+        valid_len = write_pos.to(torch.int32).view(1).expand(b) + 1
+        write_pos = write_pos.view(1).long()
+    else:
+        write_pos = int(write_pos)
 
     xk_s = cross_kv[2] if len(cross_kv) > 2 else None
     xv_s = cross_kv[3] if len(cross_kv) > 2 else None

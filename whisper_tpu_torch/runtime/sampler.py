@@ -14,6 +14,10 @@ tensor ops:
 
 ``torch.argmax``, like ``jnp.argmax``, returns the FIRST maximal index, so
 ties resolve identically in both packages.
+
+The flags may be device tensors (the token loop passes ``i == 0`` of its
+device step counter) and the sampler makes no host-to-device copy of its
+own, so it runs inside a captured CUDA graph.
 """
 
 from __future__ import annotations
@@ -58,19 +62,20 @@ class SampleOut(NamedTuple):
 
 
 def _lanes(flag, b: int, device) -> torch.Tensor:
-    """A scalar or [B] bool as a [B, 1] bool tensor."""
+    """A scalar or [B] bool as a [B, 1] bool tensor (a bool tensor on
+    ``device`` is used as it is: no host copy)."""
     return torch.as_tensor(flag, dtype=torch.bool, device=device).expand(b)[:, None]
 
 
 def sample_best(
     probs: torch.Tensor,        # [B, V] f32 (softmaxed)
     ids: SpecialIds,
-    is_initial,                 # bool or [B] bool
-    force_timestamp,            # bool or [B] bool
+    is_initial,                 # bool or [B] bool, or such a tensor
+    force_timestamp,            # bool or [B] bool, or such a tensor
 ) -> SampleOut:
     b, v = probs.shape
     device = probs.device
-    neg_inf = torch.tensor(float("-inf"), dtype=probs.dtype, device=device)
+    neg_inf = torch.full((), float("-inf"), dtype=probs.dtype, device=device)
     tok = torch.arange(v, device=device)[None, :]          # [1, V]
     is_initial = _lanes(is_initial, b, device)
     force_timestamp = _lanes(force_timestamp, b, device)
