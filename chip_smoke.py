@@ -25,7 +25,9 @@ result line:
                 f32 views, held to 1e-5 x max(1, max |plain|), bound by the
                 f32 FMA rate (67 TFLOP/s), with SDPA on the same views and
                 the backend SDPA took, and its launch geometry (q rows and
-                threads a block, shared memory, blocks per SM, rounds)
+                threads a block, shared memory, blocks per SM, rounds); K1
+                (bf16 and f32) and K2 (bf16 and int8, cross and self) also
+                at H=10, a rank's share of large-v2's 20 heads at n_model=2
   3b. kbench    the port's microbenchmark of the decode-attention stream
                 (whisper_tpu_torch.tools.kbench, the JAX tool's large-v2
                 defaults B=8 S=1500 HD=1280 H=20 L=32 CS=512): each of its
@@ -62,7 +64,11 @@ result line:
                 run_full on the capture runner's worker thread), each the
                 CPU's segments (and buffers) with exact K1/K2 counts; a small
                 random model's encoder on the card must agree with the CPU
-                path
+                path; the native host library (g++ at first use): its
+                log-mel against the port's LogMelSpectrogram on the card
+                (2e-3) and its host ms, whether the audio decoder built
+                (FFmpeg headers) and an ffmpeg binary is there, and where
+                it built, a 16 kHz WAV through it equal to scipy's read
   5. main path  a synthetic large-v2 GGML checkpoint (full width and depth,
                 f16 weights from a seeded generator), once per tier: the bf16
                 tier (load_model), then the serving tier (load_model with
@@ -98,7 +104,20 @@ result line:
                 the f32 tier (load_model with DtypePolicy.f32()) runs
                 run_full on the 3 s clip (32 f32 K1 launches a window) and
                 one profiled encode at B=1
-  5b. bench     the port's bench (whisper_tpu_torch.tools.bench) at large-v2
+  5b. parallel  two ranks on the card over gloo (parallel.launch.spawn),
+                eager steps: at n_model = 2 the scripted checkpoint's
+                run_full on the bf16, serving and f32 tiers (the golden
+                transcript), large-v2 f32 (features within 1e-3 x max(1,
+                max |x|) of one process, tokens, result_len and seek_delta
+                identical) and bf16 (first-step logits within PAR_BF16_TOL
+                of one process), with K1 and K2 at 10 of 20 heads; data
+                parallel 2 x B=4 against one process's B=8 on the f32
+                tier (identical tokens); Model(mesh=) with graphs on a
+                gloo group refused. Then NCCL at world size 1 in this
+                process: a 1x1 mesh with graphs equal to mesh=None bit for
+                bit, with the graph step's launches. Ms per window and per
+                token step, and the collectives' share of each
+  5c. bench     the port's bench (whisper_tpu_torch.tools.bench) at large-v2
                 on the serving tier (the JAX bench's default) and the bf16
                 tier, BENCH_TOKENS token steps a window: each tier's JSON
                 line with the card's name and power limit, and the exact
@@ -1160,7 +1179,7 @@ def recorded_capture(ctx, params, chunks, capture_params) -> tuple[list, list, o
     return buffers, ms, res
 
 
-def serving_model(path: str, device: str):
+def serving_model(path: str, device: str, mesh=None, cuda_graphs: bool = True):
     """The serving tier through the user's entry points: int8 decoder
     weights from load_model(policy=DtypePolicy.serving()), and the model's
     runtime swapped for one with int8 K/V caches (``Model`` keeps the JAX
@@ -1169,10 +1188,11 @@ def serving_model(path: str, device: str):
     from whisper_tpu_torch.model.params import DtypePolicy
     from whisper_tpu_torch.runtime.context import WhisperRuntime
 
-    model = load_model(path, policy=DtypePolicy.serving(), device=device)
+    model = load_model(path, policy=DtypePolicy.serving(), device=device, mesh=mesh,
+                       cuda_graphs=cuda_graphs)
     rt = model.runtime
     model.runtime = WhisperRuntime(rt.params, rt.dims, rt.ids, compute_dtype=rt.compute_dtype,
-                                   device=rt.device, kv_int8=True)
+                                   device=rt.device, kv_int8=True, cuda_graphs=cuda_graphs)
     return model
 
 
@@ -1380,7 +1400,52 @@ def golden_phase(tmp: str) -> dict:
     log(f"  small random encoder, bf16 tier, card vs CPU: max_abs_err {err:.3e} (tol 5e-2: "
         "bf16 activations rounded in other places by cuBLAS and the CPU GEMMs)")
     check(bool(torch.isfinite(feats["cuda"]).all()) and err < 5e-2, "small encoder card vs CPU")
+    out["native"] = native_checks(tmp)
     return out
+
+
+def native_checks(tmp: str) -> dict:
+    """The native host library (g++ at first use): its log-mel of a seeded
+    30 s clip against the port's LogMelSpectrogram on the card, within 2e-3
+    (tests/test_native.py's bound), and its host ms; whether the audio
+    decoder built (it needs the FFmpeg headers) and whether an ffmpeg binary
+    is on the PATH; where the decoder built, a 16 kHz WAV through it must
+    equal scipy's read exactly."""
+    import shutil
+
+    from whisper_tpu_torch import native
+    from whisper_tpu_torch.audio import ffdecode
+    from whisper_tpu_torch.features.mel import LogMelSpectrogram
+    from whisper_tpu_torch.ggml import mel_filter_bank
+
+    check(native.available(), "libwhisper_native did not build")
+    pcm = (0.3 * np.random.default_rng(SEED + 2).standard_normal(16_000 * 30)).astype(np.float32)
+    filters = mel_filter_bank()
+    native.log_mel_raw(pcm, filters)                                           # warm-up
+    t0 = time.perf_counter()
+    host = native.log_mel_raw(pcm, filters)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    mel = LogMelSpectrogram(filters, device="cuda")
+    mel(pcm, normalize=False)                                                  # warm-up
+    card_ms, card = sync_ms(lambda: mel(pcm, normalize=False))
+    err = float(np.abs(host - card.cpu().numpy()).max())
+    rec = dict(log_mel_err=err, log_mel_host_ms=host_ms, log_mel_card_ms=card_ms,
+               audio_decoder=ffdecode.available(), ffmpeg=shutil.which("ffmpeg"))
+    log(f"  native log_mel_raw (30 s clip, {os.cpu_count()} host cores, 4 threads): {host_ms:.2f} host ms; "
+        f"the port's LogMelSpectrogram on the card {card_ms:.2f} ms; max_abs_err {err:.3e} (tol 2e-3); "
+        f"libwhisper_audio built: {rec['audio_decoder']}; ffmpeg binary: {rec['ffmpeg']}")
+    check(host.shape == tuple(card.shape) and err < 2e-3, "native log_mel_raw against the card's mel")
+    if rec["audio_decoder"]:
+        from scipy.io import wavfile
+
+        path = os.path.join(tmp, "native.wav")
+        wavfile.write(path, 16_000, (pcm[:16_000] * 20_000).astype(np.int16))
+        _, want = wavfile.read(path)
+        got = ffdecode.decode_file(path, 16_000, 1)
+        rec["decoded_wav_equal"] = bool(np.array_equal(got, want.astype(np.float32) / 32768.0))
+        log(f"  a 16 kHz WAV through libwhisper_audio equals scipy's read: {rec['decoded_wav_equal']}")
+        check(rec["decoded_wav_equal"], "libwhisper_audio's WAV differs from scipy's")
+    return rec
 
 
 def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = False) -> dict:
@@ -1838,6 +1903,9 @@ def int8_pass_costs(params, dims, compute_dtype) -> dict:
     return out
 
 
+LARGE_V2_FILE = "ggml-large-v2-synthetic.bin"   # kept in the run's directory for [parallel]
+
+
 def main_path_phase(tmp: str) -> dict:
     import gc
 
@@ -1852,7 +1920,7 @@ def main_path_phase(tmp: str) -> dict:
     out = {}
 
     t0 = time.perf_counter()
-    path = os.path.join(tmp, "ggml-large-v2-synthetic.bin")
+    path = os.path.join(tmp, LARGE_V2_FILE)
     write_checkpoint(path, dims, random_tensors(dims, SEED))
     log(f"  wrote synthetic large-v2 checkpoint ({os.path.getsize(path) / 1e9:.2f} GB) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1890,7 +1958,6 @@ def main_path_phase(tmp: str) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    os.remove(path)
 
     # stored bytes, from the shapes: cross K/V [L, 8, HD, T] x2, the decoder's
     # _QUANT_KEYS weights (14 d^2 per layer, 11 d output columns, each with
@@ -1908,6 +1975,341 @@ def main_path_phase(tmp: str) -> dict:
         check(stored[tier] == want[tier], f"{tier} stored bytes {stored[tier]} != {want[tier]}")
     out["stored_bytes"] = stored
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: parallelism (two ranks on the one card over gloo; NCCL at world size 1)
+# ---------------------------------------------------------------------------
+
+PAR_TIMEOUT = 420.0            # seconds the two ranks of [parallel] may take, start-up included
+# bf16 first-step logits at n_model = 2, x max(1, max |one process|): a rank
+# adds its f32 partial sums to the other's in another order than one GEMM
+# does, so activations round to bf16 apart after every row-parallel product
+# (the small encoder's card-vs-CPU bound, 5e-2, for the same cause)
+PAR_BF16_TOL = 5e-2
+
+
+def tier_model(path: str, tier: str, mesh=None, cuda_graphs: bool = True):
+    """The scripted checkpoint's model on ``tier`` (bf16, serving, f32)."""
+    from whisper_tpu_torch.api.model import Model
+    from whisper_tpu_torch.model.params import DtypePolicy
+
+    if tier == "serving":
+        return serving_model(path, "cuda", mesh=mesh, cuda_graphs=cuda_graphs)
+    return Model(path, policy=DtypePolicy.f32() if tier == "f32" else None, mesh=mesh,
+                 cuda_graphs=cuda_graphs)
+
+
+def collective_ms(fn):
+    """(result of ``fn()``, host ms of the run, host ms inside c10d
+    collectives) from one profiled run. gloo's collectives are synchronous:
+    each call waits for the card's work before it, copies to the host,
+    reduces over TCP and copies back, so its time includes that wait."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ms, out = sync_ms(fn)
+    coll = sum(e.cpu_time_total for e in prof.key_averages() if e.key.startswith("c10d::")) / 1e3
+    return out, ms, coll
+
+
+def par_inputs(model_mel, dims, ids, b: int, seed: int):
+    """``b`` seeded 3 s clips as a window: mel [b, 80, 3000], the prompt
+    (SOT, language, transcribe) and the window's bounds (the clip's 300
+    frames)."""
+    rng = np.random.default_rng(seed)
+    mel = np.zeros((b, dims.n_mels, 2 * dims.n_audio_ctx), np.float32)
+    for i in range(b):
+        m = model_mel((0.1 * rng.standard_normal(16_000 * 3)).astype(np.float32)).cpu().numpy()
+        m = m[:, : mel.shape[2]]
+        mel[i, :, : m.shape[1]] = m
+    prompt = np.zeros((b, dims.n_text_ctx // 2 + 4), np.int32)
+    prompt[:, :3] = [ids.sot, ids.sot + 1, ids.transcribe]
+    return mel, prompt, np.full((b,), 3, np.int32), np.zeros(b, np.int32), np.full(b, 300, np.int32)
+
+
+def par_logits(rt, mel, prompt, plen):
+    """The first token step's logits [1, V] (f32): encode, ingest the
+    prompt, then one step on the prompt's greedy token."""
+    import torch
+
+    from whisper_tpu_torch.model.decoder import decode_step
+
+    with torch.inference_mode():
+        _, cross = rt.encode_window(mel)
+        toks = torch.from_numpy(prompt[:, : int(plen[0])]).cuda()
+        kv = rt.self_kv(1)
+        zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+        logits, _ = decode_step(rt.params, rt.dims, toks, zero, kv, cross,
+                                compute_dtype=rt.compute_dtype)
+        tok = logits.argmax(-1, keepdim=True).int()
+        logits, _ = decode_step(rt.params, rt.dims, tok, zero + toks.shape[1], kv, cross,
+                                write_pos=toks.shape[1], compute_dtype=rt.compute_dtype)
+    return logits.float().cpu()
+
+
+def parallel_ranks(scripted: str, large: str) -> dict:
+    """One of the two ranks of [parallel], on the one card over gloo with
+    eager steps (``cuda_graphs=False``: gloo's collectives cannot be
+    captured), on a 1x2 mesh (tensor parallelism, 2 of 4 heads a rank on
+    the scripted checkpoint, 10 of 20 on large-v2) and a 2x1 mesh (data
+    parallelism). Rank 0 also runs each large-v2 case unsharded, in its
+    own process, for the one-process reference. Returns what it measured,
+    and its log lines."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.features.mel import LogMelSpectrogram
+    from whisper_tpu_torch.ggml import load_checkpoint
+    from whisper_tpu_torch.model.params import DtypePolicy, host_tree_from_checkpoint, params_from_numpy
+    from whisper_tpu_torch.parallel.mesh import make_mesh
+    from whisper_tpu_torch.parallel.sharding import gather_batch, shard_batch, shard_params
+    from whisper_tpu_torch.runtime.context import WhisperRuntime
+    from whisper_tpu_torch.runtime.sampler import SpecialIds
+    from whisper_tpu_torch.vocab import Vocabulary
+
+    rank = dist.get_rank()
+    lines, out = [], {"device": torch.cuda.get_device_name(0)}
+
+    def note(msg):
+        lines.append(f"  [rank {rank}] {msg}")
+
+    tp_mesh, dp_mesh = make_mesh(n_model=2), make_mesh(n_model=1)
+
+    # graphs on a gloo model group of two ranks on the card: refused
+    try:
+        tier_model(scripted, "bf16", mesh=tp_mesh)
+        out["graphs_refused"] = None
+    except ValueError as e:
+        out["graphs_refused"] = str(e)
+
+    # the scripted checkpoint's golden run_full on the three tiers
+    silence = np.zeros(16_000 * 2, np.float32)
+    for tier in ("bf16", "serving", "f32"):
+        model = tier_model(scripted, tier, mesh=tp_mesh, cuda_graphs=False)
+        ctx = model.create_context()
+        reset_counts()
+        with counting(model.runtime) as rec:
+            ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), silence))
+        k1, k2, k2_int8, _ = read_counts()
+        out[f"golden {tier}"] = dict(segments=segments(res), ms=ms, windows=rec.encodes,
+                                     steps=rec.launched, k1=k1, k1_f32=k1_f32_count(), k2=k2,
+                                     k2_int8=k2_int8, heads=model.runtime.params.tp.part(4))
+        note(f"golden {tier} at n_model=2: {segments(res)}; {ms:.1f} ms for {rec.encodes} window(s) "
+             f"of {rec.launched} token steps; K1 {k1}, K2 {k2}")
+        del model, ctx
+
+    # large-v2 at full width and depth
+    t0 = time.perf_counter()
+    cp = load_checkpoint(large)
+    dims = cp.dims
+    ids = SpecialIds.from_vocab(Vocabulary(cp.vocab_words, dims.n_vocab))
+    tree = host_tree_from_checkpoint(cp)
+    mel_fn = LogMelSpectrogram(cp.filters.data, device="cuda")
+    del cp
+    note(f"large-v2 host tree: {time.perf_counter() - t0:.1f} s")
+    mel, prompt, plen, seek, seek_end = par_inputs(mel_fn, dims, ids, 1, SEED)
+
+    def window(rt, m, p, pl, sk, se):
+        """features, WindowResult, encode ms, window ms and the launches:
+        K1 (f32 instance) of the encode, K2 of the token steps."""
+        reset_counts()
+        enc_ms, (feats, cross) = sync_ms(lambda: rt.encode_window(m))
+        k1_f32 = k1_f32_count()
+        reset_counts()
+        win_ms, res = sync_ms(lambda: rt.run_window(p, pl, cross, sk, se))
+        return feats, res, enc_ms, win_ms, dict(k1_f32=k1_f32, k2=read_counts()[1], cross=cross)
+
+    def step_ms(rt, cross):
+        """ms a token step: forced windows of 2 and 6 steps (the prompt
+        ingest cancels out), and the collectives' share of a profiled
+        6-step window."""
+        def forced(n):
+            return sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end, force_steps=n))[0]
+
+        forced(2)                                                              # warm-up
+        ms = (forced(6) - forced(2)) / 4
+        _, prof_ms, coll = collective_ms(lambda: forced(6))
+        return ms, coll / prof_ms
+
+    # f32 tier, tensor parallel: 10 heads a rank
+    params = params_from_numpy(tree, "cuda", DtypePolicy.f32())
+    sharded = shard_params(params, tp_mesh)
+    rt = WhisperRuntime(sharded, dims, ids, compute_dtype=torch.float32, cuda_graphs=False)
+    window(rt, mel, prompt, plen, seek, seek_end)                              # warm-up
+    feats, res, enc_ms, win_ms, counts = window(rt, mel, prompt, plen, seek, seek_end)
+    k1_f32, k2 = counts["k1_f32"], counts["k2"]
+    steps = int(res.steps)
+    _, enc_prof_ms, enc_coll = collective_ms(lambda: rt.encode_window(mel))
+    ms, share = step_ms(rt, counts["cross"])
+    rec = dict(enc_ms=enc_ms, window_ms=win_ms, steps=steps, ms_per_step=ms, k1_f32=k1_f32, k2=k2,
+               heads=sharded.tp.part(dims.n_audio_head), encode_collective_share=enc_coll / enc_prof_ms,
+               step_collective_share=share)
+    note(f"large-v2 f32 at n_model=2: encode {enc_ms:.1f} ms (collectives {enc_coll:.1f} of "
+         f"{enc_prof_ms:.1f} profiled ms), window {win_ms:.1f} ms ({steps} token steps and the "
+         f"prompt ingest), {ms:.2f} ms a token step (collectives {share:.3f} of a profiled "
+         f"6-step window); K1 f32 {k1_f32}, K2 {k2}")
+    if rank == 0:
+        one = WhisperRuntime(params, dims, ids, compute_dtype=torch.float32, cuda_graphs=False)
+        window(one, mel, prompt, plen, seek, seek_end)                         # warm-up
+        feats1, res1, enc1, win1, counts1 = window(one, mel, prompt, plen, seek, seek_end)
+        n = int(res1.result_len[0])
+        rec.update(one_enc_ms=enc1, one_window_ms=win1, one_ms_per_step=step_ms(one, counts1["cross"])[0],
+                   feats_err=(feats - feats1).abs().max().item(),
+                   feats_tol=1e-3 * max(1.0, feats1.abs().max().item()),
+                   same_window=(torch.equal(res.result_len, res1.result_len)
+                                and torch.equal(res.seek_delta, res1.seek_delta)
+                                and torch.equal(res.tokens[0, :n], res1.tokens[0, :n])),
+                   tokens=res1.tokens[0, :n].tolist())
+        note(f"large-v2 f32, one process: encode {enc1:.1f} ms, window {win1:.1f} ms, "
+             f"{rec['one_ms_per_step']:.2f} ms a token step; features "
+             f"max_abs_err {rec['feats_err']:.3e} (tol {rec['feats_tol']:.3e}); tokens, result_len "
+             f"and seek_delta identical: {rec['same_window']} ({rec['tokens']})")
+        del one
+    out["large-v2 f32 tp"] = rec
+    del rt, sharded
+
+    # f32 tier, data parallel: 2 ranks x B=4 against B=8, graphs on (no
+    # model collective: the model group has one rank)
+    mel8, prompt8, plen8, seek8, end8 = par_inputs(mel_fn, dims, ids, 8, SEED + 1)
+    local = [shard_batch(a, dp_mesh) for a in (mel8, prompt8, plen8, seek8, end8)]
+    rt = WhisperRuntime(params, dims, ids, compute_dtype=torch.float32)
+    window(rt, *local)                                                         # warm-up: capture
+    _, res, enc_ms, win_ms, _ = window(rt, *local)
+    got = {k: gather_batch(getattr(res, k), dp_mesh).cpu() for k in ("tokens", "result_len", "seek_delta")}
+    rec = dict(enc_ms=enc_ms, window_ms=win_ms, steps=int(res.steps), lanes=local[0].shape[0])
+    note(f"large-v2 f32, 2 ranks x B=4: encode {enc_ms:.1f} ms, window {win_ms:.1f} ms for "
+         f"{int(res.steps)} token steps")
+    if rank == 0:
+        _, res8, enc8, win8, _ = window(rt, mel8, prompt8, plen8, seek8, end8)
+        _, res8, enc8, win8, _ = window(rt, mel8, prompt8, plen8, seek8, end8)
+        rec.update(one_enc_ms=enc8, one_window_ms=win8, same_tokens=all(
+            torch.equal(got[k], getattr(res8, k).cpu()) for k in got))
+        note(f"large-v2 f32, one process B=8: encode {enc8:.1f} ms, window {win8:.1f} ms; tokens, "
+             f"result_len and seek_delta identical to the 2 x B=4 ranks: {rec['same_tokens']}")
+    out["large-v2 f32 dp"] = rec
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # bf16 tier, tensor parallel: the first token step's logits
+    params = params_from_numpy(tree, "cuda", DtypePolicy())
+    sharded = shard_params(params, tp_mesh)
+    rt = WhisperRuntime(sharded, dims, ids, cuda_graphs=False)
+    par_logits(rt, mel, prompt, plen)                                          # warm-up
+    reset_counts()
+    ms, logits = sync_ms(lambda: par_logits(rt, mel, prompt, plen))
+    k1, k2, _, _ = read_counts()
+    rec = dict(ms=ms, k1=k1, k2=k2)
+    if rank == 0:
+        one = WhisperRuntime(params, dims, ids, cuda_graphs=False)
+        want = par_logits(one, mel, prompt, plen)
+        rec.update(err=(logits - want).abs().max().item(),
+                   tol=PAR_BF16_TOL * max(1.0, want.abs().max().item()),
+                   same_argmax=bool(logits.argmax() == want.argmax()), shape=tuple(logits.shape))
+        note(f"large-v2 bf16 first-step logits at n_model=2 against one process: max_abs_err "
+             f"{rec['err']:.3e} (tol {rec['tol']:.3e}), same argmax {rec['same_argmax']}; {ms:.1f} ms "
+             f"for encode, ingest and a step; K1 {k1}, K2 {k2}")
+    out["large-v2 bf16 tp"] = rec
+    out["lines"] = lines
+    return out
+
+
+def nccl_world1(scripted: str, tmp: str) -> dict:
+    """NCCL at world size 1: Model(mesh=make_mesh()) on a 1x1 mesh, with the
+    token steps replayed as graphs, against Model(mesh=None): run_full's
+    segments and launch counts, and encode_window + run_window bit for bit,
+    with each graph step's launches."""
+    import torch.distributed as dist
+
+    from whisper_tpu_torch.api.devices import init_distributed
+    from whisper_tpu_torch.api.model import Model
+    from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.parallel.mesh import make_mesh
+
+    init_distributed(f"file://{tmp}/nccl_store", 1, 0, device="cuda", backend="nccl")
+    try:
+        mesh = make_mesh()
+        runs = {}
+        for name, m in (("mesh=None", None), ("1x1 mesh", mesh)):
+            model = Model(scripted, mesh=m)
+            rt = model.runtime
+            silence = np.zeros(16_000 * 2, np.float32)
+            model.create_context().run_full(FullParams(language="en"), silence)   # capture
+            reset_counts()
+            with counting(rt) as rec:
+                ms, res = sync_ms(lambda: model.create_context().run_full(FullParams(language="en"),
+                                                                          silence))
+            counts = read_counts()
+            mel, prompt, plen, seek, seek_end = par_inputs(model.mel, model.dims, rt.ids, 1, SEED)
+            _, cross = rt.encode_window(mel)
+            win_ms, win = sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end))
+            slot = graph_slot(rt, "greedy", 1)
+            runs[name] = dict(segments=segments(res), counts=counts, ms=ms,
+                              steps=rec.steps, launched=rec.launched, encodes=rec.encodes,
+                              replays=rt.graphs.replays(),
+                              win=win, win_ms=win_ms,
+                              step_launches={str(k): v.launches for k, v in slot.steps.items()})
+            log(f"  NCCL world 1, {name}: run_full {runs[name]['segments']} in {ms:.1f} ms, "
+                f"{rec.launched} token steps on the graph; launches K1/K2 {runs[name]['counts'][:2]}; "
+                f"graph step launches {runs[name]['step_launches']}; window {win_ms:.1f} ms")
+        a, b = runs["mesh=None"], runs["1x1 mesh"]
+        check(b["replays"] > 0, "NCCL 1x1 mesh: no graph replayed")
+        check(a["segments"] == b["segments"] and a["counts"] == b["counts"]
+              and a["step_launches"] == b["step_launches"] and same_window(a["win"], b["win"]),
+              "NCCL 1x1 mesh with graphs differs from mesh=None")
+        check(a["counts"][:2] == (2 * a["encodes"], 4 * a["launched"]),
+              f"NCCL world 1: launches {a['counts']} for {a['encodes']} encodes, {a['launched']} steps")
+        for r in runs.values():
+            del r["win"]
+        return runs
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(tmp: str, scripted: str, large: str) -> dict:
+    """[parallel]: two ranks on the card over gloo (``parallel_ranks``),
+    then NCCL at world size 1 in this process (``nccl_world1``). Each
+    case's check fails the script."""
+    from whisper_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn("chip_smoke:parallel_ranks", 2, args=(scripted, large), device="cuda",
+                  backend="gloo", timeout=PAR_TIMEOUT, threads=4)
+    log(f"  two gloo ranks on {ranks[0]['device']}: {time.perf_counter() - t0:.1f} s, start-up included")
+    for r in ranks:
+        for line in r.pop("lines"):
+            log(line)
+    want = [(" hi", 0, 192, [50_363, 32, 104, 105, 50_363 + 96])]
+    r0 = ranks[0]
+    for r in ranks:
+        check(r["graphs_refused"] is not None and "cuda_graphs=False" in r["graphs_refused"],
+              "cuda_graphs=True on a gloo model group of 2 was not refused")
+        for tier in ("bf16", "serving", "f32"):
+            g = r[f"golden {tier}"]
+            check(g["segments"] == want, f"golden {tier} at n_model=2: {g['segments']}")
+            check(g["heads"] == 2 and g["k1"] == 2 * g["windows"] and g["k2"] == 4 * g["steps"]
+                  and g["k1_f32"] == (g["k1"] if tier == "f32" else 0)
+                  and g["k2_int8"] == (g["k2"] if tier == "serving" else 0),
+                  f"golden {tier} at n_model=2: launches {g}")
+        tp = r["large-v2 f32 tp"]
+        check(tp["heads"] == 10 and tp["k1_f32"] == 32 and tp["k2"] == 64 * tp["steps"],
+              f"large-v2 f32 at n_model=2: K1 f32 {tp['k1_f32']}, K2 {tp['k2']} for {tp['steps']} steps")
+        bf = r["large-v2 bf16 tp"]
+        check(bf["k1"] == 32 and bf["k2"] == 64, f"large-v2 bf16 at n_model=2: K1 {bf['k1']}, K2 {bf['k2']}")
+    tp, dp, bf = r0["large-v2 f32 tp"], r0["large-v2 f32 dp"], r0["large-v2 bf16 tp"]
+    check(tp["feats_err"] <= tp["feats_tol"] and tp["same_window"],
+          f"large-v2 f32 at n_model=2 against one process: {tp}")
+    check(dp["same_tokens"], f"large-v2 f32, 2 ranks x B=4 against B=8: {dp}")
+    check(bf["err"] <= bf["tol"], f"large-v2 bf16 first-step logits at n_model=2: {bf}")
+    log("[parallel] NCCL at world size 1")
+    nccl = nccl_world1(scripted, tmp)
+    return dict(ranks=ranks, nccl_world1=nccl, s=time.perf_counter() - t0)
 
 
 BENCH_TOKENS = 32              # token steps a window in the [bench] phase (the tool's default is 128)
@@ -2025,8 +2427,10 @@ def main() -> int:
     phase_s = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
     log("[kernels]")
-    k1_cases = [flash_case(1, 1500), flash_case(8, 1500), flash_case(8, 1500, contiguous=True)]
-    k1_f32_cases = [flash_f32_case(1, 1500), flash_f32_case(8, 1500)]
+    # H=10: a rank's share of large-v2's 20 heads at n_model = 2 ([parallel])
+    k1_cases = [flash_case(1, 1500), flash_case(8, 1500), flash_case(8, 1500, contiguous=True),
+                flash_case(1, 1500, h=10)]
+    k1_f32_cases = [flash_f32_case(1, 1500), flash_f32_case(8, 1500), flash_f32_case(1, 1500, h=10)]
     k2_cases = [decode_case(1, 1500, int8=int8, path="greedy B=1") for int8 in (False, True)]
     k2_cases += [decode_case(8, 1500, int8=int8, path="greedy B=8") for int8 in (False, True)]
     # beam search: the cross K/V of U utterances read by U x 5 query lanes
@@ -2035,6 +2439,9 @@ def main() -> int:
     k2_cases += [decode_case(8, 448, masked=True, int8=int8, path="greedy B=8") for int8 in (False, True)]
     k2_cases += [decode_case(40, 448, masked=True, int8=int8, path="beam U=8") for int8 in (False, True)]
     k2_cases += [decode_case(4, 448, int8=True, empty=True)]
+    k2_cases += [decode_case(1, 1500, h=10, int8=int8, path="TP rank, greedy B=1") for int8 in (False, True)]
+    k2_cases += [decode_case(8, 448, masked=True, h=10, int8=int8, path="TP rank, greedy B=8")
+                 for int8 in (False, True)]
     for c in k1_cases:
         show_case("flash_attention", c)
     for c in k1_f32_cases:
@@ -2056,6 +2463,11 @@ def main() -> int:
         log("[main path] synthetic large-v2")
         main = main_path_phase(tmp)
         phase_s["main path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log("[parallel] two ranks on the card over gloo: n_model = 2 (the scripted checkpoint on "
+            "three tiers, large-v2 f32 and bf16), data parallel 2 x B=4; then NCCL at world size 1")
+        par = parallel_phase(tmp, os.path.join(tmp, "scripted.bin"), os.path.join(tmp, LARGE_V2_FILE))
+        phase_s["parallel"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log(f"[bench] python -m whisper_tpu_torch.tools.bench at large-v2, BENCH_DECODE_TOKENS={BENCH_TOKENS}, "
         "serving and bf16 tiers")
@@ -2090,8 +2502,17 @@ def main() -> int:
         by_path.update({f"{tier} bench": b[key] for tier, b in benches.items()})
         return by_path
 
+    # [parallel]: rank 0's launches (each rank launches the same), at a
+    # rank's share of the heads
+    r0 = par["ranks"][0]
     k2_paths = paths("k2")
     k2_paths["f32 run_full"] = main["f32"]["run_full"]["k2"]
+    k2_paths.update({f"parallel rank 0, golden {t}": r0[f"golden {t}"]["k2"] for t in ("bf16", "serving", "f32")})
+    k2_paths["parallel rank 0, large-v2 f32"] = r0["large-v2 f32 tp"]["k2"]
+    k2_paths["parallel rank 0, large-v2 bf16"] = r0["large-v2 bf16 tp"]["k2"]
+    k1_paths = paths("k1")
+    k1_paths.update({f"parallel rank 0, golden {t}": r0[f"golden {t}"]["k1"] for t in ("bf16", "serving")})
+    k1_paths["parallel rank 0, large-v2 bf16"] = r0["large-v2 bf16 tp"]["k1"]
     k2 = entry("decode_attention_hd", "whisper_tpu_torch/csrc/decode_attention.cu",
                "whisper_tpu/kernels/decode_attention.py:187", k2_cases, k2_paths)
     k2["launches_int8"] = (main["serving"]["run_full"]["k2_int8"] + benches["serving"]["k2_int8"]
@@ -2107,10 +2528,12 @@ def main() -> int:
     check(k2["launches_grouped"] > 0, "no grouped K2 launch on the beam path")
     kernels = [
         entry("flash_attention", "whisper_tpu_torch/csrc/flash_attention.cu",
-              "whisper_tpu/kernels/attention.py:90", k1_cases, paths("k1")),
+              "whisper_tpu/kernels/attention.py:90", k1_cases, k1_paths),
         entry("flash_attention_f32", "whisper_tpu_torch/csrc/flash_attention_f32.cu",
               "whisper_tpu/kernels/attention.py:90", k1_f32_cases,
-              {"f32 run_full": main["f32"]["run_full"]["k1_f32"]}),
+              {"f32 run_full": main["f32"]["run_full"]["k1_f32"],
+               "parallel rank 0, golden f32": r0["golden f32"]["k1_f32"],
+               "parallel rank 0, large-v2 f32": r0["large-v2 f32 tp"]["k1_f32"]}),
         k2,
         *kb_entries,
     ]
@@ -2118,7 +2541,7 @@ def main() -> int:
     for k in kernels[:3]:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels, "serving_path": serving_path, "main_path": main,
-                      "bench": benches, "kbench": kb_records, "card": smi, "phase_s": phase_s}),
+                      "parallel": par, "bench": benches, "kbench": kb_records, "card": smi, "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -105,15 +105,6 @@ def test_cli_golden_speedup_doubles_times(files, capsys):
     assert "[00:00:00.000 --> 00:00:03.840]  hi" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("what", ["mesh"])
-def test_unported_features_raise(files, what):
-    from whisper_tpu_torch.api.model import Model
-
-    scripted, _, _, _ = files
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Model(scripted, mesh=object(), device="cpu")
-
-
 def _capture_audio():
     """1 s of noise floor, 4 s of speech, a 1 s pause, 2 s of speech, in
     100 ms chunks (the VAD's adaptive thresholds need silence first)."""

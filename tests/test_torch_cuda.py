@@ -823,6 +823,51 @@ def test_kbench_wrappers_refuse_what_they_do_not_take():
 # beam search and the batched scheduler: the card against the CPU
 # ---------------------------------------------------------------------------
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1 bf16", "k1 f32", "k2 bf16 cross", "k2 bf16 self",
+                                  "k2 int8 cross", "k2 int8 self"])
+def test_kernels_at_a_ranks_share_of_the_heads(case):
+    """K1 and K2 at H=10: a rank's share of large-v2's 20 heads under
+    tensor parallelism at n_model = 2 (K1: 60 blocks at B=1; K2: U = B x 10
+    lanes of heads), against their plain versions, with the tolerances of
+    the H=20 tests above."""
+    _need_card()
+    from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
+    from whisper_tpu_torch.kernels.decode_attention import (
+        decode_attention_hd,
+        decode_attention_hd_ref,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    if case.startswith("k1"):
+        qkv = torch.randn((1, 1500, 10, 3, 64), generator=g, device="cuda").mul(0.5)
+        q, k, v = (qkv if case == "k1 f32" else qkv.bfloat16()).unbind(3)
+        got, want = flash_attention(q, k, v), flash_attention_ref(q, k, v)
+        torch.cuda.synchronize()
+        assert got.shape == (1, 1500, 10, 64) and got.dtype == q.dtype
+        tol = 1e-5 * max(1.0, want.abs().max().item()) if case == "k1 f32" else 2e-2
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        return
+    b, s = (1, 1500) if case.endswith("cross") else (8, 448)
+    hd = 10 * 64
+    q = torch.randn((b, hd, 1), generator=g, device="cuda").mul(0.5).bfloat16()
+    if "int8" in case:
+        k8, ks, v8, vs = _int8_kv(g, b, hd, s)
+        kt, vt, kw = k8, v8, dict(k_scale=ks, v_scale=vs)
+    else:
+        kt = torch.randn((b, hd, s), generator=g, device="cuda").mul(0.5).bfloat16()
+        vt = torch.randn((b, hd, s), generator=g, device="cuda").bfloat16()
+        kw = {}
+    if case.endswith("self"):
+        kw["start"] = (torch.arange(b, dtype=torch.int32, device="cuda") * 7) % 40
+        kw["valid_len"] = torch.full((b,), 328, dtype=torch.int32, device="cuda")
+    before = decode_attention_hd.launches
+    got = decode_attention_hd(q, kt, vt, 10, **kw)
+    assert decode_attention_hd.launches == before + 1
+    err = (got - decode_attention_hd_ref(q, kt, vt, 10, **kw)).abs().max().item()
+    assert err < 2e-3
+
+
 SCRIPT = [50_363, 32, 104, 105, 50_363 + 96, 50_256]   # <|0.00|> " hi" <|1.92|> <|eot|>
 
 
@@ -1147,3 +1192,71 @@ def test_graph_capture_failure_raises(graph_runtimes, monkeypatch):
         rt.run_window(prompts, plens, cross, np.zeros(2, np.int32), np.full(2, 10**6, np.int32),
                       force_steps=3)
     assert k2.launches == before
+
+
+def _spawn(target: str, nprocs: int, **kw):
+    """``parallel.launch.spawn`` of ``tests/torch_parallel_cases.py:<target>``,
+    imported as a top-level module from this directory (a ``tests``
+    package elsewhere on the path cannot shadow it)."""
+    import os
+
+    from whisper_tpu_torch.parallel.launch import spawn
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PYTHONPATH", os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
+        return spawn(f"torch_parallel_cases:{target}", nprocs, **kw)
+
+
+@pytest.fixture(scope="module")
+def card_tp(scripted_path):
+    """2 gloo ranks on the card at n_model = 2 (tests/torch_parallel_cases.py)."""
+    _need_card()
+    return _spawn("card_tp_ranks", 2, args=(scripted_path,),
+                 device="cuda", backend="gloo", timeout=300.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["bf16", "f32"])
+def test_gloo_ranks_on_the_card_match_one_process(card_tp, tier):
+    """Two ranks on one card over gloo, 2 of 4 heads each (K1 and K2 at a
+    rank's share): run_full gives the script on both; the seeded window's
+    tokens, result_len and seek_delta equal one process's, its features
+    within 1e-3 x max(1, max |x|) on f32 (other reduction orders) and 5e-2
+    on bf16 (activations rounded to bf16 after other f32 sums)."""
+    for r in card_tp:
+        got = r[tier, "sharded"]
+        assert got["heads"] == 2
+        assert got["segments"] == [(" hi", 0, 192, SCRIPT[:5])]
+    one = card_tp[0][tier, "single"]
+    for r in card_tp:
+        feats, res = r[tier, "sharded"]["window"]
+        want_feats, want = one["window"]
+        tol = (1e-3 if tier == "f32" else 5e-2) * max(1.0, float(np.abs(want_feats).max()))
+        assert float(np.abs(feats - want_feats).max()) <= tol
+        n = int(want["result_len"][0])
+        assert (res["result_len"] == want["result_len"]).all()
+        assert (res["seek_delta"] == want["seek_delta"]).all()
+        assert (res["tokens"][0, :n] == want["tokens"][0, :n]).all()
+
+
+@pytest.mark.cuda
+def test_graphs_on_a_gloo_model_group_raise(card_tp):
+    """gloo's collectives cannot be captured: Model(mesh=) with the default
+    cuda_graphs=True on a gloo group of 2 ranks on the card raises."""
+    for r in card_tp:
+        assert r["refused"] is not None and "cuda_graphs=False" in r["refused"]
+
+
+@pytest.mark.cuda
+def test_nccl_one_by_one_mesh_with_graphs_equals_no_mesh(scripted_path):
+    """NCCL at world size 1: a 1x1 mesh, its token steps replayed as CUDA
+    graphs, gives mesh=None's run_full and window bit for bit."""
+    _need_card()
+    (r,) = _spawn("card_nccl_rank", 1, args=(scripted_path,),
+                 device="cuda", backend="nccl", timeout=300.0)
+    a, b = r["mesh=None"], r["1x1"]
+    assert b["replays"] > 0 and a["replays"] > 0
+    assert a["segments"] == b["segments"] == [(" hi", 0, 192, SCRIPT[:5])]
+    assert np.array_equal(a["window"][0], b["window"][0])
+    assert all(np.array_equal(a["window"][1][k], v) for k, v in b["window"][1].items())

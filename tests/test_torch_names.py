@@ -142,7 +142,7 @@ def test_filters_module_is_the_jax_filterbank(n_mels):
     assert tf.mel_filter_bank is ggml.mel_filter_bank      # one copy of the code
 
 
-@pytest.mark.parametrize("pkg", ["features", "audio", "model", "kernels"])
+@pytest.mark.parametrize("pkg", ["features", "audio", "model", "kernels", "parallel"])
 def test_package_reexports_match_jax(pkg):
     """Every name the JAX package's subpackage exports, the port's exports
     too, from the module of the same name."""

@@ -71,6 +71,13 @@ SLICE_MODULES = [
     "whisper_tpu_torch.obs",
     "whisper_tpu_torch.runtime",
     "whisper_tpu_torch.tools",
+    "whisper_tpu_torch.parallel",
+    "whisper_tpu_torch.parallel.group",
+    "whisper_tpu_torch.parallel.mesh",
+    "whisper_tpu_torch.parallel.sharding",
+    "whisper_tpu_torch.parallel.launch",
+    "whisper_tpu_torch.native",
+    "whisper_tpu_torch.audio.ffdecode",
 ]
 
 

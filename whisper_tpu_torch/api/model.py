@@ -3,6 +3,16 @@
 Counterpart of ``whisper_tpu.api.model``: owns the checkpoint-derived
 state (dims, vocabulary, mel front-end, parameters and runtime) on one
 device, ``"cuda"`` unless the caller asks for the CPU.
+
+With ``mesh=`` (``parallel.make_mesh``, after ``init_distributed``) every
+rank builds the same Model: the parameters are quantized (serving tier)
+and then sharded over the mesh's "model" axis, so each rank holds its
+share of the heads and of the vocabulary, and every rank calls the same
+Context entry points on the same input and gets the same result (SPMD).
+As in the JAX package, the Model does not split lanes over "data"; that
+is ``parallel.sharding.shard_batch`` at the runtime level.
+``cuda_graphs=False`` runs the token steps eagerly: a gloo model group of
+more than one rank on the card needs it (``runtime/context.py``).
 """
 
 from __future__ import annotations
@@ -33,9 +43,8 @@ class Model:
         mesh=None,
         progress=None,
         device: str | torch.device = "cuda",
+        cuda_graphs: bool = True,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (sharding over devices) is not ported to whisper_tpu_torch yet")
         self.device = resolve_device(device)
         t0 = time.perf_counter()
         cp = load_checkpoint(path, progress=progress)
@@ -45,10 +54,16 @@ class Model:
         params = params_from_checkpoint(cp, policy, self.device)
         self.load_time_cpu_s = time.perf_counter() - t0
 
+        if mesh is not None:
+            from whisper_tpu_torch.parallel.sharding import shard_params
+
+            params = shard_params(params, mesh)
+        self.mesh = mesh
+
         self.mel = LogMelSpectrogram(cp.filters.data, mode=mel_mode, device=self.device)
         self.runtime = WhisperRuntime(
             params, cp.dims, SpecialIds.from_vocab(self.vocab),
-            compute_dtype=policy.compute_dtype, device=self.device,
+            compute_dtype=policy.compute_dtype, device=self.device, cuda_graphs=cuda_graphs,
         )
         self.load_time_total_s = time.perf_counter() - t0
 
@@ -83,5 +98,7 @@ def load_model(
     mesh=None,
     progress=None,
     device: str | torch.device = "cuda",
+    cuda_graphs: bool = True,
 ) -> Model:
-    return Model(path, policy=policy, mel_mode=mel_mode, mesh=mesh, progress=progress, device=device)
+    return Model(path, policy=policy, mel_mode=mel_mode, mesh=mesh, progress=progress, device=device,
+                 cuda_graphs=cuda_graphs)

@@ -1,13 +1,16 @@
 """Audio file decode to float32 PCM @ 16 kHz.
 
-Counterpart of ``whisper_tpu.audio.load`` for WAV files (scipy), plus the
+Counterpart of ``whisper_tpu.audio.load``: WAV files through scipy, any
+other format through the native libavformat decoder (``audio/ffdecode.py``,
+where it is built) or else an ``ffmpeg`` binary on the PATH; plus the
 SpeedupAudio 2x compression and the chunked reader of streamed input
-(``ChunkedReader``). Compressed formats (the JAX package's native
-libavformat and ffmpeg paths) are not ported yet and raise.
+(``ChunkedReader``).
 """
 
 from __future__ import annotations
 
+import shutil
+import subprocess
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -61,15 +64,49 @@ def _load_wav(path: str) -> tuple[np.ndarray, int]:
     return data, rate
 
 
+def _load_via_ffmpeg(path: str, stereo: bool) -> tuple[np.ndarray, int]:
+    ffmpeg = shutil.which("ffmpeg")
+    if not ffmpeg:
+        raise RuntimeError(
+            f"cannot decode {path!r}: not a WAV file and ffmpeg is unavailable"
+        )
+    channels = "2" if stereo else "1"
+    out = subprocess.run(
+        [
+            ffmpeg, "-nostdin", "-i", path, "-f", "f32le", "-ac", channels,
+            "-ar", str(SAMPLE_RATE), "-",
+        ],
+        capture_output=True,
+        check=True,
+    ).stdout
+    data = np.frombuffer(out, np.float32)
+    if stereo:
+        data = data.reshape(-1, 2)
+    return data, SAMPLE_RATE
+
+
+def _load_via_native(path: str, stereo: bool) -> tuple[np.ndarray, int]:
+    """Native libavformat decoder (native/audio_decode.cpp); raises when the
+    library is unavailable so the caller can try the ffmpeg binary."""
+    from whisper_tpu_torch.audio import ffdecode
+
+    data = ffdecode.decode_file(path, SAMPLE_RATE, 2 if stereo else 1)
+    if data is None:
+        raise RuntimeError("libwhisper_audio.so not built")
+    return data, SAMPLE_RATE
+
+
 def load_audio_file(path: str, want_stereo: bool = False) -> AudioBuffer:
-    """Decode a WAV file to 16 kHz float32."""
+    """Decode any supported file to 16 kHz float32: WAV, else the native
+    decoder, else the ffmpeg binary; when none can read it, the ffmpeg
+    path's error."""
     try:
         data, rate = _load_wav(path)
-    except ValueError as e:
-        raise NotImplementedError(
-            f"cannot read {path!r} as WAV ({e}); other formats are not ported to "
-            "whisper_tpu_torch yet"
-        ) from e
+    except Exception:
+        try:
+            data, rate = _load_via_native(path, want_stereo)
+        except Exception:
+            data, rate = _load_via_ffmpeg(path, want_stereo)
 
     if data.ndim == 2:  # [N, C]
         stereo = None

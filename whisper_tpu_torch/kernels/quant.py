@@ -20,14 +20,20 @@ from __future__ import annotations
 import torch
 
 
-def quantize_cols(x: torch.Tensor, axis: int) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_cols(x: torch.Tensor, axis: int, reduce_max=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 with one scale per slice along ``axis``.
 
     x [..., HD, S] with axis=-2 -> (int8 x, f32 scale [..., 1, S]).
     x [B, S, HD] with axis=-1   -> (int8 x, f32 scale [B, S, 1]).
+
+    ``reduce_max`` takes the slices' maxima (f32, in place) before the
+    scale: tensor parallelism's MAX all-reduce over the ranks that each
+    hold part of the slice.
     """
     xf = x.float()
     amax = xf.abs().amax(dim=axis, keepdim=True)
+    if reduce_max is not None:
+        amax = reduce_max(amax)
     scale = amax.clamp_min(1e-8) / 127.0
     q = torch.round(xf / scale).clamp_(-127, 127)
     return q.to(torch.int8), scale

@@ -32,6 +32,15 @@ and an int8 token embedding ``tok_s``: gathered rows are dequantized, the
 logits get a per-vocab-row scale. The int8 -> bf16 conversion of each
 weight (``dense``) and of the embedding table (logits) is a separate pass
 on every step that XLA fused into the product.
+
+Tensor parallelism (``params.tp`` of size n > 1, ``parallel/sharding.py``):
+a rank holds H/n heads, so its caches are [L, B, HD/n, C]; the out
+projections and fc2 are row-parallel (``row_dense``: all-reduce, then the
+bias); the int8 caches' column scales take the max over every rank's rows
+(a MAX all-reduce); the token table is split by vocabulary rows, so the
+embedding is a masked lookup of the rank's rows plus an all-reduce and the
+logits are the rank's columns gathered from every rank and cut back to
+``n_vocab``. At n = 1 none of this launches anything.
 """
 
 from __future__ import annotations
@@ -43,8 +52,9 @@ import torch
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
 from whisper_tpu_torch.kernels.quant import dequantize, quantize_cols
-from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, qkv_proj
+from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, qkv_proj, row_dense
 from whisper_tpu_torch.model.params import Block, WhisperParams
+from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 
 
 class SelfKV(NamedTuple):
@@ -60,8 +70,11 @@ class SelfKV(NamedTuple):
 def init_self_kv(
     dims: ModelDims, batch: int, dtype: torch.dtype = torch.bfloat16,
     device: str | torch.device = "cuda", cache_len: int | None = None, quant: bool = False,
+    tp: AxisGroup = SINGLE,
 ) -> SelfKV:
-    shape = (dims.n_text_layer, batch, dims.n_text_state, cache_len or dims.n_text_ctx)
+    """A zeroed self cache of ``batch`` lanes holding this rank's rows of
+    ``tp`` (all of them unsharded)."""
+    shape = (dims.n_text_layer, batch, tp.part(dims.n_text_state), cache_len or dims.n_text_ctx)
     if quant:
         sshape = shape[:2] + (1, shape[3])
         return SelfKV(torch.zeros(shape, dtype=torch.int8, device=device),
@@ -106,9 +119,10 @@ def _cross_attention(h, blk: Block, xk, xv, xk_s, xv_s, n_head: int, compute_dty
     """Cross-attention over transposed K/V [B/G, HD, Sx] (int8 with column
     scales xk_s/xv_s [B/G, 1, Sx], or None); ``cross_group`` G consecutive
     query lanes share one K/V lane. h: normalized input [B, S, d].
-    Returns [B, S, d] f32."""
-    b, s, d = h.shape
+    Returns [B, S, HD] f32, HD = this rank's heads x Dh."""
+    b, s, _ = h.shape
     q = dense(h, blk.xq_w, blk.xq_b, s=getattr(blk, "xq_w_s", None)).to(compute_dtype)
+    d = q.shape[-1]
     if s == 1:
         out = decode_attention_hd(q.reshape(b, d, 1), xk, xv, n_head, k_scale=xk_s,
                                   v_scale=xv_s, kv_group=cross_group)
@@ -162,11 +176,13 @@ def _self_attention(q, k_cache, v_cache, k_s, v_s, write_pos, attn_start, valid_
 
 
 def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos, attn_start, valid_len,
-                   xk, xv, xk_s, xv_s, n_head: int, compute_dtype, cross_group: int = 1):
+                   xk, xv, xk_s, xv_s, n_head: int, compute_dtype, cross_group: int = 1,
+                   tp: AxisGroup = SINGLE):
     """One decoder block; writes layer li's new K/V columns (and, for an
     int8 cache, their scales) in place. x [B,S,d]; xk/xv [B/G,HD,Sx] with
-    optional scales xk_s/xv_s [B/G,1,Sx]. Returns x."""
-    b, s, d = x.shape
+    optional scales xk_s/xv_s [B/G,1,Sx]; ``n_head`` and HD are this
+    rank's share of ``tp``. Returns x."""
+    b, s, _ = x.shape
     quant = kv.k_s is not None
 
     h = layer_norm(x, blk.attn_ln_w, blk.attn_ln_b).to(compute_dtype)
@@ -175,10 +191,11 @@ def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos, attn_start, va
                                dtype=torch.float32 if quant else compute_dtype,
                                qkv_s=getattr(blk, "qkv_w_s", None))
     q = q.to(compute_dtype)
-    k_new, v_new = k_new.reshape(b, s, d), v_new.reshape(b, s, d)
+    k_new, v_new = k_new.reshape(b, s, -1), v_new.reshape(b, s, -1)
     if quant:
         for cache, scales, new in ((kv.k, kv.k_s, k_new), (kv.v, kv.v_s, v_new)):
-            codes, sc = quantize_cols(new, axis=-1)       # int8 [B,S,HD], f32 [B,S,1]
+            # int8 [B,S,HD], f32 [B,S,1]; each scale the max over all ranks' rows
+            codes, sc = quantize_cols(new, axis=-1, reduce_max=tp.max)
             _cache_write(cache, li, codes, write_pos)
             _cache_write(scales, li, sc, write_pos)
         k_s, v_s = kv.k_s[li], kv.v_s[li]
@@ -188,17 +205,18 @@ def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos, attn_start, va
         k_s = v_s = None
     att = _self_attention(q, kv.k[li], kv.v[li], k_s, v_s, write_pos, attn_start, valid_len,
                           n_head, compute_dtype)
-    x = x + dense(att.to(compute_dtype), blk.o_w, blk.o_b,
-                  s=getattr(blk, "o_w_s", None)).to(compute_dtype)
+    x = x + row_dense(att.to(compute_dtype), blk.o_w, blk.o_b,
+                      s=getattr(blk, "o_w_s", None), tp=tp).to(compute_dtype)
 
     h = layer_norm(x, blk.x_ln_w, blk.x_ln_b).to(compute_dtype)
     att = _cross_attention(h, blk, xk, xv, xk_s, xv_s, n_head, compute_dtype, cross_group)
-    x = x + dense(att.to(compute_dtype), blk.xo_w, blk.xo_b,
-                  s=getattr(blk, "xo_w_s", None)).to(compute_dtype)
+    x = x + row_dense(att.to(compute_dtype), blk.xo_w, blk.xo_b,
+                      s=getattr(blk, "xo_w_s", None), tp=tp).to(compute_dtype)
 
     h = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b).to(compute_dtype)
     h = gelu(dense(h, blk.fc1_w, blk.fc1_b, s=getattr(blk, "fc1_w_s", None))).to(compute_dtype)
-    return x + dense(h, blk.fc2_w, blk.fc2_b, s=getattr(blk, "fc2_w_s", None)).to(compute_dtype)
+    return x + row_dense(h, blk.fc2_w, blk.fc2_b, s=getattr(blk, "fc2_w_s", None),
+                         tp=tp).to(compute_dtype)
 
 
 def decode_step(
@@ -250,19 +268,18 @@ def decode_step(
     xk_s = cross_kv[2] if len(cross_kv) > 2 else None
     xv_s = cross_kv[3] if len(cross_kv) > 2 else None
     tok_s = getattr(dec, "tok_s", None)
+    tp = params.tp
+    n_head = tp.part(dims.n_text_head)
 
     n_ctx = dec.pos.shape[0]
     pos_idx = (pos0.long()[:, None] + torch.arange(s, device=device)[None, :]).clamp(0, n_ctx - 1)
-    emb = dec.tok[tokens.long()]
-    if tok_s is not None:                        # int8 embedding: dequantize the gathered rows
-        emb = emb.float() * tok_s[tokens.long()]
-    x = (emb + dec.pos[pos_idx]).to(compute_dtype)
+    x = (_embed(dec, tokens.long(), tp) + dec.pos[pos_idx]).to(compute_dtype)
 
     for li, blk in enumerate(dec.blocks):
         x = _decoder_block(x, blk, self_kv, li, write_pos, attn_start, valid_len,
                            cross_kv[0][li], cross_kv[1][li],
                            None if xk_s is None else xk_s[li], None if xv_s is None else xv_s[li],
-                           dims.n_text_head, compute_dtype, cross_group)
+                           n_head, compute_dtype, cross_group, tp)
 
     x = layer_norm(x, dec.ln_w, dec.ln_b)        # [B, S, d] f32
     if last_only:
@@ -270,4 +287,25 @@ def decode_step(
     # int8 table: per-vocab-row scale epilogue ([V, 1] -> [1, V])
     logits = dense(x.to(compute_dtype), dec.tok.T.to(compute_dtype),
                    s=None if tok_s is None else tok_s.T)
+    if tp.size > 1:          # the rank's vocab columns, gathered; the pad rows cut
+        logits = tp.gather(logits)[..., : dims.n_vocab]
     return logits, self_kv
+
+
+def _embed(dec, tokens: torch.Tensor, tp: AxisGroup) -> torch.Tensor:
+    """Token embedding rows of ``tokens`` (int64), dequantized for an int8
+    table. Under tensor parallelism a rank holds rows [r*V', (r+1)*V') of
+    the (padded) table: it looks up the tokens it holds, zeros the others,
+    and the ranks' rows are summed (all-reduce, f32)."""
+    tok_s = getattr(dec, "tok_s", None)
+    if tp.size > 1:
+        rows = dec.tok.shape[0]
+        tokens = tokens - tp.rank * rows
+        held = (tokens >= 0) & (tokens < rows)
+        tokens = torch.where(held, tokens, 0)
+    emb = dec.tok[tokens]
+    if tok_s is not None:                        # int8 embedding: dequantize the gathered rows
+        emb = emb.float() * tok_s[tokens]
+    if tp.size > 1:
+        emb = tp.sum(torch.where(held[..., None], emb.float(), 0.0))
+    return emb

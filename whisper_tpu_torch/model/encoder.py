@@ -22,8 +22,9 @@ import torch.nn.functional as F
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.attention import flash_attention
 from whisper_tpu_torch.kernels.quant import quantize_cols
-from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, merge_heads, qkv_proj
+from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, merge_heads, qkv_proj, row_dense
 from whisper_tpu_torch.model.params import Block, WhisperParams
+from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 
 
 def _unfold3(x: torch.Tensor, stride: int) -> torch.Tensor:
@@ -50,17 +51,20 @@ def _conv_stem(enc, mel: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tens
     return gelu(y)
 
 
-def _encoder_block(x: torch.Tensor, blk: Block, n_head: int, compute_dtype: torch.dtype) -> torch.Tensor:
-    """One pre-LN encoder block. x: [B, T, d] compute_dtype."""
+def _encoder_block(x: torch.Tensor, blk: Block, n_head: int, compute_dtype: torch.dtype,
+                   tp: AxisGroup = SINGLE) -> torch.Tensor:
+    """One pre-LN encoder block. x: [B, T, d] compute_dtype. ``n_head``:
+    this rank's heads; the out projection and fc2 are row-parallel over
+    ``tp``."""
     h = layer_norm(x, blk.attn_ln_w, blk.attn_ln_b).to(compute_dtype)
     # q, k, v: strided views of one [B, T, H, 3, Dh] tensor, read in place
     q, k, v = qkv_proj(h, blk.qkv_w, blk.qkv_b, n_head, dtype=compute_dtype)
     att = merge_heads(flash_attention(q, k, v)).to(compute_dtype)
-    x = x + dense(att, blk.o_w, blk.o_b).to(compute_dtype)
+    x = x + row_dense(att, blk.o_w, blk.o_b, tp=tp).to(compute_dtype)
 
     h = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b).to(compute_dtype)
     h = gelu(dense(h, blk.fc1_w, blk.fc1_b)).to(compute_dtype)
-    return x + dense(h, blk.fc2_w, blk.fc2_b).to(compute_dtype)
+    return x + row_dense(h, blk.fc2_w, blk.fc2_b, tp=tp).to(compute_dtype)
 
 
 def encode(
@@ -74,8 +78,9 @@ def encode(
     x = _conv_stem(enc, mel, compute_dtype)
     t = x.shape[1]
     x = (x + enc.pos[:t]).to(compute_dtype)
+    n_head = params.tp.part(dims.n_audio_head)
     for blk in enc.blocks:
-        x = _encoder_block(x, blk, dims.n_audio_head, compute_dtype)
+        x = _encoder_block(x, blk, n_head, compute_dtype, params.tp)
     return layer_norm(x, enc.ln_post_w, enc.ln_post_b)
 
 
@@ -100,11 +105,15 @@ def precompute_cross_kv(
     TRANSPOSED (features-major) [L, B, H*Dh, T] in compute_dtype, or with
     ``quant`` as int8 with f32 scales [L, B, 1, T] (each column quantized
     from its compute_dtype values): decode reads this array on every token
-    step, so int8 halves the step's largest stream."""
+    step, so int8 halves the step's largest stream. Under tensor
+    parallelism a rank holds its heads' HD/n rows; each column's int8
+    scale is the max over all ranks' rows (a MAX all-reduce), as GSPMD
+    reduces over the sharded axis, so the scales stay replicated and the
+    codes are the unsharded ones."""
     xf = audio_features.to(compute_dtype)
-    b, t, d = xf.shape
+    b, t, _ = xf.shape
     blocks = params.dec.blocks
-    shape = (len(blocks), b, d, t)
+    shape = (len(blocks), b, blocks[0].xk_w.shape[-1], t)
     k = torch.empty(shape, dtype=torch.int8 if quant else compute_dtype, device=xf.device)
     v = torch.empty_like(k)
     if quant:
@@ -114,8 +123,8 @@ def precompute_cross_kv(
         kl = dense(xf, blk.xk_w).to(compute_dtype).transpose(1, 2)       # [B, HD, T]
         vl = dense(xf, blk.xv_w, blk.xv_b).to(compute_dtype).transpose(1, 2)
         if quant:
-            k[li], k_s[li] = quantize_cols(kl, axis=-2)
-            v[li], v_s[li] = quantize_cols(vl, axis=-2)
+            k[li], k_s[li] = quantize_cols(kl, axis=-2, reduce_max=params.tp.max)
+            v[li], v_s[li] = quantize_cols(vl, axis=-2, reduce_max=params.tp.max)
         else:
             k[li], v[li] = kl, vl
     return CrossKV(k, v, k_s, v_s) if quant else CrossKV(k, v)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
+
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with GGML's eps=1e-5 (biased variance, eps inside the
@@ -44,6 +46,27 @@ def dense(
         y = y.reshape(*lead, w.shape[-1])
     else:
         y = torch.matmul(x.float(), w.float())
+    if s is not None:
+        y = y * s
+    if b is not None:
+        y = y + b
+    return y
+
+
+def row_dense(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    s: torch.Tensor | None = None,
+    tp: AxisGroup = SINGLE,
+) -> torch.Tensor:
+    """``dense`` for a row-parallel weight (rows split over ``tp``, the
+    input's last dim too): the rank's f32 partial product is all-reduced
+    over ``tp`` first, then the scale and the replicated bias are applied
+    once. Unsharded (size 1), exactly ``dense``."""
+    if tp.size == 1:
+        return dense(x, w, b, s)
+    y = tp.sum(dense(x, w))
     if s is not None:
         y = y * s
     if b is not None:

@@ -31,6 +31,7 @@ from torch import nn
 from whisper_tpu_torch.config import resolve_device
 from whisper_tpu_torch.ggml import Checkpoint, RawTensor, load_checkpoint
 from whisper_tpu_torch.hparams import ModelDims
+from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,7 +225,12 @@ class Decoder(nn.Module):
 
 class WhisperParams(nn.Module):
     """The whole parameter set: ``enc`` and ``dec`` (the JAX pytree's
-    ``params["enc"]`` and ``params["dec"]``)."""
+    ``params["enc"]`` and ``params["dec"]``). ``tp`` is the mesh's "model"
+    axis the tensors are sharded over (``parallel.sharding.shard_params``);
+    the model code derives its local head counts and widths from it and
+    runs its collectives on it. Unsharded: size 1, no collective."""
+
+    tp: AxisGroup = SINGLE
 
     def __init__(self, enc: Encoder, dec: Decoder):
         super().__init__()

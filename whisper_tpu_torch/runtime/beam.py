@@ -240,7 +240,7 @@ def _beam_window(runtime, prompts: torch.Tensor, prompt_lens: torch.Tensor, cros
         # and its columns and logits are copied to the beams; the JAX
         # package ingests it on every beam lane, with the same result. ---
         kv_u = init_self_kv(dims, u, dtype=runtime.compute_dtype, device=device, cache_len=p_max,
-                            quant=runtime.kv_int8)
+                            quant=runtime.kv_int8, tp=runtime.params.tp)
         logits_u, attn_u = ingest_prompt(runtime.params, dims, prompts, prompt_lens, kv_u, cross,
                                          runtime.compute_dtype)
         for a, a_u in zip(kv, kv_u):

@@ -20,6 +20,12 @@ self K/V caches with per-column scales, read by the decode-attention kernel
 (the serving tier, with ``DtypePolicy.serving()`` weights). KernelConfig's
 other fields have no counterpart: the tensors' device selects kernel or
 plain version.
+
+Parameters sharded over a mesh's "model" axis (``parallel.sharding``) run
+their collectives inside the step. NCCL's can be captured in a CUDA graph,
+gloo's cannot (gloo is how two ranks share one card), so a runtime whose
+model group is gloo with more than one rank on the card takes
+``cuda_graphs=False``; asking it for graphs raises.
 """
 
 from __future__ import annotations
@@ -60,6 +66,18 @@ class WhisperRuntime:
         self.cuda_graphs = cuda_graphs
         self.graphs = StepGraphs()
 
+    @property
+    def cuda_graphs(self) -> bool:
+        return self._cuda_graphs
+
+    @cuda_graphs.setter
+    def cuda_graphs(self, on: bool) -> None:
+        tp = self.params.tp
+        if on and self.device.type == "cuda" and not tp.capturable:
+            raise ValueError(f"a CUDA graph cannot capture {tp.backend} collectives (a model group "
+                             f"of {tp.size} ranks): pass cuda_graphs=False")
+        self._cuda_graphs = on
+
     # Prompt capacity: [_PREV_] + n_text_ctx/2 past tokens + SOT + lang + task
     # (reference prompt assembly, ContextImpl.cpp:562-576).
     @property
@@ -79,7 +97,7 @@ class WhisperRuntime:
     def self_kv(self, lanes: int):
         """A zeroed self cache of ``lanes`` lanes in this runtime's layout."""
         return init_self_kv(self.dims, lanes, dtype=self.compute_dtype, device=self.device,
-                            quant=self.kv_int8)
+                            quant=self.kv_int8, tp=self.params.tp)
 
     def slot(self, kind: str, state_fn, lanes: int, p_max: int, cross_kv: CrossKV) -> Slot:
         """The static tensors of a ``kind`` loop of this shape (made at first
