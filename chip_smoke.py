@@ -2127,15 +2127,16 @@ def parallel_ranks(scripted: str, large: str) -> dict:
 
     def step_ms(rt, cross):
         """ms a token step: forced windows of 2 and 6 steps (the prompt
-        ingest cancels out), and the collectives' share of a profiled
-        6-step window."""
+        ingest cancels out), the collectives' share of a profiled 6-step
+        window, and the 6-step window's result (6 tokens past the EOT)."""
         def forced(n):
-            return sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end, force_steps=n))[0]
+            return sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end, force_steps=n))
 
         forced(2)                                                              # warm-up
-        ms = (forced(6) - forced(2)) / 4
+        ms6, res6 = forced(6)
+        ms = (ms6 - forced(2)[0]) / 4
         _, prof_ms, coll = collective_ms(lambda: forced(6))
-        return ms, coll / prof_ms
+        return ms, coll / prof_ms, res6
 
     # f32 tier, tensor parallel: 10 heads a rank
     params = params_from_numpy(tree, "cuda", DtypePolicy.f32())
@@ -2146,7 +2147,7 @@ def parallel_ranks(scripted: str, large: str) -> dict:
     k1_f32, k2 = counts["k1_f32"], counts["k2"]
     steps = int(res.steps)
     _, enc_prof_ms, enc_coll = collective_ms(lambda: rt.encode_window(mel))
-    ms, share = step_ms(rt, counts["cross"])
+    ms, share, forced6 = step_ms(rt, counts["cross"])
     rec = dict(enc_ms=enc_ms, window_ms=win_ms, steps=steps, ms_per_step=ms, k1_f32=k1_f32, k2=k2,
                heads=sharded.tp.part(dims.n_audio_head), encode_collective_share=enc_coll / enc_prof_ms,
                step_collective_share=share)
@@ -2158,18 +2159,25 @@ def parallel_ranks(scripted: str, large: str) -> dict:
         one = WhisperRuntime(params, dims, ids, compute_dtype=torch.float32, cuda_graphs=False)
         window(one, mel, prompt, plen, seek, seek_end)                         # warm-up
         feats1, res1, enc1, win1, counts1 = window(one, mel, prompt, plen, seek, seek_end)
+        one_ms, _, forced6_1 = step_ms(one, counts1["cross"])
+
+        def same(a, b):
+            n = int(b.result_len[0])
+            return (torch.equal(a.result_len, b.result_len) and torch.equal(a.seek_delta, b.seek_delta)
+                    and torch.equal(a.tokens[0, :n], b.tokens[0, :n]))
+
         n = int(res1.result_len[0])
-        rec.update(one_enc_ms=enc1, one_window_ms=win1, one_ms_per_step=step_ms(one, counts1["cross"])[0],
+        rec.update(one_enc_ms=enc1, one_window_ms=win1, one_ms_per_step=one_ms,
                    feats_err=(feats - feats1).abs().max().item(),
                    feats_tol=1e-3 * max(1.0, feats1.abs().max().item()),
-                   same_window=(torch.equal(res.result_len, res1.result_len)
-                                and torch.equal(res.seek_delta, res1.seek_delta)
-                                and torch.equal(res.tokens[0, :n], res1.tokens[0, :n])),
-                   tokens=res1.tokens[0, :n].tolist())
+                   same_window=same(res, res1), tokens=res1.tokens[0, :n].tolist(),
+                   same_forced6=same(forced6, forced6_1),
+                   forced6_tokens=forced6_1.tokens[0, :int(forced6_1.result_len[0])].tolist())
         note(f"large-v2 f32, one process: encode {enc1:.1f} ms, window {win1:.1f} ms, "
              f"{rec['one_ms_per_step']:.2f} ms a token step; features "
              f"max_abs_err {rec['feats_err']:.3e} (tol {rec['feats_tol']:.3e}); tokens, result_len "
-             f"and seek_delta identical: {rec['same_window']} ({rec['tokens']})")
+             f"and seek_delta identical: {rec['same_window']} ({rec['tokens']}); in the forced "
+             f"6-step window: {rec['same_forced6']} ({rec['forced6_tokens']})")
         del one
     out["large-v2 f32 tp"] = rec
     del rt, sharded
@@ -2303,8 +2311,8 @@ def parallel_phase(tmp: str, scripted: str, large: str) -> dict:
         bf = r["large-v2 bf16 tp"]
         check(bf["k1"] == 32 and bf["k2"] == 64, f"large-v2 bf16 at n_model=2: K1 {bf['k1']}, K2 {bf['k2']}")
     tp, dp, bf = r0["large-v2 f32 tp"], r0["large-v2 f32 dp"], r0["large-v2 bf16 tp"]
-    check(tp["feats_err"] <= tp["feats_tol"] and tp["same_window"],
-          f"large-v2 f32 at n_model=2 against one process: {tp}")
+    check(tp["feats_err"] <= tp["feats_tol"] and tp["same_window"] and tp["same_forced6"]
+          and len(tp["forced6_tokens"]) == 6, f"large-v2 f32 at n_model=2 against one process: {tp}")
     check(dp["same_tokens"], f"large-v2 f32, 2 ranks x B=4 against B=8: {dp}")
     check(bf["err"] <= bf["tol"], f"large-v2 bf16 first-step logits at n_model=2: {bf}")
     log("[parallel] NCCL at world size 1")

@@ -17,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_parallel_cases import spawn_case
+
 
 def _need_card():
     if not torch.cuda.is_available():
@@ -1194,26 +1196,12 @@ def test_graph_capture_failure_raises(graph_runtimes, monkeypatch):
     assert k2.launches == before
 
 
-def _spawn(target: str, nprocs: int, **kw):
-    """``parallel.launch.spawn`` of ``tests/torch_parallel_cases.py:<target>``,
-    imported as a top-level module from this directory (a ``tests``
-    package elsewhere on the path cannot shadow it)."""
-    import os
-
-    from whisper_tpu_torch.parallel.launch import spawn
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("PYTHONPATH", os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
-        return spawn(f"torch_parallel_cases:{target}", nprocs, **kw)
-
-
 @pytest.fixture(scope="module")
 def card_tp(scripted_path):
     """2 gloo ranks on the card at n_model = 2 (tests/torch_parallel_cases.py)."""
     _need_card()
-    return _spawn("card_tp_ranks", 2, args=(scripted_path,),
-                 device="cuda", backend="gloo", timeout=300.0)
+    return spawn_case("card_tp_ranks", 2, args=(scripted_path,),
+                      device="cuda", backend="gloo", timeout=300.0)
 
 
 @pytest.mark.cuda
@@ -1253,8 +1241,8 @@ def test_nccl_one_by_one_mesh_with_graphs_equals_no_mesh(scripted_path):
     """NCCL at world size 1: a 1x1 mesh, its token steps replayed as CUDA
     graphs, gives mesh=None's run_full and window bit for bit."""
     _need_card()
-    (r,) = _spawn("card_nccl_rank", 1, args=(scripted_path,),
-                 device="cuda", backend="nccl", timeout=300.0)
+    (r,) = spawn_case("card_nccl_rank", 1, args=(scripted_path,),
+                      device="cuda", backend="nccl", timeout=300.0)
     a, b = r["mesh=None"], r["1x1"]
     assert b["replays"] > 0 and a["replays"] > 0
     assert a["segments"] == b["segments"] == [(" hi", 0, 192, SCRIPT[:5])]

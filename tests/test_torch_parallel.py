@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from tests.helpers import TINY_TEST_DIMS, make_random_checkpoint, make_scripted_checkpoint
+from torch_parallel_cases import spawn_case
 
 BEG, EOT = 50_363, 50_256
 SCRIPT = [BEG, 32, 104, 105, BEG + 96, EOT]  # <|0.00|> " hi" <|1.92|> <|eot|>
@@ -40,20 +41,6 @@ def _port_dims(dims):
     return ModelDims(**{f: getattr(dims, f) for f in dims.__dataclass_fields__})
 
 
-def _spawn(target: str, nprocs: int, **kw):
-    """``parallel.launch.spawn`` of ``tests/torch_parallel_cases.py:<target>``,
-    imported as a top-level module from this directory (a ``tests``
-    package elsewhere on the path cannot shadow it)."""
-    import os
-
-    from whisper_tpu_torch.parallel.launch import spawn
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("PYTHONPATH", os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
-        return spawn(f"torch_parallel_cases:{target}", nprocs, **kw)
-
-
 @pytest.fixture(scope="module")
 def inputs(tmp_path_factory):
     """tests/test_sharding.py's checkpoint (seed 60) and mel (seed 61)."""
@@ -70,7 +57,7 @@ def inputs(tmp_path_factory):
 @pytest.fixture(scope="module")
 def four_ranks(inputs):
     path, mel, _ = inputs
-    return _spawn("mesh_runs", 4, args=(path, mel), timeout=TIMEOUT)
+    return spawn_case("mesh_runs", 4, args=(path, mel), device="cpu", timeout=TIMEOUT)
 
 
 @pytest.fixture(scope="module")
@@ -200,8 +187,8 @@ def two_ranks(inputs):
         trees[name] = jax.tree_util.tree_map(np.asarray, p)
         dims[name] = _port_dims(jd)
     audio = np.zeros(16_000 * 2, np.float32)
-    return _spawn("tp_runs", 2,
-                 args=(trees, dims, scripted, path, audio), timeout=TIMEOUT), trees
+    return spawn_case("tp_runs", 2, args=(trees, dims, scripted, path, audio),
+                      device="cpu", timeout=TIMEOUT), trees
 
 
 @pytest.mark.parametrize("case", ["int8 weights", "odd vocab f32", "odd vocab int8"])
@@ -311,4 +298,4 @@ def test_spawn_kills_the_ranks_and_raises_when_one_fails():
     """A rank that raises fails the run at once, with its error output,
     and the rank left waiting in a collective is killed."""
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
-        _spawn("fail_on_rank_1", 2, timeout=TIMEOUT)
+        spawn_case("fail_on_rank_1", 2, device="cpu", timeout=TIMEOUT)

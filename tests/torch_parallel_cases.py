@@ -1,9 +1,10 @@
 """The ranks' side of tests/test_torch_parallel.py and of the parallel tests
 of tests/test_torch_cuda.py.
 
-Each function runs in one process per rank, started by
+Each function but ``spawn_case`` runs in one process per rank, started by
 ``whisper_tpu_torch.parallel.launch.spawn`` (gloo on the CPU, one thread a
-rank), and returns numpy arrays for the test to compare. The unsharded
+rank), and returns numpy arrays for the test to compare; the tests start
+them with ``spawn_case``. The unsharded
 reference each test needs is computed in the same processes, so both sides
 run with the same thread count. This module imports neither JAX nor the
 JAX package: the children do not need it.
@@ -15,6 +16,22 @@ import numpy as np
 import torch
 
 F32 = torch.float32
+
+
+def spawn_case(target: str, nprocs: int, **kw):
+    """``parallel.launch.spawn`` of this module's ``target``, imported by the
+    ranks as a top-level module from this directory (a ``tests`` package
+    elsewhere on the path cannot shadow it). ``kw`` goes to ``spawn``."""
+    import os
+
+    import pytest
+
+    from whisper_tpu_torch.parallel.launch import spawn
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PYTHONPATH", os.pathsep.join(p for p in (here, os.environ.get("PYTHONPATH")) if p))
+        return spawn(f"torch_parallel_cases:{target}", nprocs, **kw)
 
 
 def _np(t) -> np.ndarray:

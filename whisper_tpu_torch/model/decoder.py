@@ -35,8 +35,8 @@ on every step that XLA fused into the product.
 
 Tensor parallelism (``params.tp`` of size n > 1, ``parallel/sharding.py``):
 a rank holds H/n heads, so its caches are [L, B, HD/n, C]; the out
-projections and fc2 are row-parallel (``row_dense``: all-reduce, then the
-bias); the int8 caches' column scales take the max over every rank's rows
+projections and fc2 are row-parallel (``dense(..., tp=)``: all-reduce, then
+the bias); the int8 caches' column scales take the max over every rank's rows
 (a MAX all-reduce); the token table is split by vocabulary rows, so the
 embedding is a masked lookup of the rank's rows plus an all-reduce and the
 logits are the rank's columns gathered from every rank and cut back to
@@ -52,7 +52,7 @@ import torch
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
 from whisper_tpu_torch.kernels.quant import dequantize, quantize_cols
-from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, qkv_proj, row_dense
+from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, qkv_proj
 from whisper_tpu_torch.model.params import Block, WhisperParams
 from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 
@@ -205,18 +205,18 @@ def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos, attn_start, va
         k_s = v_s = None
     att = _self_attention(q, kv.k[li], kv.v[li], k_s, v_s, write_pos, attn_start, valid_len,
                           n_head, compute_dtype)
-    x = x + row_dense(att.to(compute_dtype), blk.o_w, blk.o_b,
-                      s=getattr(blk, "o_w_s", None), tp=tp).to(compute_dtype)
+    x = x + dense(att.to(compute_dtype), blk.o_w, blk.o_b,
+                  s=getattr(blk, "o_w_s", None), tp=tp).to(compute_dtype)
 
     h = layer_norm(x, blk.x_ln_w, blk.x_ln_b).to(compute_dtype)
     att = _cross_attention(h, blk, xk, xv, xk_s, xv_s, n_head, compute_dtype, cross_group)
-    x = x + row_dense(att.to(compute_dtype), blk.xo_w, blk.xo_b,
-                      s=getattr(blk, "xo_w_s", None), tp=tp).to(compute_dtype)
+    x = x + dense(att.to(compute_dtype), blk.xo_w, blk.xo_b,
+                  s=getattr(blk, "xo_w_s", None), tp=tp).to(compute_dtype)
 
     h = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b).to(compute_dtype)
     h = gelu(dense(h, blk.fc1_w, blk.fc1_b, s=getattr(blk, "fc1_w_s", None))).to(compute_dtype)
-    return x + row_dense(h, blk.fc2_w, blk.fc2_b, s=getattr(blk, "fc2_w_s", None),
-                         tp=tp).to(compute_dtype)
+    return x + dense(h, blk.fc2_w, blk.fc2_b, s=getattr(blk, "fc2_w_s", None),
+                     tp=tp).to(compute_dtype)
 
 
 def decode_step(

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.attention import flash_attention
 from whisper_tpu_torch.kernels.quant import quantize_cols
-from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, merge_heads, qkv_proj, row_dense
+from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, merge_heads, qkv_proj
 from whisper_tpu_torch.model.params import Block, WhisperParams
 from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 
@@ -60,11 +60,11 @@ def _encoder_block(x: torch.Tensor, blk: Block, n_head: int, compute_dtype: torc
     # q, k, v: strided views of one [B, T, H, 3, Dh] tensor, read in place
     q, k, v = qkv_proj(h, blk.qkv_w, blk.qkv_b, n_head, dtype=compute_dtype)
     att = merge_heads(flash_attention(q, k, v)).to(compute_dtype)
-    x = x + row_dense(att, blk.o_w, blk.o_b, tp=tp).to(compute_dtype)
+    x = x + dense(att, blk.o_w, blk.o_b, tp=tp).to(compute_dtype)
 
     h = layer_norm(x, blk.mlp_ln_w, blk.mlp_ln_b).to(compute_dtype)
     h = gelu(dense(h, blk.fc1_w, blk.fc1_b)).to(compute_dtype)
-    return x + row_dense(h, blk.fc2_w, blk.fc2_b, tp=tp).to(compute_dtype)
+    return x + dense(h, blk.fc2_w, blk.fc2_b, tp=tp).to(compute_dtype)
 
 
 def encode(

@@ -25,6 +25,7 @@ def dense(
     w: torch.Tensor,
     b: torch.Tensor | None = None,
     s: torch.Tensor | None = None,
+    tp: AxisGroup = SINGLE,
 ) -> torch.Tensor:
     """x @ w (+ b) with an f32 result.
 
@@ -39,34 +40,19 @@ def dense(
     weight is converted to the activation dtype first. XLA fuses that
     conversion into the product; here it is a separate pass that writes a
     bf16 copy of the weight (1 byte read, 2 written per weight) on every
-    call."""
+    call.
+
+    ``tp`` is the group a row-parallel ``w`` is split over (its rows, and
+    ``x``'s last dim): the rank's f32 partial product is all-reduced over
+    it before the epilogue, so the scale and the replicated bias are
+    applied once. At size 1 (the default) nothing is launched."""
     if x.is_cuda and x.dtype != torch.float32:
         lead = x.shape[:-1]
         y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype), out_dtype=torch.float32)
         y = y.reshape(*lead, w.shape[-1])
     else:
         y = torch.matmul(x.float(), w.float())
-    if s is not None:
-        y = y * s
-    if b is not None:
-        y = y + b
-    return y
-
-
-def row_dense(
-    x: torch.Tensor,
-    w: torch.Tensor,
-    b: torch.Tensor | None = None,
-    s: torch.Tensor | None = None,
-    tp: AxisGroup = SINGLE,
-) -> torch.Tensor:
-    """``dense`` for a row-parallel weight (rows split over ``tp``, the
-    input's last dim too): the rank's f32 partial product is all-reduced
-    over ``tp`` first, then the scale and the replicated bias are applied
-    once. Unsharded (size 1), exactly ``dense``."""
-    if tp.size == 1:
-        return dense(x, w, b, s)
-    y = tp.sum(dense(x, w))
+    y = tp.sum(y)
     if s is not None:
         y = y * s
     if b is not None:

@@ -33,7 +33,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def spawn(target: str, nprocs: int, args: tuple = (), device: str = "cpu",
+def spawn(target: str, nprocs: int, args: tuple = (), device: str = "cuda",
           backend: str | None = None, timeout: float = 120.0, threads: int = 1) -> list:
     """Run ``target(*args)`` on ranks 0..nprocs-1 (one process each, on
     ``device`` with ``backend``: ``init_distributed``'s defaults) and
