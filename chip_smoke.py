@@ -117,14 +117,8 @@ result line:
                 process: a 1x1 mesh with graphs equal to mesh=None bit for
                 bit, with the graph step's launches. Ms per window and per
                 token step, and the collectives' share of each
-  5c. bench     the port's bench (whisper_tpu_torch.tools.bench) at large-v2
-                on the serving tier (the JAX bench's default) and the bf16
-                tier, BENCH_TOKENS token steps a window: each tier's JSON
-                line with the card's name and power limit, and the exact
-                K1/K2 counts of its encodes and token steps; its first
-                window at B=1 and at B=8 again on the eager step (identical)
   6. report     one JSON line of every kernel's numbers (with the serving
-                path's in ``serving_path``, the bench's in ``bench``), then
+                path's in ``serving_path``), then
                 the result line
                 {"ok": true, "device": {...}}
 
@@ -2320,88 +2314,6 @@ def parallel_phase(tmp: str, scripted: str, large: str) -> dict:
     return dict(ranks=ranks, nccl_world1=nccl, s=time.perf_counter() - t0)
 
 
-BENCH_TOKENS = 32              # token steps a window in the [bench] phase (the tool's default is 128)
-
-
-class eager_check:
-    """Within the block, the first window of each width that any
-    WhisperRuntime replays on its graphs through run_window is run again on
-    the eager step: the two must be identical. The eager run's launches are
-    taken back from the counters (a comparison, not the path); ``checked``
-    maps each width to its window's steps."""
-
-    def __enter__(self):
-        from whisper_tpu_torch.runtime.context import WhisperRuntime
-
-        self.cls, self.real, self.checked = WhisperRuntime, WhisperRuntime.run_window, {}
-        real, checked = self.real, self.checked
-
-        def run_window(rt, prompt, *args, **kw):
-            res = real(rt, prompt, *args, **kw)
-            width = np.shape(prompt)[0]
-            if rt.replays and width not in checked:
-                saved = saved_counts()
-                with eager(rt):
-                    plain = real(rt, prompt, *args, **kw)
-                restore_counts(saved)
-                check(same_window(res, plain),
-                      f"a window of width {width}: the graph's WindowResult differs from the eager step's")
-                checked[width] = int(res.steps)
-            return res
-
-        WhisperRuntime.run_window = run_window
-        return self
-
-    def __exit__(self, *exc):
-        self.cls.run_window = self.real
-
-
-def bench_phase(smi: str) -> dict:
-    """The port's bench (whisper_tpu_torch.tools.bench) at large-v2, 4
-    windows single-stream and batch 8, BENCH_TOKENS token steps a window, on
-    the serving tier (the JAX bench's default) and on the bf16 tier; each
-    tier's JSON line printed with the card's name and power limit, and the
-    kernel counts the run implies (K1 L_enc per encode, K2 2 L_dec per
-    token step: warm-up and 2 passes of 4 windows, warm-up and 3 batched
-    rounds). Its first window at B=1 and at B=8 (both warm-ups) is run
-    again on the eager step and must be identical (``eager_check``)."""
-    import gc
-
-    import torch
-
-    from whisper_tpu_torch.hparams import KNOWN_MODELS
-    from whisper_tpu_torch.tools import bench
-
-    dims = KNOWN_MODELS["large-v2"]
-    out = {}
-    for tier in ("serving", "bf16"):
-        reset_counts()
-        t0 = time.perf_counter()
-        with eager_check() as compared:
-            res = bench.run(model="large-v2", tier=tier, decode_tokens=BENCH_TOKENS, windows=4, batch=8)
-        sec = time.perf_counter() - t0
-        check(sorted(compared.checked) == [1, 8], f"bench {tier}: windows compared {compared.checked}")
-        log(f"  bench {tier}: its first window at B=1 and at B=8 on the graph equal the eager step's")
-        k1, k2, k2_int8, k2_grouped = read_counts()
-        encodes = 3 * res["passes"][0]["windows"] + 4
-        line = {k: v for k, v in res.items() if k not in ("passes", "rounds")}
-        print(json.dumps(dict(line, card=smi)), flush=True)
-        log(f"  bench {tier} ({sec:.1f} s): launches K1 {k1}, K2 {k2} ({k2_int8} on int8 K/V) for "
-            f"{encodes} encodes and {encodes * BENCH_TOKENS} token steps")
-        check(k1 == dims.n_audio_layer * encodes and k1_f32_count() == 0,
-              f"bench {tier}: K1 {k1} != {dims.n_audio_layer} x {encodes} encodes")
-        check(k2 == 2 * dims.n_text_layer * BENCH_TOKENS * encodes and k2_grouped == 0
-              and k2_int8 == (k2 if tier == "serving" else 0),
-              f"bench {tier}: K2 {k2} ({k2_int8} int8) for {encodes * BENCH_TOKENS} token steps")
-        check(line["value"] > 0 and line["single_stream_rtf"] > 0, f"bench {tier}: {line}")
-        out[tier] = dict(line=line, passes=res["passes"], rounds=res["rounds"], k1=k1, k2=k2,
-                         k2_int8=k2_int8, seconds=sec)
-        del res
-        gc.collect()
-        torch.cuda.empty_cache()
-    return out
-
-
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2476,11 +2388,6 @@ def main() -> int:
             "three tiers, large-v2 f32 and bf16), data parallel 2 x B=4; then NCCL at world size 1")
         par = parallel_phase(tmp, os.path.join(tmp, "scripted.bin"), os.path.join(tmp, LARGE_V2_FILE))
         phase_s["parallel"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    log(f"[bench] python -m whisper_tpu_torch.tools.bench at large-v2, BENCH_DECODE_TOKENS={BENCH_TOKENS}, "
-        "serving and bf16 tiers")
-    benches = bench_phase(smi.splitlines()[0])
-    phase_s["bench"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # the serving path: beam windows (natural end) per tier and U, and the
@@ -2493,7 +2400,7 @@ def main() -> int:
     def entry(name, source, replaces, cases, by_path):
         """``launches``: the kernel's count over the main path's runs, each
         counted from 0: run_full per tier, the beam windows, the scheduler,
-        run_capture, the bench's tiers."""
+        run_capture."""
         head = cases[0]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
                     launches=sum(by_path.values()), launches_by_path=by_path,
@@ -2507,7 +2414,6 @@ def main() -> int:
         by_path.update({label: run[key] for label, run in beam_paths.items()})
         by_path["bf16 scheduler"] = main["bf16"]["scheduler"][key]
         by_path["bf16 run_capture"] = main["bf16"]["capture"][key]
-        by_path.update({f"{tier} bench": b[key] for tier, b in benches.items()})
         return by_path
 
     # [parallel]: rank 0's launches (each rank launches the same), at a
@@ -2523,7 +2429,7 @@ def main() -> int:
     k1_paths["parallel rank 0, large-v2 bf16"] = r0["large-v2 bf16 tp"]["k1"]
     k2 = entry("decode_attention_hd", "whisper_tpu_torch/csrc/decode_attention.cu",
                "whisper_tpu/kernels/decode_attention.py:187", k2_cases, k2_paths)
-    k2["launches_int8"] = (main["serving"]["run_full"]["k2_int8"] + benches["serving"]["k2_int8"]
+    k2["launches_int8"] = (main["serving"]["run_full"]["k2_int8"]
                            + sum(run["k2_int8"] for run in beam_paths.values()))
     k2["launches_grouped"] = sum(run["k2_grouped"] for run in beam_paths.values())
     # every token step of the path is a replayed graph: its K2 launches a step, as captured
@@ -2549,7 +2455,7 @@ def main() -> int:
     for k in kernels[:3]:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels, "serving_path": serving_path, "main_path": main,
-                      "parallel": par, "bench": benches, "kbench": kb_records, "card": smi, "phase_s": phase_s}),
+                      "parallel": par, "kbench": kb_records, "card": smi, "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,6 @@ SLICE_MODULES = [
     "whisper_tpu_torch.model",
     "whisper_tpu_torch.kernels",
     "whisper_tpu_torch.tools.synthetic",
-    "whisper_tpu_torch.tools.bench",
     "whisper_tpu_torch.tools.compare_traces",
     "whisper_tpu_torch.tools.convert_hf_to_ggml",
     "whisper_tpu_torch.obs.trace",

@@ -1,6 +1,6 @@
 """The port's tools against the JAX package's, on the CPU: synthetic
-parameters (``tools/synthetic.py``), the bench (``tools/bench.py``), the
-trace diff (``tools/compare_traces.py``) and the HF -> GGML converter
+parameters (``tools/synthetic.py``), the trace diff
+(``tools/compare_traces.py``) and the HF -> GGML converter
 (``tools/convert_hf_to_ggml.py``).
 
 Tolerances: the int8 quantization and the converter's bytes are exact; the
@@ -84,8 +84,7 @@ def test_synthetic_params_run_the_window_loop(tier):
     CPU: finite features, tokens in range, the forced step count."""
     from whisper_tpu_torch.runtime.context import WhisperRuntime
     from whisper_tpu_torch.runtime.sampler import SpecialIds
-    from whisper_tpu_torch.tools.bench import TIERS
-    from whisper_tpu_torch.tools.synthetic import make_synthetic_params
+    from whisper_tpu_torch.tools.synthetic import TIERS, make_synthetic_params
 
     policy, kv_int8 = TIERS[tier]
     dims = TINY_TEST_DIMS
@@ -103,34 +102,6 @@ def test_synthetic_params_run_the_window_loop(tier):
                         np.full(2, 10**7, np.int32), force_steps=3)
     assert int(res.steps) == 3
     assert bool(((res.tokens >= 0) & (res.tokens < dims.n_vocab)).all())
-
-
-def test_bench_on_cpu_prints_one_json_line(monkeypatch, capsys):
-    """tiny, 2 token steps, one window, two lanes: one parseable JSON line on
-    stdout, the per-pass and per-round times on stderr."""
-    from whisper_tpu_torch.tools import bench
-
-    for k, v in dict(BENCH_MODEL="tiny", BENCH_DECODE_TOKENS="2", BENCH_WINDOWS="1",
-                     BENCH_BATCH="2", BENCH_KERNELS="serving").items():
-        monkeypatch.setenv(k, v)
-    assert bench.main(["--device", "cpu"]) == 0
-    out, err = capsys.readouterr()
-    lines = out.strip().splitlines()
-    assert len(lines) == 1
-    res = json.loads(lines[0])
-    assert res["metric"] == "batched_b2_tiny_serving_2tok" and res["unit"] == "audio_s/s"
-    assert res["value"] > 0 and res["single_stream_rtf"] > 0 and res["device"] == "cpu"
-    assert abs(res["vs_baseline"] - res["value"] / bench.BASELINE_RTF) < 1e-2
-    assert "card: cpu" in err and "single-stream pass 2" in err and "batched round 3" in err
-    assert "ms/window" in err and "ms/token step" in err
-
-
-def test_bench_refuses_an_unknown_tier(monkeypatch):
-    from whisper_tpu_torch.tools import bench
-
-    monkeypatch.setenv("BENCH_KERNELS", "auto")
-    with pytest.raises(SystemExit):
-        bench.main(["--device", "cpu"])
 
 
 def test_encoder_traces_compare_across_packages(tmp_path, capsys):

@@ -26,7 +26,6 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
-import torch
 
 from whisper_tpu_torch.api.diarize import detect_speaker
 from whisper_tpu_torch.api.params import Flags, FullParams, SamplingStrategy, full_default_params
@@ -235,7 +234,6 @@ class Context:
         window = 2 * audio_ctx
         seek = seek_start
         cap = self.runtime.prompt_capacity
-        device = self.runtime.device
 
         while True:
             with self.profiler.cpu("spectrogram"):
@@ -258,10 +256,6 @@ class Context:
 
             with self.profiler.cpu("encode"):
                 _, cross_kv = self.runtime.encode_window(mel_win[None])
-                # kernels return before the card finishes; without this sync
-                # the encode cost would be billed to the decode block
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
 
             prompt = self._build_prompt(params, prompt_init)
             padded = np.zeros((1, cap), np.int32)
@@ -448,10 +442,13 @@ class Context:
         return detect_speaker(self._stereo, t0, t1)
 
     def timings_print(self) -> str:
-        """timingsPrint analogue: host phases, RTF, and device memory."""
-        from whisper_tpu_torch.obs.profiler import device_memory_stats
+        """timingsPrint analogue: host phases, RTF, the runtime's spans on
+        the card's clock (encode, cross_kv, ingest, steps with ms per step;
+        recorded while ``TRACER`` is on) and graph captures, and device
+        memory."""
+        from whisper_tpu_torch.obs.profiler import TRACER, device_memory_stats
 
-        lines = [self.profiler.report()]
+        lines = [self.profiler.report(), TRACER.report()]
         total = self.profiler.get("run_complete")
         if total > 0 and self._mel_len:
             audio_s = self._mel_len / 100.0

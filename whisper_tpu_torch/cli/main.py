@@ -57,6 +57,7 @@ def main(argv=None) -> int:
     from whisper_tpu_torch.api.params import Flags, FullParams, SamplingStrategy
     from whisper_tpu_torch.audio.load import ChunkedReader, load_audio_file
     from whisper_tpu_torch.cli.writers import WRITERS, _ts, write_wts
+    from whisper_tpu_torch.obs.profiler import TRACER
 
     model = load_model(args.model, device=args.device)
     print(
@@ -95,6 +96,9 @@ def main(argv=None) -> int:
         params.n_max_text_ctx = args.max_context
     if args.prompt:
         params.prompt_tokens = model.tokenize(args.prompt)
+
+    if args.timings:
+        TRACER.enable()
 
     for path in args.file:
         buf = load_audio_file(path, want_stereo=args.diarize)

@@ -59,6 +59,7 @@ import torch
 from whisper_tpu_torch.api.params import Flags
 from whisper_tpu_torch.hparams import N_FRAMES
 from whisper_tpu_torch.model.decoder import SelfKV, decode_step, init_self_kv, reorder_self_kv
+from whisper_tpu_torch.obs.profiler import TRACER
 from whisper_tpu_torch.runtime.decode import WindowResult, check_cache_room, ingest_prompt, run_steps
 from whisper_tpu_torch.runtime.sampler import SpecialIds
 
@@ -239,21 +240,22 @@ def _beam_window(runtime, prompts: torch.Tensor, prompt_lens: torch.Tensor, cros
         # it is ingested once per utterance (into a cache of p_max columns)
         # and its columns and logits are copied to the beams; the JAX
         # package ingests it on every beam lane, with the same result. ---
-        kv_u = init_self_kv(dims, u, dtype=runtime.compute_dtype, device=device, cache_len=p_max,
-                            quant=runtime.kv_int8, tp=runtime.params.tp)
-        logits_u, attn_u = ingest_prompt(runtime.params, dims, prompts, prompt_lens, kv_u, cross,
-                                         runtime.compute_dtype)
-        for a, a_u in zip(kv, kv_u):
-            if a is not None:        # [L, U*beam, HD, C] viewed [L, U, beam, HD, C]
-                a.view(a.shape[0], u, beam, *a.shape[2:])[..., :p_max].copy_(a_u[:, :, None])
-        for a in (st.i, st.stop, st.finished, st.length, st.tokens, st.p, st.pt, st.ptsum, st.tid):
-            a.zero_()
-        st.logits.copy_(logits_u.repeat_interleave(beam, dim=0))
-        st.plen.copy_(prompt_lens.repeat_interleave(beam))
-        st.attn_start.copy_(attn_u.repeat_interleave(beam))
-        # only beam 0 of each utterance is live at first (identical lanes would be clones)
-        lane_ids = torch.arange(lanes, device=device)
-        st.scores.copy_(torch.where(lane_ids % beam == 0, 0.0, NEG))
+        with TRACER.span("ingest", device=device):
+            kv_u = init_self_kv(dims, u, dtype=runtime.compute_dtype, device=device, cache_len=p_max,
+                                quant=runtime.kv_int8, tp=runtime.params.tp)
+            logits_u, attn_u = ingest_prompt(runtime.params, dims, prompts, prompt_lens, kv_u, cross,
+                                             runtime.compute_dtype)
+            for a, a_u in zip(kv, kv_u):
+                if a is not None:        # [L, U*beam, HD, C] viewed [L, U, beam, HD, C]
+                    a.view(a.shape[0], u, beam, *a.shape[2:])[..., :p_max].copy_(a_u[:, :, None])
+            for a in (st.i, st.stop, st.finished, st.length, st.tokens, st.p, st.pt, st.ptsum, st.tid):
+                a.zero_()
+            st.logits.copy_(logits_u.repeat_interleave(beam, dim=0))
+            st.plen.copy_(prompt_lens.repeat_interleave(beam))
+            st.attn_start.copy_(attn_u.repeat_interleave(beam))
+            # only beam 0 of each utterance is live at first (identical lanes would be clones)
+            lane_ids = torch.arange(lanes, device=device)
+            st.scores.copy_(torch.where(lane_ids % beam == 0, 0.0, NEG))
 
         steps = run_steps(step, st.stop, limit, force_steps, behind=runtime.replays)
 
@@ -315,34 +317,35 @@ def decode_window_beam(runtime, params, prompt, prompt_len, cross_kv, seek, seek
     ``WhisperRuntime.run_window`` (tokens and probabilities on the
     runtime's device, the replayed window rules on the host).
     ``force_steps`` is the benchmarking mode of ``_beam_window``."""
-    beam = int(params.beam_width)
-    n_max = runtime.n_max_steps
+    with TRACER.span("decode", device=runtime.device):
+        beam = int(params.beam_width)
+        n_max = runtime.n_max_steps
 
-    prompts = np.atleast_2d(np.asarray(prompt, np.int32))
-    u = prompts.shape[0]
-    plens = np.broadcast_to(np.asarray(prompt_len, np.int32).reshape(-1), (u,))
-    seeks = np.broadcast_to(np.asarray(seek, np.int64).reshape(-1), (u,))
-    ends = np.broadcast_to(np.asarray(seek_end, np.int64).reshape(-1), (u,))
+        prompts = np.atleast_2d(np.asarray(prompt, np.int32))
+        u = prompts.shape[0]
+        plens = np.broadcast_to(np.asarray(prompt_len, np.int32).reshape(-1), (u,))
+        seeks = np.broadcast_to(np.asarray(seek, np.int64).reshape(-1), (u,))
+        ends = np.broadcast_to(np.asarray(seek_end, np.int64).reshape(-1), (u,))
 
-    (tokens, p, pt, ptsum, tid, length), steps = _beam_window(
-        runtime, torch.as_tensor(prompts, dtype=torch.int32, device=runtime.device),
-        torch.as_tensor(plens.copy(), dtype=torch.int32, device=runtime.device),
-        cross_kv, beam, n_max, force_steps)
-    tokens_h, length_h = tokens.cpu().numpy(), length.cpu().numpy()
+        (tokens, p, pt, ptsum, tid, length), steps = _beam_window(
+            runtime, torch.as_tensor(prompts, dtype=torch.int32, device=runtime.device),
+            torch.as_tensor(plens.copy(), dtype=torch.int32, device=runtime.device),
+            cross_kv, beam, n_max, force_steps)
+        tokens_h, length_h = tokens.cpu().numpy(), length.cpu().numpy()
 
-    result_len = np.zeros((u,), np.int32)
-    seek_delta = np.zeros((u,), np.int32)
-    failed = np.zeros((u,), bool)
-    for uu in range(u):
-        result_len[uu], seek_delta[uu], failed[uu] = _replay_window_rules(
-            tokens_h[uu][: int(length_h[uu])], runtime.ids, int(seeks[uu]), int(ends[uu]), n_max,
-            int(params.max_tokens), params.flag(Flags.SINGLE_SEGMENT),
+        result_len = np.zeros((u,), np.int32)
+        seek_delta = np.zeros((u,), np.int32)
+        failed = np.zeros((u,), bool)
+        for uu in range(u):
+            result_len[uu], seek_delta[uu], failed[uu] = _replay_window_rules(
+                tokens_h[uu][: int(length_h[uu])], runtime.ids, int(seeks[uu]), int(ends[uu]), n_max,
+                int(params.max_tokens), params.flag(Flags.SINGLE_SEGMENT),
+            )
+
+        return WindowResult(
+            tokens=tokens, p=p, pt=pt, ptsum=ptsum, tid=tid,
+            result_len=torch.from_numpy(result_len),
+            seek_delta=torch.from_numpy(seek_delta),
+            failed=torch.from_numpy(failed),
+            steps=torch.tensor(steps, dtype=torch.int32),
         )
-
-    return WindowResult(
-        tokens=tokens, p=p, pt=pt, ptsum=ptsum, tid=tid,
-        result_len=torch.from_numpy(result_len),
-        seek_delta=torch.from_numpy(seek_delta),
-        failed=torch.from_numpy(failed),
-        steps=torch.tensor(steps, dtype=torch.int32),
-    )

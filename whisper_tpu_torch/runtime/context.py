@@ -38,6 +38,7 @@ from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.model.decoder import init_self_kv
 from whisper_tpu_torch.model.encoder import CrossKV, encode, precompute_cross_kv
 from whisper_tpu_torch.model.params import WhisperParams
+from whisper_tpu_torch.obs.profiler import TRACER
 from whisper_tpu_torch.runtime.decode import (GreedyState, WindowResult, check_cache_room,
                                               decode_window, greedy_step)
 from whisper_tpu_torch.runtime.graph import Slot, StepGraphs
@@ -118,11 +119,13 @@ class WhisperRuntime:
     @torch.inference_mode()
     def encode_window(self, mel) -> tuple[torch.Tensor, CrossKV]:
         """mel [B, n_mels, 2*T] -> (audio_features, cross_kv)."""
-        mel = self._tensor(mel, torch.float32)
-        feats = encode(self.params, self.dims, mel, compute_dtype=self.compute_dtype)
-        cross = precompute_cross_kv(self.params, self.dims, feats, compute_dtype=self.compute_dtype,
-                                    quant=self.kv_int8)
-        return feats, cross
+        with TRACER.span("encode", device=self.device):
+            mel = self._tensor(mel, torch.float32)
+            feats = encode(self.params, self.dims, mel, compute_dtype=self.compute_dtype)
+            with TRACER.span("cross_kv", device=self.device):
+                cross = precompute_cross_kv(self.params, self.dims, feats,
+                                            compute_dtype=self.compute_dtype, quant=self.kv_int8)
+            return feats, cross
 
     @torch.inference_mode()
     def run_window(
@@ -136,25 +139,26 @@ class WhisperRuntime:
         single_segment: bool = False,
         force_steps: int = 0,
     ) -> WindowResult:
-        prompt = self._tensor(prompt, torch.int32)
-        b, p_max = prompt.shape
-        plen = self._tensor(prompt_len, torch.int32)
-        lim = (self._tensor(seek, torch.int32), self._tensor(seek_end, torch.int32))
-        kw = dict(max_tokens=max_tokens, single_segment=single_segment,
-                  compute_dtype=self.compute_dtype, force_steps=force_steps)
-        if not self.replays:
-            return decode_window(self.params, self.dims, self.ids, prompt, plen, self.self_kv(b),
-                                 cross_kv, *lim, **kw)
-        check_cache_room(p_max, self.n_max_steps, self.dims.n_text_ctx)  # before any warm-up step
-        with self.graphs.lock:
-            slot = self.slot("greedy", lambda: GreedyState.zeros(
-                b, self.n_max_steps, self.dims.n_vocab, self.device), b, p_max, cross_kv)
+        with TRACER.span("decode", device=self.device):
+            prompt = self._tensor(prompt, torch.int32)
+            b, p_max = prompt.shape
+            plen = self._tensor(prompt_len, torch.int32)
+            lim = (self._tensor(seek, torch.int32), self._tensor(seek_end, torch.int32))
+            kw = dict(max_tokens=max_tokens, single_segment=single_segment,
+                      compute_dtype=self.compute_dtype, force_steps=force_steps)
+            if not self.replays:
+                return decode_window(self.params, self.dims, self.ids, prompt, plen, self.self_kv(b),
+                                     cross_kv, *lim, **kw)
+            check_cache_room(p_max, self.n_max_steps, self.dims.n_text_ctx)  # before any warm-up step
+            with self.graphs.lock:
+                slot = self.slot("greedy", lambda: GreedyState.zeros(
+                    b, self.n_max_steps, self.dims.n_vocab, self.device), b, p_max, cross_kv)
 
-            def body():
-                greedy_step(self.params, self.dims, self.ids, slot.state, slot.kv, slot.cross,
-                            p_max, max_tokens, single_segment, force_steps, self.compute_dtype)
+                def body():
+                    greedy_step(self.params, self.dims, self.ids, slot.state, slot.kv, slot.cross,
+                                p_max, max_tokens, single_segment, force_steps, self.compute_dtype)
 
-            graph = slot.step((max_tokens, single_segment, force_steps), body)
-            slot.load(cross_kv)
-            return decode_window(self.params, self.dims, self.ids, prompt, plen, slot.kv,
-                                 slot.cross, *lim, **kw, state=slot.state, step=lambda _: graph())
+                graph = slot.step((max_tokens, single_segment, force_steps), body)
+                slot.load(cross_kv)
+                return decode_window(self.params, self.dims, self.ids, prompt, plen, slot.kv,
+                                     slot.cross, *lim, **kw, state=slot.state, step=lambda _: graph())

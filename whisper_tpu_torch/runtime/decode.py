@@ -36,6 +36,7 @@ import torch
 from whisper_tpu_torch.hparams import N_FRAMES, ModelDims
 from whisper_tpu_torch.model.decoder import SelfKV, decode_step
 from whisper_tpu_torch.model.params import WhisperParams
+from whisper_tpu_torch.obs.profiler import TRACER
 from whisper_tpu_torch.runtime.sampler import SpecialIds, sample_best
 
 
@@ -195,7 +196,17 @@ def run_steps(step: Callable[[int], None], stop: torch.Tensor, limit: int, force
     the host waits for it only once step i + 1 is queued, so the card
     never idles while the host launches. The step after the one that set
     ``stop`` then runs too, and must change nothing that the window
-    returns. No step past ``limit`` is launched."""
+    returns. No step past ``limit`` is launched.
+
+    The loop is the span ``steps``, whose units are the steps launched,
+    the one behind the stop flag included."""
+    with TRACER.span("steps", device=stop.device) as span:
+        n = _launch_steps(step, stop, limit, force_steps, behind)
+        span.units = min(n + 1, limit) if behind and not force_steps else n
+    return n
+
+
+def _launch_steps(step, stop: torch.Tensor, limit: int, force_steps: int, behind: bool) -> int:
     if force_steps:
         for i in range(limit):
             step(i)
@@ -271,18 +282,19 @@ def decode_window(
     n_max = dims.n_text_ctx // 2 - 4
     check_cache_room(p_max, n_max, self_kv.k.shape[-1])
 
-    logits, attn_start = ingest_prompt(params, dims, prompt, prompt_len, self_kv, cross_kv,
-                                       compute_dtype)
-    st = GreedyState.zeros(b, n_max, logits.shape[-1], prompt.device) if state is None else state
-    for a in (st.i, st.stop, st.tokens, st.p, st.pt, st.ptsum, st.tid, st.result_len, st.has_ts,
-              st.failed, st.done):
-        a.zero_()
-    st.logits.copy_(logits)
-    st.n_past.copy_(prompt_len)
-    st.seek_delta.fill_(N_FRAMES)
-    st.attn_start.copy_(attn_start)
-    st.seek.copy_(seek)
-    st.seek_end.copy_(seek_end)
+    with TRACER.span("ingest", device=prompt.device):
+        logits, attn_start = ingest_prompt(params, dims, prompt, prompt_len, self_kv, cross_kv,
+                                           compute_dtype)
+        st = GreedyState.zeros(b, n_max, logits.shape[-1], prompt.device) if state is None else state
+        for a in (st.i, st.stop, st.tokens, st.p, st.pt, st.ptsum, st.tid, st.result_len, st.has_ts,
+                  st.failed, st.done):
+            a.zero_()
+        st.logits.copy_(logits)
+        st.n_past.copy_(prompt_len)
+        st.seek_delta.fill_(N_FRAMES)
+        st.attn_start.copy_(attn_start)
+        st.seek.copy_(seek)
+        st.seek_end.copy_(seek_end)
     replayed = step is not None
     if not replayed:
         def step(_):

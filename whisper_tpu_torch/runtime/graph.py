@@ -38,6 +38,7 @@ from typing import Callable
 import torch
 
 from whisper_tpu_torch.kernels._build import build_all
+from whisper_tpu_torch.obs.profiler import TRACER
 
 WARMUP_STEPS = 2
 
@@ -133,8 +134,11 @@ class Slot:
     def step(self, key: tuple, body: Callable[[], None]) -> CapturedStep:
         """The step captured for ``key``, capturing ``body`` at first use.
         Call it before a window resets the state: the warm-up before a
-        slot's first capture runs ``body`` on the state."""
+        slot's first capture runs ``body`` on the state. Each capture adds
+        to ``TRACER``'s counters ``graph_captures`` and ``capture_ms`` (the
+        host ms of the build check, the warm-up and the capture)."""
         if key not in self.steps:
+            t0 = time.perf_counter()
             if not self.steps:
                 build_all()
                 before = _read_counts()
@@ -145,6 +149,8 @@ class Slot:
                 torch.cuda.current_stream().wait_stream(self.stream)
                 _write_counts(before)
             self.steps[key] = CapturedStep(body, self.pool, self.stream)
+            TRACER.count("graph_captures")
+            TRACER.count("capture_ms", (time.perf_counter() - t0) * 1e3)
         return self.steps[key]
 
 

@@ -14,7 +14,13 @@ import torch
 
 from whisper_tpu_torch.config import resolve_device
 from whisper_tpu_torch.hparams import KNOWN_MODELS, ModelDims
-from whisper_tpu_torch.model.params import _QUANT_KEYS, WhisperParams, params_from_tensors
+from whisper_tpu_torch.model.params import _QUANT_KEYS, DtypePolicy, WhisperParams, params_from_tensors
+
+TIERS = {                # tier -> (dtype policy, int8 K/V caches)
+    "serving": (DtypePolicy.serving(), True),
+    "bf16": (DtypePolicy(), False),
+    "f32": (DtypePolicy.f32(), False),
+}
 
 
 def quantize_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
