@@ -588,6 +588,68 @@ def decode_case(b: int, s: int, group: int = 1, masked: bool = False, int8: bool
     )
 
 
+W8A16_SHAPES = {  # large-v2's decode products: (K, N, layout)
+    "qkv": (1280, 3840, "nn"), "o": (1280, 1280, "nn"), "xq": (1280, 1280, "nn"),
+    "xo": (1280, 1280, "nn"), "fc1": (1280, 5120, "nn"), "fc2": (5120, 1280, "nn"),
+    "logits": (1280, 51_865, "nt"),
+}
+
+
+def w8a16_case(name: str, m: int, path: str = "") -> dict:
+    """The W8A16 kernel at one of large-v2's decode products with ``m`` rows:
+    seeded bf16 x, int8 codes ([in, out], or the table [V, d] read
+    transposed), f32 column scales and bias; against its plain version, and
+    beside the converted path it replaces (``w.to(bf16)``, ``torch.mm`` with
+    an f32 result, then the scale and the bias: four launches)."""
+    import torch
+
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense, w8a16_dense_ref, w8a16_geometry
+
+    k, n, layout = W8A16_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    sets = []
+    for _ in range(_n_sets(k * n)):
+        codes = torch.randint(-127, 128, (k, n) if layout == "nn" else (n, k), generator=g,
+                              device="cuda", dtype=torch.int8)
+        sets.append(codes if layout == "nn" else codes.T)
+    x = torch.randn((m, k), generator=g, device="cuda").bfloat16()
+    sc = torch.rand((1, n), generator=g, device="cuda") * 1e-2 + 1e-3
+    b = None if name == "logits" else torch.randn((n,), generator=g, device="cuda") * 0.1
+
+    def converted(i):
+        y = torch.mm(x, sets[i].to(torch.bfloat16), out_dtype=torch.float32) * sc
+        return y if b is None else y + b
+
+    got = w8a16_dense(x, sets[0], sc, b)
+    want = w8a16_dense_ref(x, sets[0], sc, b)
+    torch.cuda.synchronize()
+    check(got.shape == (m, n) and got.dtype == torch.float32, f"w8a16 {name}: shape/dtype")
+    check(bool(torch.isfinite(got).all()), f"w8a16 {name}: output not finite")
+    mag = (x.float().abs() @ sets[0].float().abs()) * sc
+    rel = ((got - want).abs() / (mag + 1e-30)).max().item()
+    bytes_ = k * n + 2 * m * k + 4 * m * n + 4 * n * (1 if b is None else 2)
+    bound_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    bound_flops = 2 * m * k * n / BF16_FLOPS * 1e3
+    geo = w8a16_geometry(m, k, n)
+    return dict(
+        case=f"{name} M={m} K={k} N={n} {layout.upper()}" + ("" if b is None else " +bias"),
+        path=path, max_abs_err=rel, tol=1e-5,
+        tol_reason="relative to the product's magnitude sum (|x| @ |w|, scaled): both sum exact "
+                   "bf16 x bf16 products in f32, in other orders",
+        ms=event_ms(lambda i: w8a16_dense(x, sets[i], sc, b), len(sets), 200),
+        device_ms=device_ms(lambda i: w8a16_dense(x, sets[i], sc, b), len(sets), 50,
+                            "w8a16_dense", 1),
+        plain_ms=event_ms(lambda i: w8a16_dense_ref(x, sets[i], sc, b), len(sets), 20),
+        library_ms=event_ms(converted, len(sets), 100),
+        library_device_ms=library_device_ms(converted, len(sets), 20),
+        bound_ms=max(bound_bytes, bound_flops),
+        bound_by="bytes" if bound_bytes >= bound_flops else "operations",
+        geometry=dict(batch_tiles=geo.batch_tiles, tile_n=geo.tile_n, chunk_k=geo.chunk_k,
+                      blocks=geo.blocks, cluster=geo.cluster,
+                      chunks_per_warp=geo.chunks_per_warp),
+    )
+
+
 def show_case(name: str, c: dict) -> None:
     """Log a case with its share of the bound (bound over device time) and
     its ratio to the library call (events over events, device over device),
@@ -736,6 +798,34 @@ def kbench_phase() -> tuple[list[dict], dict]:
         records[name]["device_ms"] = busy / 2
     log("  device ms per pass: " + ", ".join(f"{n} {r['device_ms']:.4f}"
                                              for n, r in records.items()))
+    # the W8A16 kernel in w8mm's pass over the same int8 weights [L, D, 14 D]
+    # (x0, then per layer x @ w8[li] * wscale, the next x its first D columns
+    # in bf16), beside w8mm (the converted product) and wbfmm (bf16 weights)
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense, w8a16_dense_ref
+
+    def w8a16_pass():
+        x = inp["x0"]
+        for li in range(d.L):
+            x = w8a16_dense(x, inp["w8"][li], inp["wscale"])[:, :tool.D].to(torch.bfloat16) * 1e-3
+        return x
+
+    saved_w8 = w8a16_dense.launches
+    got = w8a16_dense(inp["x0"], inp["w8"][0], inp["wscale"])
+    want = w8a16_dense_ref(inp["x0"], inp["w8"][0], inp["wscale"])
+    mag = inp["x0"].float().abs() @ inp["w8"][0].float().abs()
+    err = ((got - want).abs() / (mag + 1e-30)).max().item()
+    check(err <= 1e-5, f"w8a16 on w8mm's weights: error {err} of the magnitude sum")
+    records["w8a16"] = dict(ms=event_ms(lambda _: w8a16_pass(), 1, tool.REPS),
+                            device_ms=breakdown(lambda: [w8a16_pass() for _ in range(2)])["busy_ms"] / 2,
+                            bytes=records["w8mm"]["bytes"], bound_ms=records["w8mm"]["bound_ms"],
+                            max_rel_err=err)
+    w8a16_dense.launches = saved_w8
+    log("  w8a16 pass over w8mm's weights: ms {:.4f} (device {:.4f}), beside w8mm {:.4f} ({:.4f}) "
+        "and wbfmm {:.4f} ({:.4f}); bound {:.4f} (the int8 weights); error {:.2e} of the "
+        "magnitude sum".format(records["w8a16"]["ms"], records["w8a16"]["device_ms"],
+                               records["w8mm"]["ms"], records["w8mm"]["device_ms"],
+                               records["wbfmm"]["ms"], records["wbfmm"]["device_ms"],
+                               records["w8mm"]["bound_ms"], err))
 
     # 3. per kernel: device time, plain pass, library pass, bound
     def sdpa_pass(_):
@@ -949,6 +1039,13 @@ def counters():
 def reset_counts() -> None:
     k1, k2 = counters()
     k1.launches = k1.launches_f32 = k2.launches = k2.launches_int8 = k2.launches_grouped = 0
+    w8a16().launches = 0
+
+
+def w8a16():
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
+
+    return w8a16_dense
 
 
 def read_counts() -> tuple[int, int, int, int]:
@@ -966,12 +1063,14 @@ def k1_f32_count() -> int:
 
 def saved_counts() -> tuple:
     k1, k2 = counters()
-    return k1.launches, k1.launches_f32, k2.launches, k2.launches_int8, k2.launches_grouped
+    return (k1.launches, k1.launches_f32, k2.launches, k2.launches_int8, k2.launches_grouped,
+            w8a16().launches)
 
 
 def restore_counts(saved: tuple) -> None:
     k1, k2 = counters()
-    (k1.launches, k1.launches_f32, k2.launches, k2.launches_int8, k2.launches_grouped) = saved
+    (k1.launches, k1.launches_f32, k2.launches, k2.launches_int8, k2.launches_grouped,
+     w8a16().launches) = saved
 
 
 class eager:
@@ -1536,18 +1635,24 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
                       f"B={b} {label} {mode}: {run} steps run for {steps}")
                 check(k1 == 0, f"B={b}: K1 launched {k1} times in decode")
                 check_k2(f"B={b} {label} decode ({mode})", k2, k2_int8, 2 * n_dec * run, k2_grouped)
+                # int8 weights: every product of a token step (6 a layer and the
+                # logits) and the ingest's last-row logits take the W8A16 kernel
+                w8 = w8a16().launches
+                want_w8 = (6 * n_dec + 1) * run + 1 if tier == "serving" else 0
+                check(w8 == want_w8, f"{tier} B={b} {label} {mode}: W8A16 launches {w8}, "
+                                     f"want {want_w8}")
                 tok = win.tokens.cpu()
                 check(bool(((tok >= 0) & (tok < dims.n_vocab)).all()) and bool(torch.isfinite(win.p).all())
                       and bool(((win.p >= 0) & (win.p <= 1)).all()), f"B={b}: window tokens/probabilities")
                 runs[label, mode] = dict(ms=ms, steps=steps, run=run, ms_per_step=ms / steps, k2=k2,
-                                         k2_int8=k2_int8, win=win)
+                                         k2_int8=k2_int8, w8a16=w8, win=win)
             g, e = runs[label, "graph"], runs[label, "eager"]
             check(same_window(g.pop("win"), e.pop("win")),
                   f"{tier} B={b} {label}: the graph's WindowResult differs from the eager step's")
             log(f"  {tier} B={b} decode, {label} ({g['steps']} steps): graph {g['ms_per_step']:.3f} "
                 f"ms/token step, eager {e['ms_per_step']:.3f} ({g['ms']:.1f} / {e['ms']:.1f} ms incl. "
                 f"prompt ingest); identical WindowResults; launches K2 {g['k2']} ({g['k2_int8']} on "
-                f"int8 K/V) each")
+                f"int8 K/V), W8A16 {g['w8a16']} each")
         slot = graph_slot(rt, "greedy", b)
         gap = read_gap_ms(slot, (0, False, FORCE_STEPS), GAP_STEPS)
         step_ms = gap["ms_per_step"]["no read"]
@@ -2368,6 +2473,18 @@ def main() -> int:
         show_case("flash_attention f32", c)
     for c in k2_cases:
         show_case("decode_attention_hd", c)
+    w8_cases = [w8a16_case(name, 8, "greedy B=8") for name in W8A16_SHAPES]
+    w8_cases += [w8a16_case(name, m, path) for name in ("qkv", "logits")
+                 for m, path in ((1, "run_full B=1"), (40, "beam U=8"))]
+    for c in w8_cases:
+        show_case("w8a16_dense", c)
+    # a token step at B=8: 32 layers of the six products, then the logits
+    step = {p: None if any(c[p] is None for c in w8_cases[:7])
+            else 32 * sum(c[p] for c in w8_cases[:6]) + w8_cases[6][p]
+            for p in ("device_ms", "library_device_ms", "bound_ms")}
+    log("  w8a16_dense, a large-v2 token step's 193 products at B=8 (32 x the six of a layer + "
+        "the logits): device ms {device_ms}, the converted path {library_device_ms}, bound "
+        "{bound_ms}".format(**{k: "n/a" if v is None else f"{v:.4f}" for k, v in step.items()}))
 
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2449,10 +2566,19 @@ def main() -> int:
                "parallel rank 0, golden f32": r0["golden f32"]["k1_f32"],
                "parallel rank 0, large-v2 f32": r0["large-v2 f32 tp"]["k1_f32"]}),
         k2,
+        dict(name="w8a16_dense", route="cuda", source="whisper_tpu_torch/csrc/w8a16_dense.cu",
+             replaces="none: XLA fused dense's int8 -> bf16 conversion into the product",
+             launches_by_path={f"serving B={b} {run}": main["serving"][f"B{b}"]["runs"][run]["w8a16"]
+                               for b in (1, 8) for run in ("forced graph", "natural graph")},
+             max_abs_err=max(c["max_abs_err"] for c in w8_cases), shape=w8_cases[0]["case"],
+             **{p: w8_cases[0][p] for p in ("ms", "device_ms", "plain_ms", "library_ms",
+                                            "library_device_ms", "bound_ms", "bound_by")},
+             step_at_b8=step, cases=w8_cases),
         *kb_entries,
     ]
+    kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
     kernels[1]["library_backend"] = k1_f32_cases[0]["library_backend"]
-    for k in kernels[:3]:
+    for k in kernels[:4]:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels, "serving_path": serving_path, "main_path": main,
                       "parallel": par, "kbench": kb_records, "card": smi, "phase_s": phase_s}),

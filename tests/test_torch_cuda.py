@@ -1025,6 +1025,9 @@ GRAPH_DIMS = {  # TINY_TEST_DIMS of tests/helpers.py, and large-v2's widths with
     "tiny": (51_864, 96, 64, 4, 2, 48, 64, 4, 2, 80, 1),
     "large-v2-1": (51_865, 1500, 1280, 20, 1, 448, 1280, 20, 1, 80, 1),
 }
+W8A16_DIMS = {  # TINY widths at large-v2's decoder depth: 193 int8 products a token step
+    "tiny-32": (51_864, 96, 64, 4, 2, 48, 64, 4, 32, 80, 1),
+}
 GRAPH_CASES = {  # loop, lanes (utterances for beam 5), force_steps
     "greedy-B1-natural": ("greedy", 1, 0), "greedy-B1-forced": ("greedy", 1, 17),
     "greedy-B3-natural": ("greedy", 3, 0), "greedy-B3-forced": ("greedy", 3, 17),
@@ -1045,7 +1048,7 @@ def graph_runtimes(tmp_path_factory):
             from whisper_tpu_torch.hparams import ModelDims
 
             path = tmp_path_factory.mktemp("graph") / f"{dims_name}.bin"
-            dims = ModelDims(*GRAPH_DIMS[dims_name])
+            dims = ModelDims(*{**GRAPH_DIMS, **W8A16_DIMS}[dims_name])
             chip_smoke.write_checkpoint(str(path), dims, chip_smoke.random_tensors(dims, 5))
             made[(dims_name, tier)] = _model(str(path), "cuda",
                                              "serving" if tier == "int8" else "bf16").runtime
@@ -1248,3 +1251,173 @@ def test_nccl_one_by_one_mesh_with_graphs_equals_no_mesh(scripted_path):
     assert a["segments"] == b["segments"] == [(" hi", 0, 192, SCRIPT[:5])]
     assert np.array_equal(a["window"][0], b["window"][0])
     assert all(np.array_equal(a["window"][1][k], v) for k, v in b["window"][1].items())
+
+
+# ---------------------------------------------------------------------------
+# the W8A16 dense kernel (int8 weights of the serving tier's token steps)
+# ---------------------------------------------------------------------------
+
+W8A16_SHAPES = {  # large-v2's decode products: (K, N, layout)
+    "qkv": (1280, 3840, "nn"), "o": (1280, 1280, "nn"), "xq": (1280, 1280, "nn"),
+    "xo": (1280, 1280, "nn"), "fc1": (1280, 5120, "nn"), "fc2": (5120, 1280, "nn"),
+    "logits": (1280, 51_865, "nt"),
+}
+
+
+def _w8a16_card_inputs(m, k, n, layout, seed, bias=True, offset=0):
+    """Seeded bf16 x [m, k], int8 codes read as [k, n] (contiguous, or the
+    transpose of a contiguous [n, k]), f32 [1, n] scales, f32 [n] bias;
+    ``offset`` > 0 shifts x's and the codes' bases off every load width."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xbuf = torch.randn((m * k + offset,), generator=g, device="cuda").bfloat16()
+    x = xbuf[offset:].view(m, k)
+    wbuf = torch.randint(-127, 128, (k * n + offset,), generator=g, device="cuda",
+                         dtype=torch.int8)
+    w = wbuf[offset:].view(k, n) if layout == "nn" else wbuf[offset:].view(n, k).T
+    s = torch.rand((1, n), generator=g, device="cuda") * 1e-2 + 1e-3
+    b = torch.randn((n,), generator=g, device="cuda") * 0.1 if bias else None
+    return x, w, s, b
+
+
+def _w8a16_check(x, w, s, b):
+    """The kernel against its plain version on the card: within 1e-5 of the
+    product's magnitude sum (|x| @ |w|, scaled) plus 1e-6 of |b|. Both sum
+    exact bf16 x bf16 products in f32, in other orders: a bf16 rounding
+    anywhere would be ~4e-3 of it."""
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense, w8a16_dense_ref
+
+    before = w8a16_dense.launches
+    got = w8a16_dense(x, w, s, b)
+    assert w8a16_dense.launches == before + 1
+    want = w8a16_dense_ref(x, w, s, b)
+    mag = (x.float().abs() @ w.float().abs()) * (1.0 if s is None else s.abs())
+    tol = 1e-5 * mag + (0.0 if b is None else 1e-6 * b.abs()) + 1e-30
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    excess = ((got - want).abs() - tol).max().item()
+    assert excess <= 0, f"error above tolerance by {excess}"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 40])
+@pytest.mark.parametrize("name", list(W8A16_SHAPES))
+def test_w8a16_kernel_matches_plain_at_large_v2(name, m):
+    """Every large-v2 decode product (the blocks' [in, out] codes and the
+    51,865-row table read transposed) at a greedy step's rows (1, 8) and a
+    beam step's (U = 8 x 5 = 40), scale and bias fused."""
+    _need_card()
+    k, n, layout = W8A16_SHAPES[name]
+    _w8a16_check(*_w8a16_card_inputs(m, k, n, layout, seed=m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "m,k,n,layout,bias,offset",
+    [(5, 1003, 777, "nn", True, 0), (8, 131, 1001, "nt", True, 0), (17, 70, 33, "nn", False, 0),
+     (33, 300, 45, "nt", True, 0), (64, 257, 129, "nn", True, 0), (3, 1280, 1280, "nn", True, 1),
+     (8, 1280, 200, "nt", False, 1), (1, 5, 1, "nn", True, 0), (2, 1, 7, "nt", True, 0),
+     (12, 5120, 64, "nn", True, 0)],
+    ids=["nn-ragged", "nt-ragged", "nn-17-no-bias", "nt-33", "nn-64", "nn-unaligned",
+         "nt-unaligned-no-bias", "nn-one-column", "nt-k1", "nn-long-k"],
+)
+def test_w8a16_kernel_ragged_and_unaligned(m, k, n, layout, bias, offset):
+    """Ragged N and K (byte loads at the edges), bases off the load widths
+    (byte loads throughout), batch tiles past M, one column, one k row."""
+    _need_card()
+    _w8a16_check(*_w8a16_card_inputs(m, k, n, layout, seed=k + n, bias=bias, offset=offset))
+
+
+@pytest.mark.cuda
+def test_w8a16_kernel_raw_product():
+    """Without a scale the kernel writes the raw product (a row-parallel
+    call's, summed over the ranks before the scale): the scaled call is the
+    raw one times s plus b, within f32 rounding."""
+    _need_card()
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
+
+    x, w, s, b = _w8a16_card_inputs(8, 640, 1280, "nn", seed=3)
+    raw = _w8a16_check(x, w, None, None)
+    fused = w8a16_dense(x, w, s, b)
+    torch.testing.assert_close(fused, raw * s + b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fc2", "logits"])
+def test_w8a16_kernel_replayed_equals_eager(name):
+    """A call captured in a CUDA graph and replayed on new activations gives
+    the eager call's result bit for bit (a fixed summation order), and the
+    capture launches it once."""
+    _need_card()
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
+
+    k, n, layout = W8A16_SHAPES[name]
+    x, w, s, b = _w8a16_card_inputs(8, k, n, layout, seed=11)
+    x_new = _w8a16_card_inputs(8, k, n, layout, seed=12)[0]
+    static_x = x.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        w8a16_dense(static_x, w, s, b)          # warm-up, as the graph recipe asks
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    before = w8a16_dense.launches
+    with torch.cuda.graph(graph):
+        static_y = w8a16_dense(static_x, w, s, b)
+    assert w8a16_dense.launches == before + 1
+    for inp in (x, x_new):
+        static_x.copy_(inp)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_y, w8a16_dense(inp, w, s, b))
+
+
+@pytest.mark.cuda
+def test_w8a16_carries_every_int8_product_of_a_serving_token_step(graph_runtimes):
+    """A serving greedy window on a 32-layer decoder (TINY widths, the
+    large-v2 depth): each replayed token step launches the W8A16 kernel
+    6 x 32 + 1 = 193 times (every block product and the logits), the
+    prompt ingest's 228-row products alone convert their weights (192
+    int8 -> bf16 copies, none in the step's body, which runs in Python at
+    its warm-up and capture), and the TRACER counts the calls so."""
+    _need_card()
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
+    from whisper_tpu_torch.obs.profiler import TRACER
+
+    class Conversions(TorchDispatchMode):
+        """Counts the int8 -> bf16 conversions dispatched."""
+
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            # Tensor.to dispatches as aten.to.dtype under inference mode, else as _to_copy
+            if (func.overloadpacket in (torch.ops.aten._to_copy, torch.ops.aten.to)
+                    and args[0].dtype == torch.int8 and out.dtype == torch.bfloat16):
+                Conversions.n += 1
+            return out
+
+    rt = graph_runtimes("tiny-32", "int8")
+    lanes, steps = 3, 9
+    n_dec = rt.dims.n_text_layer
+    assert n_dec == 32
+    for window in range(2):                   # the first captures; the second only replays
+        before = (w8a16_dense.launches, TRACER.counters.get("int8_dense_kernel", 0),
+                  TRACER.counters.get("int8_dense_converted", 0))
+        Conversions.n = 0
+        replays = rt.graphs.replays()
+        with Conversions():
+            _graph_window(rt, ("greedy", lanes, steps), *_graph_inputs(rt, lanes, window))
+        run = rt.graphs.replays() - replays
+        assert run == steps
+        launches = w8a16_dense.launches - before[0]
+        assert launches == (6 * n_dec + 1) * run + 1      # + the ingest's last-row logits
+        captured = 3 if window == 0 else 0                # 2 warm-up steps and the capture
+        assert TRACER.counters.get("int8_dense_kernel", 0) - before[1] == \
+            (6 * n_dec + 1) * captured + 1
+        assert TRACER.counters.get("int8_dense_converted", 0) - before[2] == 6 * n_dec
+        assert Conversions.n == 6 * n_dec                 # the ingest's, and no step's

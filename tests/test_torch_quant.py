@@ -415,3 +415,84 @@ def test_window_int8_matches_jax_and_script(scripted, tier, seed):
                                    rtol=0, atol=TOL_P, err_msg=name)
     n = int(got.result_len[0])
     assert got.tokens[0, :n].tolist() == SCRIPT[:-1] and not bool(got.failed[0])
+
+
+# ---------------------------------------------------------------------------
+# the W8A16 dense kernel's plain version and dense's dispatch rule
+# ---------------------------------------------------------------------------
+
+def _w8a16_inputs(m, k, n, layout, bias, seed=0):
+    """Seeded bf16 x [m, k], int8 codes read as [k, n] (contiguous, or the
+    transpose of a contiguous [n, k] as the token table), f32 [1, n] column
+    scales and an optional f32 [n] bias."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g).bfloat16()
+    codes = torch.randint(-127, 128, (k, n) if layout == "nn" else (n, k), generator=g,
+                          dtype=torch.int8)
+    w = codes if layout == "nn" else codes.T
+    s = torch.rand((1, n), generator=g) * 1e-2 + 1e-3
+    b = torch.randn((n,), generator=g) * 0.1 if bias else None
+    return x, w, s, b
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("m", [1, 8, 40])
+@pytest.mark.parametrize("layout", ["nn", "nt"])
+def test_w8a16_plain_equals_dense(layout, m, bias):
+    """The W8A16 kernel's plain version (codes to bf16, f32 product, scale,
+    then bias) equals today's ``dense(s=...)`` bit for bit on the CPU, in
+    both weight layouts the program stores (the blocks' [in, out], the
+    token table read transposed), and holds the exact f64 product within
+    f32 rounding."""
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense, weight_layout
+    from whisper_tpu_torch.model.layers import dense
+
+    x, w, s, b = _w8a16_inputs(m, 96, 72, layout, bias, seed=m)
+    assert weight_layout(w) == layout
+    got = w8a16_dense(x, w, s, b)
+    want = dense(x, w, b, s=s)
+    assert got.dtype == torch.float32 and got.shape == (m, 72)
+    assert torch.equal(got, want)
+    exact = (x.double() @ w.double()) * s.double() + (0 if b is None else b.double())
+    assert torch.allclose(got.double(), exact, rtol=1e-5, atol=1e-6)
+
+
+def _fake_call(rows, x_dtype=torch.bfloat16, device="cuda", w_dtype=torch.int8, scaled=True):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x = torch.empty((rows, 1, 1280), dtype=x_dtype, device=device)
+        w = torch.empty((1280, 5120), dtype=w_dtype, device=device)
+        s = torch.empty((1, 5120), dtype=torch.float32, device=device) if scaled else None
+    return x, w, s
+
+
+W8A16_ROUTES = {   # name: (call, tensor-parallel size, route)
+    "token-step-B8": (dict(rows=8), 1, "w8a16"),
+    "one-row": (dict(rows=1), 1, "w8a16"),
+    "beam-U8": (dict(rows=40), 1, "w8a16"),
+    "rows-64": (dict(rows=64), 1, "w8a16"),
+    "rows-65": (dict(rows=65), 1, "converted"),
+    "ingest-8x228": (dict(rows=8 * 228), 1, "converted"),
+    "no-scale": (dict(rows=8, scaled=False), 1, "float"),
+    "bf16-weights": (dict(rows=8, w_dtype=torch.bfloat16, scaled=False), 1, "float"),
+    "f32-x": (dict(rows=8, x_dtype=torch.float32), 1, "converted"),
+    "cpu": (dict(rows=8, device="cpu"), 1, "converted"),
+    "row-parallel": (dict(rows=8), 2, "w8a16_raw"),
+    "row-parallel-65": (dict(rows=65), 2, "converted"),
+}
+
+
+@pytest.mark.parametrize("case", list(W8A16_ROUTES), ids=list(W8A16_ROUTES))
+def test_dense_route_sends_token_steps_to_w8a16(case):
+    """dense's rule, on fake tensors (no card needed): int8 codes with
+    scales and a bf16 CUDA x of 1-64 rows take the kernel, its raw product
+    under a row-parallel group (the all-reduce runs before the scale);
+    more rows, f32 or CPU activations keep the converted product; calls
+    without scales are no int8 calls."""
+    from whisper_tpu_torch.model.layers import dense_route
+    from whisper_tpu_torch.parallel.group import AxisGroup
+
+    call, tp_size, route = W8A16_ROUTES[case]
+    x, w, s = _fake_call(**call)
+    assert dense_route(x, w, s, AxisGroup(size=tp_size)) == route

@@ -29,9 +29,10 @@ and written, codes and scales, in place. The kernel reads codes and scales
 directly; the einsum path of prompt ingest dequantizes to compute_dtype
 first. Int8 weights carry ``<key>_s`` scales that every ``dense`` applies,
 and an int8 token embedding ``tok_s``: gathered rows are dequantized, the
-logits get a per-vocab-row scale. The int8 -> bf16 conversion of each
-weight (``dense``) and of the embedding table (logits) is a separate pass
-on every step that XLA fused into the product.
+logits get a per-vocab-row scale. A token step's int8 products, the
+logits' over the table included, go to the W8A16 kernel (``dense``), which
+converts the codes in registers as XLA fused the conversion into the
+product; the prompt ingest's larger products convert each weight first.
 
 Tensor parallelism (``params.tp`` of size n > 1, ``parallel/sharding.py``):
 a rank holds H/n heads, so its caches are [L, B, HD/n, C]; the out
@@ -284,9 +285,10 @@ def decode_step(
     x = layer_norm(x, dec.ln_w, dec.ln_b)        # [B, S, d] f32
     if last_only:
         x = x[:, -1]
-    # int8 table: per-vocab-row scale epilogue ([V, 1] -> [1, V])
-    logits = dense(x.to(compute_dtype), dec.tok.T.to(compute_dtype),
-                   s=None if tok_s is None else tok_s.T)
+    # int8 table: its codes, read transposed, with the per-vocab-row scale as
+    # the epilogue ([V, 1] -> [1, V])
+    tok = dec.tok.T if tok_s is not None else dec.tok.T.to(compute_dtype)
+    logits = dense(x.to(compute_dtype), tok, s=None if tok_s is None else tok_s.T)
     if tp.size > 1:          # the rank's vocab columns, gathered; the pad rows cut
         logits = tp.gather(logits)[..., : dims.n_vocab]
     return logits, self_kv

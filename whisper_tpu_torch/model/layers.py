@@ -8,8 +8,12 @@ activations travel in the policy's compute dtype (bf16 on the card).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from whisper_tpu_torch.kernels.w8a16 import MAX_ROWS, w8a16_dense
+from whisper_tpu_torch.obs.profiler import TRACER
 from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 
 
@@ -18,6 +22,22 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1
     root). Computes in f32, returns f32; one fused op instead of the eight
     elementwise passes a literal transcription would launch."""
     return torch.nn.functional.layer_norm(x.float(), (x.shape[-1],), w.float(), b.float(), eps)
+
+
+def dense_route(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None,
+                tp: AxisGroup = SINGLE) -> str:
+    """Where ``dense`` sends a call, from what the call can see: "w8a16"
+    (the W8A16 kernel with the scale and bias fused) for int8 codes with
+    scales and a bf16 CUDA ``x`` of 1 to ``MAX_ROWS`` rows (the token
+    steps); "w8a16_raw" for the same under a row-parallel ``tp`` of size
+    > 1 (the kernel's raw product, all-reduced before the scale); else
+    "converted" for any other int8 call, and "float" for the rest."""
+    if s is None or w.dtype != torch.int8:
+        return "float"
+    rows = math.prod(x.shape[:-1])
+    if x.is_cuda and x.dtype == torch.bfloat16 and 1 <= rows <= MAX_ROWS:
+        return "w8a16_raw" if tp.size > 1 else "w8a16"
+    return "converted"
 
 
 def dense(
@@ -36,17 +56,28 @@ def dense(
     used here: PyTorch's default keeps f32 CUDA matmuls in full f32.
 
     ``s`` dequantizes an int8 ``w`` as an epilogue: one f32 scale per output
-    column (``params.quantize_weight``), applied BEFORE the bias. The int8
-    weight is converted to the activation dtype first. XLA fuses that
-    conversion into the product; here it is a separate pass that writes a
-    bf16 copy of the weight (1 byte read, 2 written per weight) on every
-    call.
+    column (``params.quantize_weight``), applied BEFORE the bias. A call of
+    at most ``MAX_ROWS`` bf16 rows on the card (a token step) takes the
+    W8A16 kernel (``kernels/w8a16.py``), which reads the codes once and
+    applies the scale and the bias in the same launch. Any other int8 call
+    converts the weight to the activation dtype first, a separate pass that
+    writes a bf16 copy of the weight (1 byte read, 2 written per weight),
+    then multiplies. ``dense_route`` says which; ``TRACER`` counts each
+    int8 call as ``int8_dense_kernel`` or ``int8_dense_converted``, once per
+    call of this function (a captured graph's replays count nothing).
 
     ``tp`` is the group a row-parallel ``w`` is split over (its rows, and
     ``x``'s last dim): the rank's f32 partial product is all-reduced over
     it before the epilogue, so the scale and the replicated bias are
     applied once. At size 1 (the default) nothing is launched."""
-    if x.is_cuda and x.dtype != torch.float32:
+    route = dense_route(x, w, s, tp)
+    if route != "float":
+        TRACER.count("int8_dense_converted" if route == "converted" else "int8_dense_kernel")
+    if route == "w8a16":
+        return w8a16_dense(x, w, s, b)
+    if route == "w8a16_raw":
+        y = w8a16_dense(x, w)
+    elif x.is_cuda and x.dtype != torch.float32:
         lead = x.shape[:-1]
         y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype), out_dtype=torch.float32)
         y = y.reshape(*lead, w.shape[-1])

@@ -47,10 +47,11 @@ def _counters() -> list[tuple[object, str]]:
     """The kernel wrappers' launch counters, as (wrapper, attribute)."""
     from whisper_tpu_torch.kernels.attention import flash_attention
     from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
+    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
 
     return [(flash_attention, "launches"), (flash_attention, "launches_f32"),
             (decode_attention_hd, "launches"), (decode_attention_hd, "launches_int8"),
-            (decode_attention_hd, "launches_grouped")]
+            (decode_attention_hd, "launches_grouped"), (w8a16_dense, "launches")]
 
 
 def _read_counts() -> list[int]:
