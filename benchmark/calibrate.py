@@ -35,7 +35,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
 
-    from benchmark.harness import Cell, Session, decide, has_card, windows_failed
+    from benchmark.harness import Cell, Session, decide, has_card
 
     cell = Cell(args.workload)
     if not has_card(cell):
@@ -47,7 +47,7 @@ def main(argv=None) -> int:
         sess.window(args.seconds, spans=False)
         sess.free_program()
         verdict = sess.judge(controls=tuple(args.control))
-        n, failed = len(sess.run.records), windows_failed(sess.run.records, sess.dims)
+        n, failed = len(sess.run.records), sess.driver.failed()
         verdict["correct"] = decide(verdict, cell.limits, n, failed)[0]
         for low in verdict.get("control", {}).values():
             low["correct"] = decide(low, cell.limits, n, failed)[0]

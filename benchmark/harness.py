@@ -1,19 +1,45 @@
 """One run of one cell: set-up, the measured window, the trace, the check, the result line.
 
-Everything particular to a cell is data, found by name: the cell in
-``BENCHMARK.json`` names its configuration (a file under
+Everything particular to a cell is data or a file of its own, found by
+name: the cell in ``BENCHMARK.json`` names its configuration (a file under
 ``benchmark/configs/``) and its traffic mix (``benchmark/traffic/<name>.json``,
 read by ``benchmark/traffic.py``); each metric is a reader
 ``benchmark/metrics/<name>.py`` with ``read(run) -> float | None``; the
-limit of each number compared is in ``benchmark/limits/<cell>.json``.
+limit of each number compared is in ``benchmark/limits/<cell>.json``; and
+the configuration's ``model_type`` names its family,
+``benchmark/families/<model_type>.py``, loaded by path from the cell's
+checkout (a configuration whose family has no file stops here, before
+anything is drawn).
 
-A run: the raw weights drawn on the card from the seed, the program built
-from them, the audio pool made, two warm rounds (the first builds the
-kernels from the checkout's cache and captures the cell's token step as
-a CUDA graph), then rounds for ``--seconds`` of wall time. Each round: a
-new item's mel (its first window), the lanes' 30 s windows encoded
-together, one window decode of ``steps`` forced token steps, the result on
-the host, the prompts carried. With ``--trace 1`` the calls are spans
+A family module supplies ``Driver(cfg, mix, seed, device, run, spans)``,
+one seed's model of that kind, with:
+
+  ``KERNELS``        label -> a fragment of kernel names, for ``devtrace.read_trace``
+  ``draw()``         the raw weights from the seed, on the device
+  ``build(raw)``     the program built from them (it keeps no reference to ``raw``)
+  ``serve()``        the traffic from the mix, and the inputs it plays
+  ``round(count)``   one round of every lane's next window, the windows returned;
+                     its calls into the program under ``spans(name)``; with
+                     ``count``, its records, latency, audio seconds and model
+                     operations added to ``run`` (``records``, ``latency_ms``,
+                     ``audio_s``, ``flops``)
+  ``traced(wins)``   a traced round's counted work, added to ``run.traced``
+  ``free()``         the program's state released
+  ``failed()``       the count of the window's results out of range
+  ``judge(controls)`` after ``free``: each number the cell's limits file names,
+                     from a sample of ``run.records`` against the family's plain
+                     reference, and under ``control`` each control's (``calibrate.py``)
+
+Its plain reference goes under ``benchmark/reference/``, the arithmetic of
+its kernels' bounds beside ``benchmark/counts.py``'s (which any family
+imports), and readers of what it puts in ``run.traced`` under
+``benchmark/metrics/``.
+
+A run: the family's driver, the raw weights drawn on the card from the
+seed, the program built from them, the traffic and its inputs made, two
+warm rounds (the first builds the kernels from the checkout's cache and
+captures the cell's step as a CUDA graph), then rounds for ``--seconds``
+of wall time. With ``--trace 1`` the program's calls are spans
 (synchronised) and a few more rounds run under the profiler. After the
 window: no JAX module may be loaded, the program's state is freed, and a
 sample of the finished windows is judged against the reference.
@@ -21,25 +47,22 @@ sample of the finished windows is judged against the reference.
 
 from __future__ import annotations
 
-import dataclasses
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
-from benchmark import check, counts, devtrace
-from benchmark.inputs import Dims, draw_pcm, draw_raw
-from benchmark.reference import whisper_ref as ref
-from benchmark.traffic import Traffic
+from benchmark import devtrace
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "whisper_tpu")   # whole top-level module names
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")   # a name, as BENCHMARK.json's
 TRACE_SECONDS = 1.0          # rounds traced after the window: at least one, then until this long
 
 
@@ -68,13 +91,25 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
 
 
-def load_reader(metrics_dir: Path, name: str):
-    """``read`` of the reader ``<metrics_dir>/<name>.py``."""
-    spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{name}",
-                                                  metrics_dir / f"{name}.py")
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(metrics_dir: Path, name: str):
+    """``read`` of the reader ``<metrics_dir>/<name>.py``."""
+    return _load(metrics_dir / f"{name}.py", f"benchmark.metrics.{name}").read
+
+
+def load_family(families_dir: Path, model_type) -> object:
+    """The family module ``<families_dir>/<model_type>.py``; stops the run
+    where there is none."""
+    path = families_dir / f"{model_type}.py"
+    if not (isinstance(model_type, str) and NAME.fullmatch(model_type) and path.is_file()):
+        raise SystemExit(f"model_type {model_type!r}: no family file {path}. No result.")
+    return _load(path, f"benchmark.families.{model_type}")
 
 
 class Cell:
@@ -90,6 +125,7 @@ class Cell:
         conf = {c["name"]: c for c in manifest["configs"]}[self.entry["config"]]
         self.cfg = json.loads((root / conf["file"]).read_text())
         self.dir = root / "benchmark"
+        self.family = load_family(self.dir / "families", self.cfg.get("model_type"))
         self.mix = json.loads((self.dir / "traffic" / f"{self.entry['traffic']}.json").read_text())
         self.limits = json.loads((self.dir / "limits" / f"{name}.json").read_text())
 
@@ -103,8 +139,8 @@ class Cell:
 class Run:
     """What the metric readers read."""
 
-    def __init__(self, cell: Cell, dims: Dims, work: counts.Work):
-        self.cell, self.dims, self.work = cell, dims, work
+    def __init__(self, cell: Cell):
+        self.cell = cell
         self.lanes = cell.mix["lanes"]
         self.setup_s = 0.0
         self.window_s = 0.0
@@ -115,38 +151,31 @@ class Run:
         self.spans = None
         self.mel_audio_s = 0.0
         self.trace: dict = {}
-        # the traced rounds' work: K1's and K2's bounds and the kernels they launch
-        self.traced = {"rounds": 0, "k1_bound_s": 0.0, "k1_kernels": 0, "k2_bound_s": 0.0,
-                       "k2_calls": 0}
+        self.traced = {"rounds": 0}          # the traced rounds, and their work as the family counts it
         self.peak_window_bytes = 0
         self.setup_peak_bytes = 0
 
 
 class Session:
-    """One seed's program, traffic and audio on the device, and its rounds."""
+    """One seed's driver (its program, traffic and inputs on the device) and its rounds."""
 
     def __init__(self, cell: Cell, seed: int, dev: torch.device):
-        from benchmark.program import Program          # the program, after the card check
         self.cell, self.seed, self.dev = cell, seed, dev
         self.cuda = dev.type == "cuda"
-        self.dims = dims = Dims(cell.cfg)
-        self.sp = ref.specials(dims.n_vocab)
-        self.run = Run(cell, dims, counts.Work(dims, cell.cfg["kv_int8"]))
-        self.filters = ref.mel_filters(dims.n_mels)
+        self.run = Run(cell)
+        self.spans = devtrace.Spans(False, self.sync)
+        self.driver = drv = cell.family.Driver(cell.cfg, cell.mix, seed, dev, self.run, self.spans)
         t0 = time.perf_counter()
-        raw = draw_raw(dims, seed, dev)
+        raw = drv.draw()
         self.sync()
         t1 = time.perf_counter()
-        self.prog = Program(raw, dims, self.sp, cell.cfg, self.filters, dev)
+        drv.build(raw)
         del raw
         self.sync()
         t2 = time.perf_counter()
-        self.traffic = Traffic(cell.mix, seed, self.sp, dims.window_frames, dims.n_text_ctx)
-        self.pool = {k: draw_pcm(seed, k, secs, dev) for k, secs in self.traffic.recordings()}
+        drv.serve()
         log(f"set-up parts: raw weights drawn {t1 - t0:.2f} s, the program built (its kernels "
-            f"loaded) {t2 - t1:.2f} s, audio {time.perf_counter() - t2:.2f} s")
-        self.spans = devtrace.Spans(False, self.sync)
-        self.item_mel: dict[int, torch.Tensor] = {}
+            f"loaded) {t2 - t1:.2f} s, traffic and its inputs {time.perf_counter() - t2:.2f} s")
 
     def sync(self) -> None:
         if self.cuda:
@@ -155,47 +184,7 @@ class Session:
     def one_round(self, count: bool) -> list:
         """One round of every lane's next window; ``count``: a round of the
         measured window, whose windows and work are recorded."""
-        run, traffic, prog, spans = self.run, self.traffic, self.prog, self.spans
-        frames = self.dims.window_frames
-        t_in = time.perf_counter()
-        wins = traffic.round()
-        for w in wins:
-            if w.item not in self.item_mel:
-                for old in [k for k in self.item_mel if k not in {x.item for x in wins}]:
-                    del self.item_mel[old]
-                rec, secs = traffic.recording(w.item)
-                with spans("mel"):
-                    m = prog.mel(self.pool[rec])
-                if count:
-                    run.mel_audio_s += secs
-                self.item_mel[w.item] = torch.nn.functional.pad(m, (0, frames))
-        mel = torch.stack([self.item_mel[w.item][:, w.seek: w.seek + frames] for w in wins])
-        with spans("encode"):
-            cross = prog.encode(mel)
-        prompt = np.zeros((len(wins), prog.prompt_capacity), np.int32)
-        for i, w in enumerate(wins):
-            prompt[i, : len(w.prompt)] = w.prompt
-        plen = np.array([len(w.prompt) for w in wins], np.int32)
-        with spans("decode"):
-            res = prog.decode(prompt, plen, cross, np.array([w.seek for w in wins], np.int32),
-                              np.array([w.seek_end for w in wins], np.int32), traffic.steps)
-        lat = (time.perf_counter() - t_in) * 1e3
-        del cross
-        with torch.profiler.record_function(devtrace.SPAN + "host"):
-            for i, w in enumerate(wins):
-                rl = int(res["result_len"][i])
-                traffic.done(w, res["tokens"][i], rl)
-                if count:
-                    run.records.append(dict(lane=w.lane, item=w.item, seek=w.seek, audio_s=w.audio_s,
-                                            prompt=w.prompt, tokens=res["tokens"][i].copy(), p=res["p"][i].copy(),
-                                            result_len=rl, seek_delta=int(res["seek_delta"][i]),
-                                            failed=bool(res["failed"][i])))
-                    run.latency_ms.append(lat)
-                    run.audio_s += w.audio_s
-                    run.flops += run.work.window_flops(len(w.prompt), traffic.steps)
-        if count:
-            run.flops += run.work.encode_flops(len(wins))
-        return wins
+        return self.driver.round(count)
 
     def window(self, seconds: float, spans: bool) -> None:
         """Rounds for ``seconds`` of wall time (the last one ends it)."""
@@ -214,63 +203,37 @@ class Session:
             run.peak_window_bytes = torch.cuda.max_memory_allocated(self.dev)
 
     def traced_rounds(self) -> None:
-        """Rounds under the profiler: at least one, then until TRACE_SECONDS."""
+        """Rounds under the profiler: at least one, then until TRACE_SECONDS.
+        Without a card the profiler records the host alone, and the trace
+        holds no device reading."""
         from torch.profiler import ProfilerActivity, profile
 
-        run, dims, steps = self.run, self.dims, self.traffic.steps
-        tr = run.traced
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr = self.run.traced
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.cuda else [])
+        with profile(activities=activities) as prof:
             t1 = time.perf_counter()
             with torch.profiler.record_function(devtrace.SPAN + "traced"):
                 while True:
                     wins = self.one_round(count=False)
                     tr["rounds"] += 1
-                    tr["k1_bound_s"] += run.work.k1_bound_s(len(wins))
-                    tr["k1_kernels"] += dims.enc_layers
-                    tr["k2_bound_s"] += run.work.k2_bound_s([len(w.prompt) for w in wins], steps)
-                    tr["k2_calls"] += steps * dims.dec_layers * 2     # self and cross
+                    self.driver.traced(wins)
                     if time.perf_counter() - t1 >= TRACE_SECONDS:
                         break
                 self.sync()
         t2 = time.perf_counter()
-        run.trace = devtrace.read_trace(prof, {"k1": "flash_attention_kernel", "k2": "decode_attention",
-                                               "k2_split": "decode_attention_kernel",
-                                               "k2_combine": "decode_attention_combine"})
-        found = run.trace.get("found", {})
-        n = {k: found.get(k, [0, 0])[1] for k in ("k1", "k2", "k2_split", "k2_combine")}
-        log(f"trace: {tr['rounds']} rounds, {run.trace.get('kernels', 0)} device ops (K1 {n['k1']} "
-            f"of {tr['k1_kernels']}; K2 {n['k2']}: {n['k2_split']} split and {n['k2_combine']} "
-            f"combine of {tr['k2_calls']} calls each), read in {time.perf_counter() - t2:.1f} s")
+        self.run.trace = devtrace.read_trace(prof, self.driver.KERNELS)
+        found = {k: n for k, (_, n) in self.run.trace.get("found", {}).items()}
+        log(f"trace: {tr['rounds']} rounds, {self.run.trace.get('kernels', 0)} device ops; kernels by "
+            f"name {found}; counted {tr}; read in {time.perf_counter() - t2:.1f} s")
 
     def free_program(self) -> None:
-        del self.prog
-        self.item_mel.clear()
+        self.driver.free()
         if self.cuda:
             torch.cuda.empty_cache()
 
     def judge(self, controls: tuple = ()) -> dict:
         """The check of a sample of the window's windows (after ``free_program``)."""
-        run, cfg = self.run, self.cell.cfg
-        picked = check.sample(run.records, run.lanes, self.seed)
-        prec = ref.Precision(weights_int8=cfg["dtype_policy"] == "serving", kv_int8=cfg["kv_int8"])
-        t3 = time.perf_counter()
-        raw = draw_raw(self.dims, self.seed, self.dev)
-        verdict = check.judge(run.records, picked, raw, self.dims, self.sp, prec,
-                              lambda item: self.pool[self.traffic.recording(item)[0]],
-                              torch.from_numpy(self.filters), self.traffic.steps, self.dev,
-                              controls=tuple(dataclasses.replace(prec, lower=c) for c in controls))
-        log(f"check: {verdict['windows']} windows, {verdict['tokens']} served tokens against the "
-            f"reference in {time.perf_counter() - t3:.1f} s; widest gap {verdict['gap']!r}, widest "
-            f"log-probability error {verdict['logp_err']!r}, mean {verdict['logp_mean_err']!r}; rules mismatches {verdict['rules_mismatch']}, "
-            f"banned tokens {verdict['banned']}, windows compared only in part {verdict['truncated']}")
-        return verdict
-
-
-def windows_failed(records: list, dims: Dims) -> int:
-    """Windows whose result is out of range (the window rule's own ``failed``
-    flag is a transcription outcome, not a failure)."""
-    n_max = dims.n_text_ctx // 2 - 4
-    return sum(1 for r in records if not (0 <= r["result_len"] <= n_max and r["seek_delta"] >= 0))
+        return self.driver.judge(controls)
 
 
 def decide(readings: dict, limits: dict, windows: int, failed: int) -> tuple[bool, dict]:
@@ -308,7 +271,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
 
     sess.window(seconds, spans=trace)
     log(f"window: {len(run.records)} windows in {run.window_s:.3f} s, {run.audio_s:.1f} audio s")
-    if trace and sess.cuda:
+    if trace:
         sess.traced_rounds()
 
     if sess.cuda:   # read after the window, so that no subprocess runs in the set-up
@@ -321,7 +284,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     sess.free_program()
     verdict = sess.judge()
 
-    failed = windows_failed(run.records, sess.dims)
+    failed = sess.driver.failed()
     correct, compared = decide(verdict, cell.limits, len(run.records), failed)
 
     metrics = {}

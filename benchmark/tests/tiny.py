@@ -1,5 +1,7 @@
 """A checkout of the benchmark at test sizes: the harness, with tiny model
-configurations and short mixes added as new files, beside a manifest of its own."""
+configurations and short mixes added as new files, beside a manifest of its own;
+and, where asked, a family of another kind (``toy_family.py``) with its own
+configuration, mix, limits, reader and cell, each a new file."""
 
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 
 TINY = {
-    "d_model": 64, "encoder_layers": 2, "decoder_layers": 4, "encoder_attention_heads": 4,
+    "model_type": "whisper", "d_model": 64, "encoder_layers": 2, "decoder_layers": 4, "encoder_attention_heads": 4,
     "decoder_attention_heads": 4, "encoder_ffn_dim": 256, "decoder_ffn_dim": 256,
     "num_mel_bins": 80, "vocab_size": 51865, "max_source_positions": 96, "max_target_positions": 48,
 }
@@ -30,10 +32,27 @@ CELLS = {"tiny.long": ("tiny.serving", "tiny-long"), "tiny.clips": ("tiny-v3.bf1
 # path computes in f32 on the bf16 weights), the controls' 0.026 to 0.098
 LIMIT = 0.01
 
+TOY_SOURCE = (Path(__file__).resolve().parent / "toy_family.py").read_text()
+TOY_CELL = "toy.clips"
+TOY = {"model_type": "toydec", "d_model": 32, "layers": 2, "heads": 2, "vocab_size": 96,
+       "num_mel_bins": 80, "audio_tokens": 10, "window_frames": 300, "carry_tokens": 8}
+TOY_MIX = {"lanes": 2, "item_seconds": [2.0, 4.5], "pool": 1, "steps": 5, "carry_prompt": True,
+           "stagger": False}
+# the toy program computes in float32 against a float64 reference: its logit_err reads ~1e-6
+TOY_LIMIT = 1e-3
+TOY_READER = '''"""Tokens a traced round served: the toy family's counter in run.traced."""
 
-def checkout(tmp: Path) -> Path:
+
+def read(run):
+    return run.traced["toy_tokens"] / run.traced["rounds"] if run.traced["rounds"] else None
+'''
+
+
+def checkout(tmp: Path, toy: str | None = None) -> Path:
     """A copy of the benchmark under ``tmp`` with the tiny cells added as
-    files of their own; returns its root (BENCHMARK.json's directory)."""
+    files of their own; returns its root (BENCHMARK.json's directory).
+    ``toy``: the source of a family ``toydec`` (``TOY_SOURCE``, or a faulty
+    twin), added with its configuration, mix, limits, reader and cell."""
     shutil.copytree(REPO / "benchmark", tmp / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     manifest = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -51,5 +70,19 @@ def checkout(tmp: Path) -> Path:
     for m in manifest["end_to_end"] + manifest["per_layer"]:
         if "workloads" in m:
             m["workloads"] += list(CELLS)
+    if toy is not None:
+        b = tmp / "benchmark"
+        (b / "families" / "toydec.py").write_text(toy)
+        (b / "configs" / "toy.json").write_text(json.dumps(TOY))
+        (b / "traffic" / "toy-clips.json").write_text(json.dumps(TOY_MIX))
+        (b / "limits" / f"{TOY_CELL}.json").write_text(json.dumps({"logit_err": {"limit": TOY_LIMIT}}))
+        (b / "metrics" / "toy_tokens_per_round.py").write_text(TOY_READER)
+        manifest["configs"].append({"name": "toy", "source": "test", "reduced": [], "why": "test",
+                                    "file": "benchmark/configs/toy.json"})
+        manifest["workloads"].append({"name": TOY_CELL, "config": "toy", "traffic": "toy-clips", "chips": 1,
+                                      "why": "test"})
+        manifest["per_layer"].append({"name": "toy_tokens_per_round", "unit": "tokens", "better": "higher",
+                                      "source": "program_counter", "layer": "toy", "moves": "audio_s_per_s",
+                                      "workloads": [TOY_CELL]})
     (tmp / "BENCHMARK.json").write_text(json.dumps(manifest))
     return tmp

@@ -10,12 +10,13 @@ A mix is a data file (``benchmark/traffic/<name>.json``) of parameters:
                  plays recording k % pool of it
   steps          forced token steps a window (the program's ``force_steps``)
   carry_prompt   a lane's later windows of an item carry the text of its
-                 earlier ones as the prompt ([prev] + the last n_text_ctx/2
-                 tokens), else every window has the first-window prompt
+                 earlier ones in the prompt, else every window has the
+                 first-window prompt
   stagger        lanes start their first item at offsets spread evenly over
                  an item's windows, in an order drawn from the seed
 
-The prompt's head is [sot, en, transcribe].
+The prompt is the family's: a function of the text a lane carries (none
+for an item's first window), and the number of tokens of text it keeps.
 
 A lane takes its item's windows in order, one a round, 30 s apart (the
 window rules' seek_delta is a transcription outcome of random weights and
@@ -53,15 +54,18 @@ class _Lane:
 
 
 class Traffic:
-    def __init__(self, mix: dict, seed: int, sp, window_frames: int, n_text_ctx: int):
+    """``prompt(past)``: a window's prompt from the text its lane carries
+    (``[]`` for an item's first window, or where the mix carries none);
+    ``keep``: the tokens of text a lane carries."""
+
+    def __init__(self, mix: dict, seed: int, window_frames: int, prompt, keep: int):
         self.mix = mix
         self.lanes = mix["lanes"]
         self.steps = mix["steps"]
         self.window_frames = window_frames
         self.window_s = window_frames / 100
-        self.n_take = n_text_ctx // 2
-        self.head = [sp.sot, sp.lang(0), sp.transcribe]        # language 0 is English
-        self.prev = sp.prev
+        self.keep = keep
+        self.prompt = prompt
         self.rng = np.random.default_rng(sub_seed(seed, 3))
         self.lengths = [float(s) for s in mix["item_seconds"]]
         self.order: list[int] = []       # length index of item k
@@ -106,9 +110,7 @@ class Traffic:
             if lane.index >= lane.windows:
                 self._take(lane)
             secs = self.item_seconds(lane.item)
-            prompt = list(self.head)
-            if self.mix.get("carry_prompt") and lane.past:
-                prompt = [self.prev] + lane.past[-self.n_take:] + prompt
+            prompt = self.prompt(lane.past if self.mix.get("carry_prompt") else [])
             out.append(Window(lane=i, item=lane.item, seek=lane.index * self.window_frames,
                               seek_end=int(round(secs * 100)),
                               audio_s=min(self.window_s, secs - lane.index * self.window_s),
@@ -118,5 +120,5 @@ class Traffic:
     def done(self, win: Window, tokens: np.ndarray, result_len: int) -> None:
         """A window's result is back: carry its text, move its lane on."""
         lane = self.state[win.lane]
-        lane.past = (lane.past + [int(t) for t in tokens[:result_len]])[-self.n_take:]
+        lane.past = (lane.past + [int(t) for t in tokens[:result_len]])[-self.keep:]
         lane.index += 1
