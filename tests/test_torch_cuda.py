@@ -1421,3 +1421,138 @@ def test_w8a16_carries_every_int8_product_of_a_serving_token_step(graph_runtimes
             (6 * n_dec + 1) * captured + 1
         assert TRACER.counters.get("int8_dense_converted", 0) - before[2] == 6 * n_dec
         assert Conversions.n == 6 * n_dec                 # the ingest's, and no step's
+
+
+# Uni-MoE-2.0-Omni's audio-to-text path (model/omni.py, runtime/omni.py) on the card
+
+OMNI_CARD = {
+    # the published attention (28 query heads over 4 K/V heads of 128: K2 at Dh = 128 with
+    # kv_group 7) and expert layer (4 routed + 1 null + 2 shared, top-p 0.7 capped at 2) at two
+    # layers, narrow experts, a small vocabulary and a small Whisper encoder (K1's heads of 64)
+    "hidden_size": 3584, "num_hidden_layers": 2, "num_attention_heads": 28, "num_key_value_heads": 4,
+    "vocab_size": 1000, "mlp_dynamic_expert_num": 4, "mlp_dynamic_null_expert_num": 1,
+    "mlp_fixed_expert_num": 2, "dynamic_intermediate_size": 256, "shared_intermediate_size": 64,
+    "mlp_dynamic_top_p": 0.7, "mlp_dynamic_top_k": 2, "rms_norm_eps": 1e-6, "rope_theta": 1000000,
+    "rope_scaling": {"mrope_section": [16, 24, 24]}, "use_sliding_window": False,
+    "whisper_hidden_size": 128, "whisper_encoder_layers": 2, "whisper_encoder_attention_heads": 2,
+    "whisper_num_mel_bins": 128, "whisper_max_source_positions": 100, "whisper_audio_time": 20,
+    "whisper_query_tokens_size": 200, "audio_token_id": 999,
+}
+
+
+def _omni_card_model(seed=3):
+    from whisper_tpu_torch.model.omni_params import OmniDims, params_from_tensors, tensor_names
+
+    dims = OmniDims.from_config(OMNI_CARD)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    raw = {}
+    for name, shape in tensor_names(dims).items():
+        x = torch.randn(shape, generator=g, device="cuda")
+        if name.endswith("bias"):
+            raw[name] = x * 0.02
+        elif "norm" in name:
+            raw[name] = 1 + 0.05 * x
+        else:
+            raw[name] = (x * int(np.prod(shape[1:])) ** -0.5).bfloat16()
+    return dims, params_from_tensors(dims, raw)
+
+
+def _omni_inputs(dims, seed, lanes=3):
+    """Each lane's prompt (ids, its audio placeholders among them) and the mel."""
+    rng = np.random.default_rng(seed)
+    seqs = [rng.integers(0, 999, 5 + 7 * b).tolist() + [999] * dims.audio_tokens + rng.integers(0, 999, 4).tolist()
+            for b in range(lanes)]
+    return seqs, torch.from_numpy(rng.normal(size=(lanes, 128, 200)).astype(np.float32))
+
+
+def _omni_window(ctx, dims, seed, lanes=3, width=64, steps=9):
+    seqs, mel = _omni_inputs(dims, seed, lanes)
+    prompt = np.zeros((lanes, width), np.int32)
+    for b, seq in enumerate(seqs):
+        prompt[b, : len(seq)] = seq
+    plen = np.array([len(s) for s in seqs], np.int32)
+    return ctx.run_window(prompt, plen, ctx.encode_window(mel), force_steps=steps)
+
+
+@pytest.mark.cuda
+def test_omni_window_replayed_as_a_graph_matches_eager():
+    """The omni token step captured and replayed (two windows over one
+    graph) gives the eager step's tokens, probabilities and routing record
+    bit for bit; the record's routed choices are the counters' own."""
+    _need_card()
+    from whisper_tpu_torch.obs.profiler import TRACER
+    from whisper_tpu_torch.runtime.omni import OmniContext
+
+    dims, params = _omni_card_model()
+    out = {}
+    for graphs in (True, False):
+        ctx = OmniContext(params, dims, cuda_graphs=graphs, prompt_capacity=64, max_new_tokens=12)
+        before = dict(TRACER.counters)
+        out[graphs] = [_omni_window(ctx, dims, seed) for seed in (1, 2)]
+        if graphs:
+            assert len(ctx.graphs.slots) == 1 and ctx.graphs.replays() == 18
+        routed = sum(int(((r.routes >= 0) & (r.routes < 4)).sum()) for r in out[graphs])
+        assert TRACER.counters["moe.routed_slots"] - before.get("moe.routed_slots", 0) == routed
+    for g, e in zip(out[True], out[False]):
+        for k in ("tokens", "p", "routes", "attn_start", "touched"):
+            assert np.array_equal(getattr(g, k), getattr(e, k)), k
+    assert not np.array_equal(out[True][0].tokens, out[True][1].tokens)
+
+
+@pytest.mark.cuda
+def test_omni_routing_record_matches_an_eager_recomputation():
+    """At each step column, the record's kept experts are those the router
+    gives for the hidden state of the token fed there, recomputed eagerly
+    from the cache the window left (prefill over the prompt and the served
+    tokens, the same layers, no graph)."""
+    _need_card()
+    from whisper_tpu_torch.model.omni import prefill
+    from whisper_tpu_torch.runtime.omni import OmniContext, OmniState
+
+    dims, params = _omni_card_model(4)
+    ctx = OmniContext(params, dims, prompt_capacity=64, max_new_tokens=12)
+    res = _omni_window(ctx, dims, 5, steps=8)
+    lanes = res.tokens.shape[0]
+    # the whole sequence (prompt, then the first 7 served tokens) as one prompt of 71 columns
+    prompts, mel = _omni_inputs(dims, 5, lanes)
+    seqs = [p + res.tokens[b, :7].tolist() for b, p in enumerate(prompts)]
+    width = 71
+    ids = torch.zeros((lanes, width), dtype=torch.int32, device="cuda")
+    plen = torch.tensor([len(s) for s in seqs], dtype=torch.int32, device="cuda")
+    for b, s in enumerate(seqs):
+        ids[b, width - len(s):] = torch.tensor(s, dtype=torch.int32, device="cuda")
+    audio = ctx.encode_window(mel)
+
+    st = OmniState.zeros(dims, lanes, 1, width + 1, "cuda")
+    st.routes.fill_(-1)
+    kv = ctx.self_kv(lanes)
+    with torch.inference_mode():
+        # the recomputation's cache is [..., 64 + 12]: the sequence fits in its first 71 columns
+        prefill(params, dims, ids, audio, width - plen, kv, st.routes, st.counts, torch.bfloat16)
+    got = st.routes[:, :, width - 7: width].cpu().numpy()            # the served tokens' columns
+    want = res.routes[:, :, 64: 64 + 7]
+    agree = (np.sort(got, -1) == np.sort(want, -1)).all(-1)
+    # bf16 prefill and cached steps sum in other orders: a rare near-tie may flip
+    assert agree.mean() >= 0.97, agree.mean()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(8, 560), (1, 449), (3, 64)])
+def test_decode_attention_kernel_dh128_group7_matches_plain(b, s):
+    """K2 as the omni step calls it: 7 query heads of 128 over each of 4 K/V
+    heads folded into lanes (kv_group 7), per-lane [start, valid)."""
+    _need_card()
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd, decode_attention_hd_ref
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    hd = 4 * 128
+    q = torch.randn((b * 7, hd, 1), generator=g, device="cuda").mul(128 ** -0.5).bfloat16()
+    kt = torch.randn((b, hd, s), generator=g, device="cuda").bfloat16()
+    vt = torch.randn((b, hd, s), generator=g, device="cuda").bfloat16()
+    start = (torch.arange(b, dtype=torch.int32, device="cuda") * 53 % (s // 2)).repeat_interleave(7)
+    valid = torch.full((b * 7,), s - 5, dtype=torch.int32, device="cuda")
+    before = decode_attention_hd.launches_grouped
+    got = decode_attention_hd(q, kt, vt, 4, valid_len=valid, start=start, kv_group=7)
+    assert decode_attention_hd.launches_grouped == before + 1
+    want = decode_attention_hd_ref(q, kt, vt, 4, valid_len=valid, start=start, kv_group=7)
+    assert (got - want).abs().max().item() < 2e-3

@@ -25,6 +25,8 @@ SLICE_MODULES = [
     "whisper_tpu_torch.model.layers",
     "whisper_tpu_torch.model.encoder",
     "whisper_tpu_torch.model.decoder",
+    "whisper_tpu_torch.model.omni_params",
+    "whisper_tpu_torch.model.omni",
     "whisper_tpu_torch.kernels.attention",
     "whisper_tpu_torch.kernels.decode_attention",
     "whisper_tpu_torch.kernels.w8a16",
@@ -37,6 +39,7 @@ SLICE_MODULES = [
     "whisper_tpu_torch.runtime.beam",
     "whisper_tpu_torch.runtime.graph",
     "whisper_tpu_torch.runtime.batch",
+    "whisper_tpu_torch.runtime.omni",
     "whisper_tpu_torch.features.mel",
     "whisper_tpu_torch.features.stream",
     "whisper_tpu_torch.api.params",

@@ -32,6 +32,16 @@ The runtime's spans and counters (name: where it is recorded):
   graph_captures  runtime/graph.py Slot.step: captured steps made
   capture_ms      the same: host ms of the build check, warm-up and capture
 
+  omni_encode     runtime/omni.py OmniContext.encode_window: encoder, connector
+  omni_prefill    runtime/omni.py OmniContext.run_window: the state reset and
+                  the eager prefill of the prompt and audio positions
+  omni_steps      the same: the replayed token steps; units = steps launched
+  moe.tokens, moe.routed_slots, moe.null_slots, moe.experts_touched
+                  the same, when a window's result is copied back: token-layer
+                  pairs through an expert layer, their kept routed and null
+                  choices, and the routed experts some lane chose at each
+                  step's layers
+
 Inside ``device_trace`` (an ``annotated()`` scope) each span is also a
 ``record_function`` range named ``wtt:<name>``, so the program's spans sit
 on the trace's timeline beside the kernels they launched. No other profiler
