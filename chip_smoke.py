@@ -117,7 +117,18 @@ result line:
                 process: a 1x1 mesh with graphs equal to mesh=None bit for
                 bit, with the graph step's launches. Ms per window and per
                 token step, and the collectives' share of each
-  6. report     one JSON line of every kernel's numbers (with the serving
+  5c. omni      Uni-MoE-2.0-Omni's audio-to-text window (runtime/omni.py's
+                OmniContext) at the published widths and vocabulary, cut to
+                2 of 28 language-model layers and 2 of 32 encoder layers
+                (seeded random weights drawn on the card, ~6 GB): B=8,
+                448 prompt columns, 112 steps, as the omni cell runs it. A
+                first window captures the token step; the expert kernel's
+                counter is set to 0 before a replayed window and before the
+                same window on the eager step, and each must show 2
+                launches a layer and step, moe.experts_read equal to
+                moe.experts_touched, and the same tokens, probabilities and
+                routing record
+  6. report    one JSON line of every kernel's numbers (with the serving
                 path's in ``serving_path``), then
                 the result line
                 {"ok": true, "device": {...}}
@@ -647,6 +658,97 @@ def w8a16_case(name: str, m: int, path: str = "") -> dict:
         geometry=dict(batch_tiles=geo.batch_tiles, tile_n=geo.tile_n, chunk_k=geo.chunk_k,
                       blocks=geo.blocks, cluster=geo.cluster,
                       chunks_per_warp=geo.chunks_per_warp),
+    )
+
+
+MOE_D, MOE_W, MOE_SHARED = 3584, 18944, 4736   # Uni-MoE-2.0-Omni: d, a routed expert, the shared SwiGLU
+
+
+def moe_case(b: int, kept: int, path: str = "") -> dict:
+    """The omni step's expert layer (kernels/moe.py's kernel pair) at the
+    published widths, ``b`` lanes, the first ``kept`` of the 4 routed
+    experts kept (expert e by lane e % b, expert 0 by every lane): against
+    its plain version, and beside the cuBLAS chain it replaced (the shared
+    SwiGLU and every routed expert over every lane, gate 0 where a lane did
+    not keep it: two products, chunk, SiLU, multiply, cast, gate multiply,
+    add an expert). Device times per launch of each kernel and per pair;
+    the kernel's and the plain version's errors against the expression in
+    f64 with unrounded activations, of the down products' magnitude sum."""
+    import torch
+
+    from whisper_tpu_torch.kernels.moe import DOWN_SPLITS, OUT_TILE, moe_experts, moe_experts_ref, swiglu
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+
+    def pair(w):
+        gate_up = (torch.randn((2 * w, MOE_D), generator=g, device="cuda") * MOE_D ** -0.5).bfloat16()
+        down = (torch.randn((MOE_D, w), generator=g, device="cuda") * w ** -0.5).bfloat16()
+        return gate_up.T, down.T
+
+    shared, routed = pair(MOE_SHARED), [pair(MOE_W) for _ in range(4)]
+    h = torch.randn((b, MOE_D), generator=g, device="cuda").bfloat16()
+    gates = torch.zeros((b, 5), device="cuda")
+    for e in range(kept):
+        lanes = list(range(b)) if e == 0 else [e % b]
+        gates[lanes, e] = torch.rand((len(lanes),), generator=g, device="cuda") * 0.9 + 0.05
+    gates = gates[:, :4]
+
+    def kernel(_):
+        return moe_experts(h, gates, shared, routed)
+
+    def plain(_):
+        return moe_experts_ref(h, gates, shared, routed)
+
+    def chain(_):
+        out = swiglu(h, *shared)
+        for e, (gate_up, down) in enumerate(routed):
+            out = out + gates[:, e:e + 1] * swiglu(h, gate_up, down)
+        return out
+
+    got, want = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    check(got.shape == (b, MOE_D) and bool(torch.isfinite(got).all()), f"moe_experts B={b}: shape or finite")
+    mag = 0.0
+    for e, (gate_up, down) in enumerate([shared, *routed]):
+        gv, uv = (h.float() @ gate_up.float()).chunk(2, dim=-1)
+        a = (torch.nn.functional.silu(gv) * uv).bfloat16().float().abs() @ down.float().abs()
+        mag = mag + (a if e == 0 else gates[:, e - 1:e].abs() * a)
+    rel = ((got - want).abs() / (mag + 1e-30)).max().item()
+    # both against the expression in f64 with unrounded activations: the same error statistics
+    # mean the pair differs from the cuBLAS path in f32 order and bf16 rounding neighbours alone
+    exact = torch.zeros((b, MOE_D), dtype=torch.float64, device="cuda")
+    for e, (gate_up, down) in enumerate([shared, *routed]):
+        if e == 0 or bool(gates[:, e - 1].any()):
+            gv, uv = (h.double() @ gate_up.double()).chunk(2, dim=-1)
+            y = (torch.nn.functional.silu(gv) * uv) @ down.double()
+            exact += y if e == 0 else gates[:, e - 1:e].double() * y
+    err_f64 = {}
+    for side, y in (("kernel", got), ("plain", want)):
+        r = (y.double() - exact).abs() / (mag.double() + 1e-30)
+        err_f64[side] = dict(mean=r.mean().item(), max=r.max().item())
+    del exact
+    streamed = 3 * MOE_D * (MOE_SHARED + kept * MOE_W) * 2
+    bytes_ = streamed + 2 * b * MOE_D + 4 * b * MOE_D + 4 * b * 4
+    bound_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    bound_flops = 2 * b * streamed / 2 / BF16_FLOPS * 1e3
+    del mag
+    return dict(
+        case=f"B={b} d={MOE_D} routed {kept} of 4 x w={MOE_W} + shared w={MOE_SHARED}", path=path,
+        max_abs_err=rel, tol=1e-4, err_f64=err_f64,
+        tol_reason="relative to the down products' magnitude sum: f32 sums in other orders, and a bf16 "
+                   "activation rounded to its neighbour where the reordered sum crosses a rounding point",
+        ms=event_ms(kernel, 1, 20),
+        device_ms=device_ms(kernel, 1, 10, "moe_", 2),
+        gate_up_device_ms=device_ms(kernel, 1, 10, "moe_gate_up_kernel", 1),
+        down_device_ms=device_ms(kernel, 1, 10, "moe_down_kernel", 1),
+        plain_ms=event_ms(plain, 1, 5),
+        library_ms=event_ms(chain, 1, 10),
+        library_device_ms=library_device_ms(chain, 1, 5),
+        bound_ms=max(bound_bytes, bound_flops),
+        bound_by="bytes" if bound_bytes >= bound_flops else "operations",
+        geometry=dict(gate_up_blocks=(MOE_SHARED + 4 * MOE_W) // 16,
+                      gate_up_blocks_run=(MOE_SHARED + kept * MOE_W) // 16,
+                      down_blocks=MOE_D // OUT_TILE * DOWN_SPLITS, down_splits=DOWN_SPLITS),
     )
 
 
@@ -2420,6 +2522,93 @@ def parallel_phase(tmp: str, scripted: str, large: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: the omni window (runtime/omni.py) at the published widths
+# ---------------------------------------------------------------------------
+
+OMNI_CONFIG = "benchmark/configs/uni-moe-2.0-omni.bf16.json"   # the published config.json's keys
+OMNI_LAYERS = 2                  # language-model layers (of 28) and encoder layers (of 32) kept
+OMNI_LANES, OMNI_COLS, OMNI_STEPS = 8, 448, 112   # lanes, prompt columns and steps of the omni cell
+
+
+def omni_phase() -> dict:
+    """[omni]: Uni-MoE-2.0-Omni's window through ``OmniContext`` at the
+    published widths, cut in depth only (``OMNI_LAYERS``), on seeded random
+    weights drawn on the card as the benchmark draws them. A first window
+    captures the token step; then the expert kernel's counter is set to 0
+    right before a replayed window and before the same window on the eager
+    step, and each must count 2 launches a layer and step, read exactly
+    the routed experts some lane kept, and give the same result."""
+    import torch
+
+    from whisper_tpu_torch.kernels.moe import moe_experts
+    from whisper_tpu_torch.model.omni_params import OmniDims, params_from_tensors, tensor_names
+    from whisper_tpu_torch.obs.profiler import TRACER
+    from whisper_tpu_torch.runtime.omni import OmniContext
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), OMNI_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(num_hidden_layers=OMNI_LAYERS, whisper_encoder_layers=OMNI_LAYERS)
+    dims = OmniDims.from_config(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    raw = {}
+    for name, shape in tensor_names(dims).items():
+        x = torch.randn(shape, generator=g, device="cuda")
+        if name.endswith("bias"):
+            raw[name] = x * 0.02
+        elif name.endswith("norm.weight") or "layer_norm" in name:
+            raw[name] = 1 + 0.05 * x
+        elif name.endswith("mlp.gate.weight"):
+            raw[name] = x * shape[1] ** -0.5
+        elif name.endswith(("embed_tokens.weight", "embed_positions.weight")):
+            raw[name] = (x * 0.02).bfloat16()
+        else:
+            raw[name] = (x * int(np.prod(shape[1:])) ** -0.5).bfloat16()
+        del x
+    params = params_from_tensors(dims, raw)
+    log(f"  {OMNI_LAYERS} of 28 layers at d {dims.d}, experts {dims.n_routed} x {dims.routed_width} + shared "
+        f"{dims.n_shared} x {dims.shared_width}, vocab {dims.n_vocab}: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+
+    rng = np.random.default_rng(SEED + 22)
+    text = min(151_643, dims.audio_token_id)
+    prompt = np.zeros((OMNI_LANES, OMNI_COLS), np.int32)
+    plen = np.zeros(OMNI_LANES, np.int32)
+    for b in range(OMNI_LANES):      # 24 head ids, 14 b carried, the audio positions, 12 tail ids
+        seq = (rng.integers(0, text, 24 + 14 * b).tolist() + [dims.audio_token_id] * dims.audio_tokens
+               + rng.integers(0, text, 12).tolist())
+        prompt[b, :len(seq)], plen[b] = seq, len(seq)
+    mel = torch.from_numpy(rng.normal(size=(OMNI_LANES, dims.audio.n_mels, 3000)).astype(np.float32))
+    kw = dict(prompt_capacity=OMNI_COLS, max_new_tokens=OMNI_STEPS)
+    ctx = OmniContext(params, dims, **kw)
+    audio = ctx.encode_window(mel)
+    ctx.run_window(prompt, plen, audio, OMNI_STEPS)          # captures the step
+    runs, results = {}, {}
+    for label, c in (("replayed", ctx), ("eager", OmniContext(params, dims, cuda_graphs=False, **kw))):
+        before = dict(TRACER.counters)
+        torch.cuda.synchronize()
+        moe_experts.launches = 0
+        t0 = time.perf_counter()
+        results[label] = c.run_window(prompt, plen, audio, OMNI_STEPS)
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[label] = dict(launches=moe_experts.launches, window_ms=ms, **{
+            k.split(".")[1]: TRACER.counters[k] - before.get(k, 0)
+            for k in ("moe.experts_read", "moe.experts_touched", "moe.step_layers")})
+        r = runs[label]
+        log(f"  {label} window, B={OMNI_LANES}, {OMNI_STEPS} steps: moe_experts launches {r['launches']} "
+            f"(2 x {OMNI_LAYERS} layers x {OMNI_STEPS} steps = {2 * OMNI_LAYERS * OMNI_STEPS}), routed experts "
+            f"read {r['experts_read']} / kept {r['experts_touched']} over {r['step_layers']} step-layers "
+            f"({r['experts_read'] / r['step_layers']:.3f} a layer), {ms:.1f} ms")
+        check(r["launches"] == 2 * OMNI_LAYERS * OMNI_STEPS and r["step_layers"] == OMNI_LAYERS * OMNI_STEPS
+              and r["experts_read"] == r["experts_touched"] > 0, f"omni {label} window: {r}")
+    for k in ("tokens", "p", "routes", "attn_start", "touched"):
+        check(np.array_equal(getattr(results["replayed"], k), getattr(results["eager"], k)),
+              f"omni window: the replayed step's {k} differ from the eager step's")
+    del ctx, params, audio
+    torch.cuda.empty_cache()
+    return dict(layers=OMNI_LAYERS, lanes=OMNI_LANES, steps=OMNI_STEPS, runs=runs)
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -2486,6 +2675,20 @@ def main() -> int:
         "the logits): device ms {device_ms}, the converted path {library_device_ms}, bound "
         "{bound_ms}".format(**{k: "n/a" if v is None else f"{v:.4f}" for k, v in step.items()}))
 
+    # the omni step's expert layer: 8 lanes touch ~3.5 of the 4 routed experts a layer, one lane ~1.6
+    from whisper_tpu_torch.kernels.moe import moe_experts
+
+    moe_before = moe_experts.launches
+    moe_cases = [moe_case(8, 4, "omni step B=8, all kept"), moe_case(8, 3, "omni step B=8"),
+                 moe_case(1, 2, "omni single stream B=1")]
+    moe_launches = moe_experts.launches - moe_before
+    for c in moe_cases:
+        show_case("moe_experts", c)
+        log("    device ms by launch: gate/up {}, down {}".format(
+            *("n/a" if c[k] is None else f"{c[k]:.4f}" for k in ("gate_up_device_ms", "down_device_ms"))))
+        log("    error against f64 with unrounded activations, of the magnitude sum: " + ", ".join(
+            f"{side} mean {e['mean']:.3e} max {e['max']:.3e}" for side, e in c["err_f64"].items()))
+
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("[kbench] python -m whisper_tpu_torch.tools.kbench at large-v2, every variant")
@@ -2505,6 +2708,11 @@ def main() -> int:
             "three tiers, large-v2 f32 and bf16), data parallel 2 x B=4; then NCCL at world size 1")
         par = parallel_phase(tmp, os.path.join(tmp, "scripted.bin"), os.path.join(tmp, LARGE_V2_FILE))
         phase_s["parallel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log(f"[omni] Uni-MoE-2.0-Omni's window at the published widths, {OMNI_LAYERS} of 28 layers: "
+        "replayed and eager steps")
+    omni = omni_phase()
+    phase_s["omni"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # the serving path: beam windows (natural end) per tier and U, and the
@@ -2574,14 +2782,26 @@ def main() -> int:
              **{p: w8_cases[0][p] for p in ("ms", "device_ms", "plain_ms", "library_ms",
                                             "library_device_ms", "bound_ms", "bound_by")},
              step_at_b8=step, cases=w8_cases),
+        dict(name="moe_experts", route="cuda", source="whisper_tpu_torch/csrc/moe_lanes.cu",
+             replaces="none: the JAX package has no omni path (the cuBLAS chain of model/omni.py's step)",
+             launches_by_path={f"omni run_window B={omni['lanes']}, {omni['steps']} steps, {label} "
+                               f"({omni['layers']} of 28 layers)": r["launches"]
+                               for label, r in omni["runs"].items()},
+             launches_cases=moe_launches,
+             max_abs_err=max(c["max_abs_err"] for c in moe_cases), shape=moe_cases[0]["case"],
+             **{p: moe_cases[0][p] for p in ("ms", "device_ms", "plain_ms", "library_ms",
+                                              "library_device_ms", "bound_ms", "bound_by")},
+             cases=moe_cases),
         *kb_entries,
     ]
-    kernels[3]["launches"] = sum(kernels[3]["launches_by_path"].values())
+    for k in kernels[3:5]:
+        k["launches"] = sum(k["launches_by_path"].values())
     kernels[1]["library_backend"] = k1_f32_cases[0]["library_backend"]
-    for k in kernels[:4]:
+    for k in kernels[:5]:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels, "serving_path": serving_path, "main_path": main,
-                      "parallel": par, "kbench": kb_records, "card": smi, "phase_s": phase_s}),
+                      "parallel": par, "omni": omni, "kbench": kb_records, "card": smi,
+                      "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1556,3 +1556,205 @@ def test_decode_attention_kernel_dh128_group7_matches_plain(b, s):
     assert decode_attention_hd.launches_grouped == before + 1
     want = decode_attention_hd_ref(q, kt, vt, 4, valid_len=valid, start=start, kv_group=7)
     assert (got - want).abs().max().item() < 2e-3
+
+
+# The omni step's expert layer on the grouped kernel pair (kernels/moe.py, csrc/moe_lanes.cu)
+
+MOE_D, MOE_W, MOE_SHARED = 3584, 18944, 4736   # Uni-MoE-2.0-Omni's widths: d, a routed expert, the shared SwiGLU
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    """One layer's expert weights at the published widths, as omni_params
+    lays them out: gate_up the transposed view of a contiguous [2w, d],
+    down of a contiguous [d, w]; N(0, 1/fan_in) in bf16."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(21)
+
+    def pair(w):
+        gate_up = (torch.randn((2 * w, MOE_D), generator=g, device="cuda") * MOE_D ** -0.5).bfloat16()
+        down = (torch.randn((MOE_D, w), generator=g, device="cuda") * w ** -0.5).bfloat16()
+        return gate_up.T, down.T
+
+    return pair(MOE_SHARED), [pair(MOE_W) for _ in range(4)]
+
+
+def _moe_gates(b, kept, seed):
+    """f32 gates [b, 5] (the router's width; column 4 the null expert's):
+    each routed expert in ``kept`` kept by one lane alone where it is even,
+    by every lane where it is odd, with a probability in (0.05, 0.95)."""
+    rng = np.random.default_rng(seed)
+    gates = np.zeros((b, 5), np.float32)
+    for e in kept:
+        lanes = [(5 * e + 1) % b] if e % 2 == 0 else list(range(b))
+        gates[lanes, e] = rng.uniform(0.05, 0.95, len(lanes))
+    return torch.from_numpy(gates).cuda()
+
+
+def _moe_magnitude(h, gates, shared, routed):
+    """Per output, sum over the entries of |gate| x (|a| @ |W_down|), with a
+    the plain version's bf16 activations: the magnitude sum of the down
+    products."""
+    from whisper_tpu_torch.model.layers import dense
+
+    def act(gate_up):
+        gv, uv = dense(h, gate_up).chunk(2, dim=-1)
+        return (torch.nn.functional.silu(gv) * uv).bfloat16().float().abs()
+
+    mag = act(shared[0]) @ shared[1].float().abs()
+    for e, (gate_up, down) in enumerate(routed):
+        mag += gates[:, e:e + 1].abs() * (act(gate_up) @ down.float().abs())
+    return mag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kept", range(16), ids=lambda m: "kept-" + "".join(str(e) for e in range(4) if m >> e & 1))
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_moe_experts_kernel_matches_plain_at_the_step_shapes(moe_weights, b, kept):
+    """Every subset of the 4 routed experts kept (even experts by one lane
+    alone), at B = 1, 3 and 8 and the published widths, against the plain
+    version: within 1e-4 of the magnitude sum of the down products. The
+    kernel sums each product's f32 terms in another order (~1e-7 of that
+    sum) and so may round a bf16 activation to its neighbour where the
+    reordered f32 value crosses a rounding point (2^-8 of that one term; a
+    few of an expert's 18,944 a lane): ~1e-6 of the sum. A dropped 256-k
+    chunk of one expert moves an output by ~1e-3 of it. Two calls give the
+    same bits; the counter adds the experts kept."""
+    from whisper_tpu_torch.kernels.moe import moe_experts, moe_experts_ref
+
+    shared, routed = moe_weights
+    subset = [e for e in range(4) if kept >> e & 1]
+    g = torch.Generator(device="cuda").manual_seed(100 * b + kept)
+    h = torch.randn((b, MOE_D), generator=g, device="cuda").bfloat16()
+    gates = _moe_gates(b, subset, 100 * b + kept)[:, :4]          # a view of the router's [b, 5]
+    read = torch.zeros(1, dtype=torch.int32, device="cuda")
+    before = moe_experts.launches
+    got = moe_experts(h, gates, shared, routed, read)
+    again = moe_experts(h, gates, shared, routed, read)
+    assert moe_experts.launches == before + 4
+    want = moe_experts_ref(h, gates, shared, routed)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (b, MOE_D)
+    assert torch.equal(got, again)
+    assert int(read.item()) == 2 * len(subset)
+    excess = ((got - want).abs() - 1e-4 * _moe_magnitude(h, gates, shared, routed)).max().item()
+    assert excess <= 0, f"error above tolerance by {excess}"
+
+
+@pytest.mark.cuda
+def test_moe_experts_kernel_skips_the_weights_of_unkept_experts(moe_weights):
+    """An expert no lane kept is not read: its weights may hold NaN and the
+    output is the same bits as with finite ones."""
+    from whisper_tpu_torch.kernels.moe import moe_experts
+
+    shared, routed = moe_weights
+    h = torch.randn((8, MOE_D), generator=torch.Generator(device="cuda").manual_seed(5), device="cuda").bfloat16()
+    gates = _moe_gates(8, [0, 3], 5)[:, :4]
+    want = moe_experts(h, gates, shared, routed)
+    poisoned = [(torch.full_like(gu.T, float("nan")).T, torch.full_like(dn.T, float("nan")).T)
+                if e in (1, 2) else (gu, dn) for e, (gu, dn) in enumerate(routed)]
+    got = moe_experts(h, gates, shared, poisoned)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_moe_experts_replayed_equals_eager(moe_weights):
+    """The pair captured in a CUDA graph and replayed on new lanes and gates
+    gives the eager call's bits, the kept experts decided on the device."""
+    from whisper_tpu_torch.kernels.moe import moe_experts
+
+    shared, routed = moe_weights
+    g = torch.Generator(device="cuda").manual_seed(9)
+    h = torch.randn((8, MOE_D), generator=g, device="cuda").bfloat16()
+    gates = _moe_gates(8, [0, 1, 2, 3], 9)[:, :4]
+    static_h, static_g = h.clone(), gates.clone()
+    read = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        moe_experts(static_h, static_g, shared, routed, read)     # warm-up, as the graph recipe asks
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = moe_experts(static_h, static_g, shared, routed, read)
+    read.zero_()
+    for seed, subset in ((9, [0, 1, 2, 3]), (10, [2]), (11, [])):
+        new_h = torch.randn((8, MOE_D), generator=torch.Generator(device="cuda").manual_seed(seed),
+                            device="cuda").bfloat16()
+        new_g = _moe_gates(8, subset, seed)[:, :4]
+        static_h.copy_(new_h)
+        static_g.copy_(new_g)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, moe_experts(new_h, new_g, shared, routed))
+    assert int(read.item()) == 4 + 1 + 0
+
+
+@pytest.mark.cuda
+def test_moe_experts_calls_on_two_streams_at_once_share_no_scratch(moe_weights):
+    """Calls in flight together on two streams (each its own scratch and
+    tile tickets) give the bits each gives alone."""
+    from whisper_tpu_torch.kernels.moe import moe_experts
+
+    shared, routed = moe_weights
+    inputs = [(torch.randn((8, MOE_D), generator=torch.Generator(device="cuda").manual_seed(seed),
+                           device="cuda").bfloat16(), _moe_gates(8, subset, seed)[:, :4])
+              for seed, subset in ((31, [0, 1, 2, 3]), (32, [1, 3]))]
+    want = [moe_experts(h, gates, shared, routed) for h, gates in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        got = []
+        for s, (h, gates) in zip(streams, inputs):
+            with torch.cuda.stream(s):
+                got.append(moe_experts(h, gates, shared, routed))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_moe_experts_refuses_what_the_kernel_cannot_take(moe_weights):
+    """f32 on the card, a width off the kernel's step of 64, more than 8
+    lanes, gates whose rows are not contiguous."""
+    from whisper_tpu_torch.kernels.moe import moe_experts
+
+    shared, routed = moe_weights
+    h = torch.zeros((2, MOE_D), dtype=torch.bfloat16, device="cuda")
+    gates = torch.zeros((2, 4), device="cuda")
+    with pytest.raises(NotImplementedError):
+        moe_experts(h.float(), gates, tuple(w.float() for w in shared), [tuple(w.float() for w in p) for p in routed])
+    odd = (torch.zeros((2 * 100, MOE_D), dtype=torch.bfloat16, device="cuda").T,
+           torch.zeros((MOE_D, 100), dtype=torch.bfloat16, device="cuda").T)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        moe_experts(h, gates, odd, routed)
+    with pytest.raises(ValueError, match="lanes"):
+        moe_experts(torch.zeros((9, MOE_D), dtype=torch.bfloat16, device="cuda"), torch.zeros((9, 4), device="cuda"),
+                    shared, routed)
+    with pytest.raises(ValueError, match="contiguous"):
+        moe_experts(h, torch.zeros((4, 2), device="cuda").T, shared, routed)
+
+
+@pytest.mark.cuda
+def test_omni_window_reads_only_the_experts_kept():
+    """Over a window's replayed steps, the expert layers read exactly the
+    routed experts some lane kept (``moe.experts_read`` against the routing
+    record's ``moe.experts_touched``), through the kernel pair: 2 launches
+    a layer and step, and no cuBLAS product of an expert."""
+    _need_card()
+    from whisper_tpu_torch.kernels.moe import moe_experts
+    from whisper_tpu_torch.obs.profiler import TRACER
+    from whisper_tpu_torch.runtime.omni import OmniContext
+
+    dims, params = _omni_card_model(6)
+    ctx = OmniContext(params, dims, prompt_capacity=64, max_new_tokens=12)
+    for seed in (1, 2):        # the first captures; the second only replays
+        before = dict(TRACER.counters)
+        launches = moe_experts.launches
+        res = _omni_window(ctx, dims, seed, steps=10)
+        delta = {k: TRACER.counters.get(k, 0) - before.get(k, 0)
+                 for k in ("moe.experts_read", "moe.experts_touched", "moe.step_layers")}
+        assert delta["moe.experts_read"] == delta["moe.experts_touched"] == int(res.touched.sum())
+        assert delta["moe.step_layers"] == 10 * dims.n_layer
+        assert moe_experts.launches - launches == 2 * dims.n_layer * 10

@@ -202,9 +202,9 @@ def test_a_null_expert_alone_adds_nothing_routed(model):
     finally:
         blk.router_w = saved
     assert choice[0].tolist() == [4, -1]
-    from whisper_tpu_torch.model.omni import _swiglu, rms_norm
-    shared = _swiglu(rms_norm(x[:1], blk.post_norm_w, DIMS.rms_eps), blk.shared_gate_up, blk.shared_down,
-                     torch.float32)
+    from whisper_tpu_torch.kernels.moe import swiglu
+    from whisper_tpu_torch.model.omni import rms_norm
+    shared = swiglu(rms_norm(x[:1], blk.post_norm_w, DIMS.rms_eps), blk.shared_gate_up, blk.shared_down)
     torch.testing.assert_close(out, shared, rtol=0, atol=0)
 
 
@@ -310,3 +310,103 @@ def test_a_window_longer_than_the_cache_is_refused(model):
     prompt, plen = _prompts(DIMS, 7, 3, 16)
     with pytest.raises(ValueError, match="holds 4 steps"):
         ctx.run_window(prompt, plen, ctx.encode_window(mel), force_steps=5)
+
+
+# the step's expert layer (kernels/moe.py): its plain version, the wrapper's refusals, the counter
+
+def _all_experts(h, gates, blk):
+    """The step's expert layer as it was before the grouped kernel: every
+    routed expert over every lane, times its gate (0 where a lane did not
+    keep it)."""
+    from whisper_tpu_torch.kernels.moe import swiglu
+
+    out = swiglu(h, blk.shared_gate_up, blk.shared_down)
+    for e in range(DIMS.n_routed):
+        out = out + gates[:, e:e + 1] * swiglu(h, getattr(blk, f"gate_up_{e}"), getattr(blk, f"down_{e}"))
+    return out
+
+
+@pytest.mark.parametrize("policy", [F32, DtypePolicy()], ids=["f32", "bf16"])
+def test_expert_layer_skipping_unkept_experts_equals_every_expert_zero_gated(policy):
+    """Three lanes, routed expert 2 kept by none (its router column far below
+    the rest for these positive rows): ``moe_lanes`` runs the shared experts
+    and the three kept, and equals the all-experts arithmetic bit for bit
+    (an unkept expert adds out + 0 * y = out); its counter adds 3."""
+    from whisper_tpu_torch.model.omni import rms_norm
+
+    params = params_from_tensors(DIMS, draw(DIMS, 11), policy)
+    blk = params.blocks[1]
+    x = torch.randn(3, DIMS.d, generator=torch.Generator().manual_seed(4)).abs().to(policy.param_dtype)
+    blk.router_w[:, 2] = -100.0
+    read = torch.zeros(1, dtype=torch.int32)
+    out, _, kept = moe_lanes(x, blk, DIMS, policy.param_dtype, read)
+    hf = rms_norm(x, blk.post_norm_w, DIMS.rms_eps)
+    gates, kept_again, _ = route(hf, blk.router_w, DIMS)
+    assert torch.equal(kept, kept_again)
+    assert not kept[:, 2].any() and kept[:, [0, 1, 3]].any(0).all()
+    assert torch.equal(out, _all_experts(hf.to(policy.param_dtype), gates, blk))
+    assert int(read) == 3
+
+
+def _refused(case):
+    """Inputs the wrapper refuses, by case, on the CPU."""
+    g = torch.Generator().manual_seed(2)
+    d, w, ws = DIMS.d, DIMS.routed_width, 2 * DIMS.shared_width
+
+    def pair(width, dtype=torch.float32):
+        return (torch.randn(2 * width, d, generator=g).to(dtype).T, torch.randn(d, width, generator=g).to(dtype).T)
+
+    h, gates = torch.randn(3, d, generator=g), torch.rand(3, 4, generator=g)
+    shared, routed = pair(ws), [pair(w) for _ in range(4)]
+    if case == "dtype":
+        h = h.bfloat16()
+    elif case == "gates dtype":
+        gates = gates.bfloat16()
+    elif case == "layout":
+        routed[1] = (routed[1][0].contiguous(), routed[1][1])
+    elif case == "lanes":
+        h, gates = torch.randn(9, d, generator=g), torch.rand(9, 4, generator=g)
+    return h, gates, shared, routed
+
+
+@pytest.mark.parametrize("case,match", [("dtype", "is torch.float32, h torch.bfloat16"),
+                                        ("gates dtype", "gates must be f32"),
+                                        ("layout", "not the transpose of a contiguous"),
+                                        ("lanes", "1 to 8 lanes")])
+def test_expert_layer_wrapper_refuses_what_it_does_not_take(case, match):
+    """A weight of another dtype than h, gates not f32, a gate_up that is not
+    the transposed view of a contiguous [2w, d], more than 8 lanes: refused
+    on the CPU as on the card (the inputs are otherwise well formed)."""
+    from whisper_tpu_torch.kernels.moe import moe_experts
+
+    with pytest.raises(ValueError, match=match):
+        moe_experts(*_refused(case))
+    moe_experts(*_refused("none"))
+
+
+def test_a_window_counts_the_experts_its_steps_read(model):
+    """Through ``OmniContext``, the steps' expert layers count the routed
+    experts they read (``moe.experts_read``, from the device's counter):
+    exactly the experts some lane kept (the routing record's
+    ``moe.experts_touched``), over ``moe.step_layers`` = steps x layers; the
+    benchmark's reader divides the two."""
+    import importlib.util
+
+    from whisper_tpu_torch.obs.profiler import TRACER
+
+    _, params, mel = model
+    ctx = OmniContext(params, DIMS, compute_dtype=torch.float32, device="cpu", prompt_capacity=16,
+                      max_new_tokens=6)
+    prompt, plen = _prompts(DIMS, 9, 3, 16)
+    before = dict(TRACER.counters)
+    res = ctx.run_window(prompt, plen, ctx.encode_window(mel), force_steps=6)
+    delta = {k: TRACER.counters[k] - before.get(k, 0)
+             for k in ("moe.experts_read", "moe.experts_touched", "moe.step_layers")}
+    assert delta["moe.experts_read"] == delta["moe.experts_touched"] == int(res.touched.sum()) > 0
+    assert delta["moe.step_layers"] == 6 * DIMS.n_layer
+    spec = importlib.util.spec_from_file_location("omni_experts_read", ROOT / "benchmark/metrics/omni_experts_read.py")
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    got = reader.read(None)
+    assert got == TRACER.counters["moe.experts_read"] / TRACER.counters["moe.step_layers"]
+    assert 0 < got <= DIMS.n_routed

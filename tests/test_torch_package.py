@@ -30,6 +30,7 @@ SLICE_MODULES = [
     "whisper_tpu_torch.kernels.attention",
     "whisper_tpu_torch.kernels.decode_attention",
     "whisper_tpu_torch.kernels.w8a16",
+    "whisper_tpu_torch.kernels.moe",
     "whisper_tpu_torch.kernels.quant",
     "whisper_tpu_torch.kernels.kbench",
     "whisper_tpu_torch.tools.kbench",

@@ -23,7 +23,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "whisper_tpu_torch"
-SOURCES = ("flash_attention", "flash_attention_f32", "decode_attention", "w8a16_dense", "kbench")
+SOURCES = ("flash_attention", "flash_attention_f32", "decode_attention", "w8a16_dense", "moe_lanes",
+           "kbench")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -37,9 +37,11 @@ attends by plain masked einsums; its expert layer groups the prompt's real
 positions by expert and runs one product per routed expert over its rows.
 ``step`` (runtime/omni.py replays it as a CUDA graph) feeds one token per
 lane at a device column: self-attention through K2 with the query heads of
-a K/V head folded into lanes (``kv_group``), and every routed expert run
-over all lanes with the gate 0 where a lane did not choose it, so each
-expert's weights are read once a step and no host value is read. Both
+a K/V head folded into lanes (``kv_group``), and the expert layer over all
+lanes through ``kernels/moe.py:moe_experts`` (on the card a kernel pair that
+reads each expert some lane kept once, decided from the gates on the
+device, so no host value is read; it adds the routed experts it read to
+``read`` [L], a layer's count each). Both
 write each position's routing into ``routes`` [L, B, C, top_k] (int8,
 the kept experts in order of probability, -1 for none; null experts are
 n_routed..) and add to ``counts`` [L, n_experts + 1] the kept choices of
@@ -52,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
+from whisper_tpu_torch.kernels.moe import moe_experts, swiglu
 from whisper_tpu_torch.model.layers import dense
 from whisper_tpu_torch.model.omni_params import OmniBlock, OmniDims, OmniParams
 
@@ -103,13 +106,6 @@ def route(xf: torch.Tensor, router_w: torch.Tensor, dims: OmniDims):
     return gates, kept, choice
 
 
-def _swiglu(h: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor, dtype) -> torch.Tensor:
-    """W_down(silu(W_gate h) * W_up h), f32, with ``gate_up`` [d, 2w] (gate
-    columns first) and ``down`` [w, d]."""
-    g, u = dense(h, gate_up).chunk(2, dim=-1)
-    return dense((F.silu(g) * u).to(dtype), down)
-
-
 def moe_rows(x: torch.Tensor, blk: OmniBlock, dims: OmniDims, real: torch.Tensor, dtype):
     """The expert layer over rows x [N, d] (the prefill's positions), eager:
     routing on the device, then each routed expert over the real rows that
@@ -120,26 +116,26 @@ def moe_rows(x: torch.Tensor, blk: OmniBlock, dims: OmniDims, real: torch.Tensor
     gates, kept, choice = route(hf, blk.router_w, dims)
     kept = kept & real[:, None]
     choice = torch.where(real[:, None], choice, -1)
-    out = _swiglu(h, blk.shared_gate_up, blk.shared_down, dtype)
+    out = swiglu(h, blk.shared_gate_up, blk.shared_down)
     for e in range(dims.n_routed):
         rows = kept[:, e].nonzero().squeeze(1)
         if rows.numel():
-            y = _swiglu(h[rows], getattr(blk, f"gate_up_{e}"), getattr(blk, f"down_{e}"), dtype)
+            y = swiglu(h[rows], getattr(blk, f"gate_up_{e}"), getattr(blk, f"down_{e}"))
             out.index_add_(0, rows, y * gates[rows, e:e + 1])
     return out, choice, kept
 
 
-def moe_lanes(x: torch.Tensor, blk: OmniBlock, dims: OmniDims, dtype):
-    """The expert layer over one token a lane, x [B, d], with static shapes
-    and no host read: every routed expert runs over every lane, times its
-    gate (0 where a lane did not keep it). Returns (output [B, d] f32,
-    choice, kept)."""
+def moe_lanes(x: torch.Tensor, blk: OmniBlock, dims: OmniDims, dtype, read: torch.Tensor | None = None):
+    """The expert layer over one token a lane, x [B, d] (B <= 8), with static
+    shapes and no host read on the card: ``moe_experts`` runs the shared
+    experts and each routed expert some lane kept, times its gates (0 where
+    a lane did not keep it), and adds the routed experts it read to
+    ``read`` (one int32). Returns (output [B, d] f32, choice, kept)."""
     hf = rms_norm(x, blk.post_norm_w, dims.rms_eps)
     h = hf.to(dtype)
     gates, kept, choice = route(hf, blk.router_w, dims)
-    out = _swiglu(h, blk.shared_gate_up, blk.shared_down, dtype)
-    for e in range(dims.n_routed):
-        out = out + gates[:, e:e + 1] * _swiglu(h, getattr(blk, f"gate_up_{e}"), getattr(blk, f"down_{e}"), dtype)
+    routed = [(getattr(blk, f"gate_up_{e}"), getattr(blk, f"down_{e}")) for e in range(dims.n_routed)]
+    out = moe_experts(h, gates, (blk.shared_gate_up, blk.shared_down), routed, read)
     return out, choice, kept
 
 
@@ -242,10 +238,11 @@ def gqa_decode(q: torch.Tensor, k_t: torch.Tensor, v_t: torch.Tensor, valid: tor
 
 def step(params: OmniParams, dims: OmniDims, tokens: torch.Tensor, pos: torch.Tensor,
          attn_start: torch.Tensor, col: torch.Tensor, kv, routes: torch.Tensor,
-         counts: torch.Tensor, dtype) -> torch.Tensor:
+         counts: torch.Tensor, dtype, read: torch.Tensor) -> torch.Tensor:
     """One token a lane, ``tokens`` [B] at real positions ``pos`` [B] and
     cache column ``col`` (device int32 scalar, shared by the lanes): writes
-    its K/V column and routing, returns the logits [B, V] f32. Reads no
+    its K/V column and routing, adds each layer's routed experts read to
+    ``read`` [L] (int32), returns the logits [B, V] f32. Reads no
     host value: runtime/omni.py captures it as a CUDA graph."""
     b = tokens.shape[0]
     g, dh, n_kv = dims.group, dims.head_dim, dims.n_kv_head
@@ -261,7 +258,7 @@ def step(params: OmniParams, dims: OmniDims, tokens: torch.Tensor, pos: torch.Te
         kv.v[li].index_copy_(2, cols, v.to(kv.v.dtype).transpose(1, 2))
         att = gqa_decode(q.to(dtype).reshape(b, dims.n_head, dh), kv.k[li], kv.v[li], valid, start, g)
         x = x + dense(att.reshape(b, 1, dims.d).to(dtype), blk.o_w).to(dtype)
-        out, choice, kept = moe_lanes(x.reshape(b, -1), blk, dims, dtype)
+        out, choice, kept = moe_lanes(x.reshape(b, -1), blk, dims, dtype, read[li:li + 1])
         x = x + out.reshape(b, 1, -1).to(dtype)
         _record(routes, counts, li, choice, kept, real, cols)
     h = rms_norm(x[:, 0], params.norm_w, dims.rms_eps).to(dtype)

@@ -36,11 +36,13 @@ The runtime's spans and counters (name: where it is recorded):
   omni_prefill    runtime/omni.py OmniContext.run_window: the state reset and
                   the eager prefill of the prompt and audio positions
   omni_steps      the same: the replayed token steps; units = steps launched
-  moe.tokens, moe.routed_slots, moe.null_slots, moe.experts_touched
+  moe.tokens, moe.routed_slots, moe.null_slots, moe.experts_touched,
+  moe.experts_read, moe.step_layers
                   the same, when a window's result is copied back: token-layer
                   pairs through an expert layer, their kept routed and null
-                  choices, and the routed experts some lane chose at each
-                  step's layers
+                  choices, the routed experts some lane chose at each step's
+                  layers, the routed experts those layers read (counted on the
+                  device by kernels/moe.py), and the steps' layers
 
 Inside ``device_trace`` (an ``annotated()`` scope) each span is also a
 ``record_function`` range named ``wtt:<name>``, so the program's spans sit

@@ -47,11 +47,13 @@ def _counters() -> list[tuple[object, str]]:
     """The kernel wrappers' launch counters, as (wrapper, attribute)."""
     from whisper_tpu_torch.kernels.attention import flash_attention
     from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
+    from whisper_tpu_torch.kernels.moe import moe_experts
     from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
 
     return [(flash_attention, "launches"), (flash_attention, "launches_f32"),
             (decode_attention_hd, "launches"), (decode_attention_hd, "launches_int8"),
-            (decode_attention_hd, "launches_grouped"), (w8a16_dense, "launches")]
+            (decode_attention_hd, "launches_grouped"), (w8a16_dense, "launches"),
+            (moe_experts, "launches")]
 
 
 def _read_counts() -> list[int]:

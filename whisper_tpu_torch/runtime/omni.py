@@ -24,9 +24,12 @@ call), ``omni_prefill`` (per call) and ``omni_steps`` (units = the steps
 launched); when a window's result is copied back, ``moe.tokens``
 (token-layer pairs through an expert layer, prompt and steps),
 ``moe.routed_slots`` and ``moe.null_slots`` (their kept routed and null
-choices) and ``moe.experts_touched`` (summed over the steps' layers, the
-routed experts at least one lane chose), read from the device's routing
-record and counts, with no host read inside the steps.
+choices), ``moe.experts_touched`` (summed over the steps' layers, the
+routed experts at least one lane chose), ``moe.experts_read`` (the routed
+experts the steps' expert layers read, counted on the device by
+``kernels/moe.py:moe_experts``) and ``moe.step_layers`` (the steps' layers),
+read from the device's routing record and counts, with no host read inside
+the steps.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ class OmniState(NamedTuple):
     p: torch.Tensor          # [B, T_max] f32
     routes: torch.Tensor     # [L, B, C, top_k] int8
     counts: torch.Tensor     # [L, n_experts + 1] int32
+    read: torch.Tensor       # [L] int32: routed experts the steps' expert layers read
 
     @staticmethod
     def zeros(dims: OmniDims, b: int, t_max: int, cache_len: int, device) -> "OmniState":
@@ -79,7 +83,7 @@ class OmniState(NamedTuple):
         return OmniState(i=z(), logits=z(b, dims.n_vocab, dtype=torch.float32), n_past=z(b),
                          attn_start=z(b), tokens=z(b, t_max), p=z(b, t_max, dtype=torch.float32),
                          routes=z(dims.n_layer, b, cache_len, dims.top_k, dtype=torch.int8),
-                         counts=z(dims.n_layer, dims.n_experts + 1))
+                         counts=z(dims.n_layer, dims.n_experts + 1), read=z(dims.n_layer))
 
 
 def omni_step(params: OmniParams, dims: OmniDims, st: OmniState, kv: SelfKV, p_max: int,
@@ -94,7 +98,7 @@ def omni_step(params: OmniParams, dims: OmniDims, st: OmniState, kv: SelfKV, p_m
     st.tokens.index_copy_(1, col, tok.to(torch.int32)[:, None])
     st.p.index_copy_(1, col, p)
     logits = step(params, dims, tok, st.n_past, st.attn_start, p_max + i, kv, st.routes, st.counts,
-                  compute_dtype)
+                  compute_dtype, st.read)
     st.logits.copy_(logits)
     st.n_past.add_(1)
     i.add_(1)
@@ -167,7 +171,7 @@ class OmniContext:
             run = partial(omni_step, self.params, dims, st, kv, p_max, dtype)
 
         with TRACER.span("omni_prefill", device=self.device):
-            for a in (st.i, st.tokens, st.p, st.routes, st.counts):
+            for a in (st.i, st.tokens, st.p, st.routes, st.counts, st.read):
                 a.zero_()
             st.routes.fill_(-1)
             attn_start = p_max - plen
@@ -191,4 +195,6 @@ class OmniContext:
         TRACER.count("moe.routed_slots", int(counts[: dims.n_routed].sum()))
         TRACER.count("moe.null_slots", int(counts[dims.n_routed: dims.n_experts].sum()))
         TRACER.count("moe.experts_touched", int(res.touched.sum()))
+        TRACER.count("moe.experts_read", int(st.read.sum()))
+        TRACER.count("moe.step_layers", force_steps * dims.n_layer)
         return res
