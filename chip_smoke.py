@@ -158,6 +158,11 @@ FORCE_STEPS = 128
 PROFILE_STEPS = 16             # decode steps under the profiler (the trace stays small)
 BEAM = 5                       # beam width of the beam-search runs
 GAP_STEPS = 64                 # replays a pass when timing the loop's read of `stop`
+# the counts of the kernel layer's ledger (kernels/_build.py:LAUNCHES) that
+# the phases read: K1's launches, K2's, and of K2's those on int8 K/V and
+# those with kv_group > 1 (beam search's cross-attention)
+K1_K2 = ("flash_attention", "decode_attention_hd", "decode_attention_hd_int8",
+         "decode_attention_hd_grouped")
 
 
 def log(msg: str) -> None:
@@ -457,6 +462,7 @@ def flash_f32_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
     import torch
     import torch.nn.functional as F
 
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.attention import (
         flash_attention,
         flash_attention_f32_geometry,
@@ -468,9 +474,9 @@ def flash_f32_case(b: int, t: int, h: int = 20, dh: int = 64) -> dict:
     n = _n_sets(set_bytes)
     sets = [(torch.randn((b, t, h, 3, dh), generator=g, device="cuda") * 0.5).unbind(3)
             for _ in range(n)]
-    before = flash_attention.launches_f32
+    before = LAUNCHES["flash_attention_f32"]
     got = flash_attention(*sets[0])
-    check(flash_attention.launches_f32 == before + 1, "flash_attention f32: the f32 kernel did not launch")
+    check(LAUNCHES["flash_attention_f32"] == before + 1, "flash_attention f32: the f32 kernel did not launch")
     want = flash_attention_ref(*sets[0])
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == torch.float32, "flash_attention f32 shape/dtype")
@@ -814,8 +820,8 @@ def kbench_phase() -> tuple[list[dict], dict]:
     HD=1280 H=20 L=32 CS=512 RB=256): each kernel against its plain version
     on the tool's inputs (one layer, or all slabs for K6 and K9) and on
     seeded random ones of the same shape; then every variant's pass timed
-    by ``run`` with the kernel counters set to 0 just before and read just
-    after; then per kernel the profiler's device time per launch, the plain
+    by ``run`` with its launches counted (the ledger read just before and
+    just after); then per kernel the profiler's device time per launch, the plain
     pass, the library pass and the bound."""
     import gc
 
@@ -823,6 +829,7 @@ def kbench_phase() -> tuple[list[dict], dict]:
     import torch.nn.functional as F
 
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.tools import kbench as tool
 
     d = tool.Dims()
@@ -882,11 +889,10 @@ def kbench_phase() -> tuple[list[dict], dict]:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 2. the kbench run: every variant, counters from 0
-    for fn, _ in kb.KERNELS.values():
-        fn.launches = 0
+    # 2. the kbench run: every variant, its launches counted
+    before = LAUNCHES.copy()
     records = tool.run(d, tool.VARIANTS, "cuda", inputs=inp)
-    counts = {name: fn.launches for name, (fn, _) in kb.KERNELS.items()}
+    counts = {name: LAUNCHES[name] - before[name] for name in kb.KERNELS}
     variants = tool.make_variants(d, inp, tool.VARIANTS)
     for _, name, var, *_ in KBENCH:
         want = (tool.REPS + 1) * variants[var].launches_per_pass
@@ -911,7 +917,7 @@ def kbench_phase() -> tuple[list[dict], dict]:
             x = w8a16_dense(x, inp["w8"][li], inp["wscale"])[:, :tool.D].to(torch.bfloat16) * 1e-3
         return x
 
-    saved_w8 = w8a16_dense.launches
+    saved = LAUNCHES.copy()
     got = w8a16_dense(inp["x0"], inp["w8"][0], inp["wscale"])
     want = w8a16_dense_ref(inp["x0"], inp["w8"][0], inp["wscale"])
     mag = inp["x0"].float().abs() @ inp["w8"][0].float().abs()
@@ -921,7 +927,8 @@ def kbench_phase() -> tuple[list[dict], dict]:
                             device_ms=breakdown(lambda: [w8a16_pass() for _ in range(2)])["busy_ms"] / 2,
                             bytes=records["w8mm"]["bytes"], bound_ms=records["w8mm"]["bound_ms"],
                             max_rel_err=err)
-    w8a16_dense.launches = saved_w8
+    LAUNCHES.clear()
+    LAUNCHES.update(saved)
     log("  w8a16 pass over w8mm's weights: ms {:.4f} (device {:.4f}), beside w8mm {:.4f} ({:.4f}) "
         "and wbfmm {:.4f} ({:.4f}); bound {:.4f} (the int8 weights); error {:.2e} of the "
         "magnitude sum".format(records["w8a16"]["ms"], records["w8a16"]["device_ms"],
@@ -983,12 +990,13 @@ def kbench_phase() -> tuple[list[dict], dict]:
     # tool's int8 inputs of one layer, keys < S, per call on device time; its
     # counters are put back so that the main path's counts stay exact
     from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
-    saved = (k2.launches, k2.launches_int8, k2.launches_grouped)
+    saved = LAUNCHES.copy()
     valid = torch.full((d.B,), d.S, dtype=torch.int32, device="cuda")
     k2_int8_dev = device_ms(lambda li: k2(inp["q"], inp["k8"][li], inp["v8"][li], d.H,
                                           valid_len=valid, k_scale=inp["sc"][li],
                                           v_scale=inp["sc"][li]), d.L, 2 * d.L, "decode_attention")
-    k2.launches, k2.launches_int8, k2.launches_grouped = saved
+    LAUNCHES.clear()
+    LAUNCHES.update(saved)
     out = []
 
     def f(x):
@@ -1131,50 +1139,6 @@ def kbench_phase() -> tuple[list[dict], dict]:
 # phases 4 and 5
 # ---------------------------------------------------------------------------
 
-def counters():
-    from whisper_tpu_torch.kernels.attention import flash_attention
-    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
-
-    return flash_attention, decode_attention_hd
-
-
-def reset_counts() -> None:
-    k1, k2 = counters()
-    k1.launches = k1.launches_f32 = k2.launches = k2.launches_int8 = k2.launches_grouped = 0
-    w8a16().launches = 0
-
-
-def w8a16():
-    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
-
-    return w8a16_dense
-
-
-def read_counts() -> tuple[int, int, int, int]:
-    """K1 launches, K2 launches, and of those the K2 launches on int8 K/V
-    and those with kv_group > 1 (beam search's cross-attention)."""
-    k1, k2 = counters()
-    return k1.launches, k2.launches, k2.launches_int8, k2.launches_grouped
-
-
-def k1_f32_count() -> int:
-    """K1 launches of its f32 instance (DtypePolicy.f32()), of those that
-    read_counts gives."""
-    return counters()[0].launches_f32
-
-
-def saved_counts() -> tuple:
-    k1, k2 = counters()
-    return (k1.launches, k1.launches_f32, k2.launches, k2.launches_int8, k2.launches_grouped,
-            w8a16().launches)
-
-
-def restore_counts(saved: tuple) -> None:
-    k1, k2 = counters()
-    (k1.launches, k1.launches_f32, k2.launches, k2.launches_int8, k2.launches_grouped,
-     w8a16().launches) = saved
-
-
 class eager:
     """Within the block the runtime ``rt`` runs its token steps eagerly,
     launch by launch (``cuda_graphs=False``): the plain version that the
@@ -1211,7 +1175,7 @@ def slot_record(slot) -> dict:
     and replays."""
     return dict(static_bytes=slot.nbytes, pool_bytes=slot.pool_bytes(),
                 steps={str(k): dict(capture_ms=v.capture_ms, replays=v.replays,
-                                    k2_per_replay=v.launches[2])
+                                    k2_per_replay=v.launches["decode_attention_hd"])
                        for k, v in slot.steps.items()})
 
 
@@ -1232,11 +1196,12 @@ def read_gap_ms(slot, key: tuple, n: int) -> dict:
     kernel counts are taken back."""
     import torch
 
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.runtime.decode import run_steps
 
     st, step = slot.state, slot.steps[key]
     check(key[2] == 0 or key[2] > n, f"the step of {key} would set its flag within {n} steps")
-    saved = saved_counts()
+    saved = LAUNCHES.copy()
     modes = {"no read": dict(force_steps=n), "read each step": dict(force_steps=0),
              "read one behind": dict(force_steps=0, behind=True)}
     ms = {m: [] for m in modes}
@@ -1250,7 +1215,8 @@ def read_gap_ms(slot, key: tuple, n: int) -> dict:
             torch.cuda.synchronize()
         ms[mode].append((time.perf_counter() - t0) * 1e3 / n)
         check(steps == n, f"{mode}: {steps} of {n} steps")
-    restore_counts(saved)
+    LAUNCHES.clear()
+    LAUNCHES.update(saved)
     best = {m: min(v) for m, v in ms.items()}
     return dict(ms_per_step=best, gap_each_ms=best["read each step"] - best["no read"],
                 gap_behind_ms=best["read one behind"] - best["no read"])
@@ -1454,6 +1420,7 @@ def golden_phase(tmp: str) -> dict:
     from whisper_tpu_torch.api.params import Flags, FullParams, SamplingStrategy
     from whisper_tpu_torch.audio.load import ChunkedReader
     from whisper_tpu_torch.hparams import ModelDims
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.model.params import DtypePolicy
     from whisper_tpu_torch.runtime.batch import BatchTranscriber
 
@@ -1511,11 +1478,11 @@ def golden_phase(tmp: str) -> dict:
         for device in ("cuda", "cpu"):
             model = Model(path, device=device) if tier == "bf16" else serving_model(path, device)
             for name, (is_beam, run, ok) in runs.items():
-                reset_counts()
+                LAUNCHES.clear()
                 t0 = time.perf_counter()
                 got[name, device] = res = run(model)
                 sec = time.perf_counter() - t0
-                k1, k2, k2_int8, k2_grouped = read_counts()
+                k1, k2, k2_int8, k2_grouped = (LAUNCHES[k] for k in K1_K2)
                 log(f"  {tier} tier, {name}, on {device} ({sec:.2f} s): {res}; launches K1 {k1}, "
                     f"K2 {k2} ({k2_int8} on int8 K/V, {k2_grouped} grouped)")
                 check(ok(res), f"scripted {name}, {tier} tier, on {device}: {res}")
@@ -1553,7 +1520,7 @@ def golden_phase(tmp: str) -> dict:
             f32 = name.startswith("f32")
             model = Model(path, policy=DtypePolicy.f32() if f32 else None, device=device)
             ctx = model.create_context()
-            reset_counts()
+            LAUNCHES.clear()
             t0 = time.perf_counter()
             with counting(model.runtime) as rec:
                 if f32:
@@ -1562,8 +1529,8 @@ def golden_phase(tmp: str) -> dict:
                     buffers, _, result = recorded_capture(ctx, no_context, chunks, cap_params)
                     res = (buffers, segs(result))
             sec = time.perf_counter() - t0
-            k1, k2, k2_int8, k2_grouped = read_counts()
-            k1_f32 = k1_f32_count()
+            k1, k2, k2_int8, k2_grouped = (LAUNCHES[k] for k in K1_K2)
+            k1_f32 = LAUNCHES["flash_attention_f32"]
             more[name, device] = res
             log(f"  {name}, on {device} ({sec:.2f} s): buffers {res[0]}, {res[1]}; {rec.encodes} "
                 f"encode(s), {rec.steps} token steps ({rec.launched} run); launches K1 {k1} ({k1_f32} "
@@ -1657,6 +1624,7 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
     import torch
 
     from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     n_enc, n_dec = dims.n_audio_layer, dims.n_text_layer
     int8 = model.runtime.kv_int8
@@ -1672,10 +1640,10 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
     rng = np.random.default_rng(SEED)
     clip = (0.1 * rng.standard_normal(16_000 * 3)).astype(np.float32)
     ctx = model.create_context()
-    reset_counts()
+    LAUNCHES.clear()
     with counting(model.runtime) as rec:
         ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), clip))
-    k1, k2, k2_int8, k2_grouped = read_counts()
+    k1, k2, k2_int8, k2_grouped = (LAUNCHES[k] for k in K1_K2)
     steps = rec.window_steps
     log(f"  {tier} run_full (3 s clip): {ms:.1f} ms, {len(steps)} window(s), token steps {steps} "
         f"({rec.window_launched} run), {len(res.segments)} segment(s); launches K1 {k1}, K2 {k2} "
@@ -1701,9 +1669,9 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
         seek, seek_end = np.zeros(b, np.int32), np.full(b, 3000, np.int32)
 
         sync_ms(lambda: rt.encode_window(mel))                                # warm-up
-        reset_counts()
+        LAUNCHES.clear()
         enc_ms, (feats, cross) = sync_ms(lambda: rt.encode_window(mel))
-        k1, _, _, _ = read_counts()
+        k1 = LAUNCHES["flash_attention"]
         check(k1 == n_enc, f"B={b}: K1 launches {k1} != {n_enc} per encode")
         check(bool(torch.isfinite(feats).all()) and feats.shape == (b, dims.n_audio_ctx, dims.n_audio_state),
               f"B={b}: encoder output")
@@ -1722,13 +1690,13 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
         for label, force, ends in (("forced", FORCE_STEPS, seek_end), ("natural", 0, natural_end)):
             sync_ms(lambda: window(force, ends))                            # warm-up: capture
             for mode in ("graph", "eager"):
-                reset_counts()
+                LAUNCHES.clear()
                 if mode == "graph":
                     ms, (win, run) = sync_ms(lambda: launched(rt, lambda: window(force, ends)))
                 else:
                     with eager(rt):
                         ms, (win, run) = sync_ms(lambda: launched(rt, lambda: window(force, ends)))
-                k1, k2, k2_int8, k2_grouped = read_counts()
+                k1, k2, k2_int8, k2_grouped = (LAUNCHES[k] for k in K1_K2)
                 steps = int(win.steps)
                 check(steps == force if force else 1 <= steps <= rt.n_max_steps,
                       f"B={b} {label} {mode}: {steps} steps")
@@ -1739,7 +1707,7 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
                 check_k2(f"B={b} {label} decode ({mode})", k2, k2_int8, 2 * n_dec * run, k2_grouped)
                 # int8 weights: every product of a token step (6 a layer and the
                 # logits) and the ingest's last-row logits take the W8A16 kernel
-                w8 = w8a16().launches
+                w8 = LAUNCHES["w8a16_dense"]
                 want_w8 = (6 * n_dec + 1) * run + 1 if tier == "serving" else 0
                 check(w8 == want_w8, f"{tier} B={b} {label} {mode}: W8A16 launches {w8}, "
                                      f"want {want_w8}")
@@ -1813,6 +1781,7 @@ def beam_runs(rt, dims, tier, prompt, plen, cross, seek, seek_end, profile: bool
     import torch
 
     from whisper_tpu_torch.api.params import FullParams, SamplingStrategy
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.runtime.beam import decode_window_beam
 
     u, n_dec = prompt.shape[0], dims.n_text_layer
@@ -1835,13 +1804,13 @@ def beam_runs(rt, dims, tier, prompt, plen, cross, seek, seek_end, profile: bool
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        reset_counts()
+        LAUNCHES.clear()
         if mode == "graph":
             ms, (res, run) = sync_ms(lambda: launched(rt, lambda: window(force)))
         else:
             with eager(rt):
                 ms, (res, run) = sync_ms(lambda: launched(rt, lambda: window(force)))
-        k1, k2, k2_int8, k2_grouped = read_counts()
+        k1, k2, k2_int8, k2_grouped = (LAUNCHES[k] for k in K1_K2)
         extra = torch.cuda.max_memory_allocated() - base
         steps = int(res.steps)
         log(f"  {tier} beam {BEAM} U={u} ({u * BEAM} lanes), {label}, {mode}: {steps} steps ({run} "
@@ -1923,6 +1892,7 @@ def scheduler_run(model, dims, tier) -> dict:
     ms, rounds (one encode each), audio seconds per wall second, and the
     counts the rounds imply (K1: L_enc a round; K2: 2 L_dec a token step)."""
     from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.runtime.batch import BatchTranscriber
 
     rng = np.random.default_rng(SEED + 2)
@@ -1931,10 +1901,10 @@ def scheduler_run(model, dims, tier) -> dict:
     audio_s = sum(len(c) for c in clips) / 16_000
     rt = model.runtime
     bt = BatchTranscriber(model, batch=8)
-    reset_counts()
+    LAUNCHES.clear()
     with counting(rt) as rec:
         ms, results = sync_ms(lambda: bt.transcribe(clips, FullParams(language="en")))
-    k1, k2, k2_int8, k2_grouped = read_counts()
+    k1, k2, k2_int8, k2_grouped = (LAUNCHES[k] for k in K1_K2)
     rounds, steps = rec.widths, rec.window_steps
     n_seg = sum(len(r.segments) for r in results)
     log(f"  {tier} BatchTranscriber(batch=8), 12 clips, {audio_s:.2f} s of audio: {ms:.1f} ms wall, "
@@ -1974,16 +1944,17 @@ def f32_runs(model, dims) -> dict:
     import torch
 
     from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     rt = model.runtime
     n_enc, n_dec = dims.n_audio_layer, dims.n_text_layer
     clip = (0.1 * np.random.default_rng(SEED).standard_normal(16_000 * 3)).astype(np.float32)
     ctx = model.create_context()
-    reset_counts()
+    LAUNCHES.clear()
     with counting(rt) as rec:
         ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), clip))
-    k1, k2, k2_int8, k2_grouped = read_counts()
-    k1_f32 = k1_f32_count()
+    k1, k2, k2_int8, k2_grouped = (LAUNCHES[k] for k in K1_K2)
+    k1_f32 = LAUNCHES["flash_attention_f32"]
     log(f"  f32 run_full (3 s clip): {ms:.1f} ms, {rec.encodes} window(s), {rec.steps} token steps, "
         f"{len(res.segments)} segment(s); launches K1 {k1} ({k1_f32} f32), K2 {k2}")
     check(rec.encodes >= 1 and k1 == k1_f32 == n_enc * rec.encodes,
@@ -2019,22 +1990,23 @@ def capture_run(model, dims) -> dict:
     buffers, ms per buffer (run_full on the runner's worker thread) and
     the counts the encodes and token steps imply."""
     from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     n_enc, n_dec = dims.n_audio_layer, dims.n_text_layer
     audio = np.concatenate([noise_floor(16_000, SEED + 3), speechy(16_000 * 2, SEED + 4),
                             noise_floor(16_000, SEED + 5), speechy(16_000 * 2, SEED + 6)])
     ctx = model.create_context()
-    reset_counts()
+    LAUNCHES.clear()
     t0 = time.perf_counter()
     with counting(model.runtime) as rec:
         buffers, ms, res = recorded_capture(ctx, FullParams(language="en"), chunks_of(audio), None)
     wall = (time.perf_counter() - t0) * 1e3
-    k1, k2, k2_int8, k2_grouped = read_counts()
+    k1, k2, k2_int8, k2_grouped = (LAUNCHES[k] for k in K1_K2)
     log(f"  bf16 run_capture (6 s source, 100 ms chunks, paced): {wall:.1f} ms wall, buffers "
         f"{buffers} samples, run_full ms per buffer {[round(x, 1) for x in ms]}, {rec.encodes} "
         f"encode(s), {rec.steps} token steps, {len(res.segments)} segment(s); launches K1 {k1}, K2 {k2}")
     check(len(buffers) >= 1 and rec.encodes >= 1, f"run_capture: buffers {buffers}, {rec.encodes} encodes")
-    check(k1 == n_enc * rec.encodes and k1_f32_count() == 0,
+    check(k1 == n_enc * rec.encodes and LAUNCHES["flash_attention_f32"] == 0,
           f"run_capture: K1 {k1} != {n_enc} x {rec.encodes} encodes")
     check(k2 == 2 * n_dec * rec.launched and k2_int8 == k2_grouped == 0,
           f"run_capture: K2 {k2} != {2 * n_dec} x {rec.launched} token steps run")
@@ -2060,7 +2032,7 @@ def stored_bytes(params) -> dict:
 def int8_pass_costs(params, dims, compute_dtype) -> dict:
     """Profile, on the card, one decode step's worth of the two passes that
     XLA fused into its neighbours and eager PyTorch runs apart: converting
-    every int8 decoder weight and the token table to bf16 (model/layers.py
+    every int8 decoder weight and the token table to bf16 (kernels/w8a16.py
     dense, model/decoder.py logits), and quantizing and writing each
     layer's new K and V cache column at B=8 (model/decoder.py)."""
     import torch
@@ -2267,6 +2239,7 @@ def parallel_ranks(scripted: str, large: str) -> dict:
     from whisper_tpu_torch.api.params import FullParams
     from whisper_tpu_torch.features.mel import LogMelSpectrogram
     from whisper_tpu_torch.ggml import load_checkpoint
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.model.params import DtypePolicy, host_tree_from_checkpoint, params_from_numpy
     from whisper_tpu_torch.parallel.mesh import make_mesh
     from whisper_tpu_torch.parallel.sharding import gather_batch, shard_batch, shard_params
@@ -2294,13 +2267,13 @@ def parallel_ranks(scripted: str, large: str) -> dict:
     for tier in ("bf16", "serving", "f32"):
         model = tier_model(scripted, tier, mesh=tp_mesh, cuda_graphs=False)
         ctx = model.create_context()
-        reset_counts()
+        LAUNCHES.clear()
         with counting(model.runtime) as rec:
             ms, res = sync_ms(lambda: ctx.run_full(FullParams(language="en"), silence))
-        k1, k2, k2_int8, _ = read_counts()
+        k1, k2, k2_int8, _ = (LAUNCHES[k] for k in K1_K2)
         out[f"golden {tier}"] = dict(segments=segments(res), ms=ms, windows=rec.encodes,
-                                     steps=rec.launched, k1=k1, k1_f32=k1_f32_count(), k2=k2,
-                                     k2_int8=k2_int8, heads=model.runtime.params.tp.part(4))
+                                     steps=rec.launched, k1=k1, k1_f32=LAUNCHES["flash_attention_f32"],
+                                     k2=k2, k2_int8=k2_int8, heads=model.runtime.params.tp.part(4))
         note(f"golden {tier} at n_model=2: {segments(res)}; {ms:.1f} ms for {rec.encodes} window(s) "
              f"of {rec.launched} token steps; K1 {k1}, K2 {k2}")
         del model, ctx
@@ -2319,12 +2292,12 @@ def parallel_ranks(scripted: str, large: str) -> dict:
     def window(rt, m, p, pl, sk, se):
         """features, WindowResult, encode ms, window ms and the launches:
         K1 (f32 instance) of the encode, K2 of the token steps."""
-        reset_counts()
+        LAUNCHES.clear()
         enc_ms, (feats, cross) = sync_ms(lambda: rt.encode_window(m))
-        k1_f32 = k1_f32_count()
-        reset_counts()
+        k1_f32 = LAUNCHES["flash_attention_f32"]
+        LAUNCHES.clear()
         win_ms, res = sync_ms(lambda: rt.run_window(p, pl, cross, sk, se))
-        return feats, res, enc_ms, win_ms, dict(k1_f32=k1_f32, k2=read_counts()[1], cross=cross)
+        return feats, res, enc_ms, win_ms, dict(k1_f32=k1_f32, k2=LAUNCHES["decode_attention_hd"], cross=cross)
 
     def step_ms(rt, cross):
         """ms a token step: forced windows of 2 and 6 steps (the prompt
@@ -2411,9 +2384,9 @@ def parallel_ranks(scripted: str, large: str) -> dict:
     sharded = shard_params(params, tp_mesh)
     rt = WhisperRuntime(sharded, dims, ids, cuda_graphs=False)
     par_logits(rt, mel, prompt, plen)                                          # warm-up
-    reset_counts()
+    LAUNCHES.clear()
     ms, logits = sync_ms(lambda: par_logits(rt, mel, prompt, plen))
-    k1, k2, _, _ = read_counts()
+    k1, k2 = LAUNCHES["flash_attention"], LAUNCHES["decode_attention_hd"]
     rec = dict(ms=ms, k1=k1, k2=k2)
     if rank == 0:
         one = WhisperRuntime(params, dims, ids, cuda_graphs=False)
@@ -2439,6 +2412,7 @@ def nccl_world1(scripted: str, tmp: str) -> dict:
     from whisper_tpu_torch.api.devices import init_distributed
     from whisper_tpu_torch.api.model import Model
     from whisper_tpu_torch.api.params import FullParams
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.parallel.mesh import make_mesh
 
     init_distributed(f"file://{tmp}/nccl_store", 1, 0, device="cuda", backend="nccl")
@@ -2450,11 +2424,11 @@ def nccl_world1(scripted: str, tmp: str) -> dict:
             rt = model.runtime
             silence = np.zeros(16_000 * 2, np.float32)
             model.create_context().run_full(FullParams(language="en"), silence)   # capture
-            reset_counts()
+            LAUNCHES.clear()
             with counting(rt) as rec:
                 ms, res = sync_ms(lambda: model.create_context().run_full(FullParams(language="en"),
                                                                           silence))
-            counts = read_counts()
+            counts = tuple(LAUNCHES[k] for k in K1_K2)
             mel, prompt, plen, seek, seek_end = par_inputs(model.mel, model.dims, rt.ids, 1, SEED)
             _, cross = rt.encode_window(mel)
             win_ms, win = sync_ms(lambda: rt.run_window(prompt, plen, cross, seek, seek_end))
@@ -2534,13 +2508,13 @@ def omni_phase() -> dict:
     """[omni]: Uni-MoE-2.0-Omni's window through ``OmniContext`` at the
     published widths, cut in depth only (``OMNI_LAYERS``), on seeded random
     weights drawn on the card as the benchmark draws them. A first window
-    captures the token step; then the expert kernel's counter is set to 0
-    right before a replayed window and before the same window on the eager
+    captures the token step; then the launch ledger is cleared right
+    before a replayed window and before the same window on the eager
     step, and each must count 2 launches a layer and step, read exactly
     the routed experts some lane kept, and give the same result."""
     import torch
 
-    from whisper_tpu_torch.kernels.moe import moe_experts
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.model.omni_params import OmniDims, params_from_tensors, tensor_names
     from whisper_tpu_torch.obs.profiler import TRACER
     from whisper_tpu_torch.runtime.omni import OmniContext
@@ -2586,11 +2560,11 @@ def omni_phase() -> dict:
     for label, c in (("replayed", ctx), ("eager", OmniContext(params, dims, cuda_graphs=False, **kw))):
         before = dict(TRACER.counters)
         torch.cuda.synchronize()
-        moe_experts.launches = 0
+        LAUNCHES.clear()
         t0 = time.perf_counter()
         results[label] = c.run_window(prompt, plen, audio, OMNI_STEPS)
         ms = (time.perf_counter() - t0) * 1e3
-        runs[label] = dict(launches=moe_experts.launches, window_ms=ms, **{
+        runs[label] = dict(launches=LAUNCHES["moe_experts"], window_ms=ms, **{
             k.split(".")[1]: TRACER.counters[k] - before.get(k, 0)
             for k in ("moe.experts_read", "moe.experts_touched", "moe.step_layers")})
         r = runs[label]
@@ -2676,12 +2650,12 @@ def main() -> int:
         "{bound_ms}".format(**{k: "n/a" if v is None else f"{v:.4f}" for k, v in step.items()}))
 
     # the omni step's expert layer: 8 lanes touch ~3.5 of the 4 routed experts a layer, one lane ~1.6
-    from whisper_tpu_torch.kernels.moe import moe_experts
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
-    moe_before = moe_experts.launches
+    moe_before = LAUNCHES["moe_experts"]
     moe_cases = [moe_case(8, 4, "omni step B=8, all kept"), moe_case(8, 3, "omni step B=8"),
                  moe_case(1, 2, "omni single stream B=1")]
-    moe_launches = moe_experts.launches - moe_before
+    moe_launches = LAUNCHES["moe_experts"] - moe_before
     for c in moe_cases:
         show_case("moe_experts", c)
         log("    device ms by launch: gate/up {}, down {}".format(

@@ -13,6 +13,8 @@ bf16 query too), and 1e-5 for f32 inputs, only the f32 summation order
 differing.
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -29,14 +31,15 @@ def _need_card():
 @pytest.mark.parametrize("b,tq,tk", [(1, 1500, 1500), (2, 75, 150), (1, 64, 1)])
 def test_flash_attention_kernel_matches_plain(b, tq, tk):
     _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
 
     g = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn((b, tq, 20, 3, 64), generator=g, device="cuda").mul(0.5).bfloat16()[:, :, :, 0]
     k, v = torch.randn((2, b, tk, 20, 64), generator=g, device="cuda").mul(0.5).bfloat16().unbind(0)
-    before = flash_attention.launches
+    before = LAUNCHES["flash_attention"]
     got = flash_attention(q, k, v)
-    assert flash_attention.launches == before + 1
+    assert LAUNCHES["flash_attention"] == before + 1
     err = (got.float() - flash_attention_ref(q, k, v).float()).abs().max().item()
     assert err < 2e-2
 
@@ -53,6 +56,7 @@ def test_flash_attention_f32_kernel_matches_plain(b, tq, tk, strided):
     row and one key. Tolerance 1e-5 x max(1, max |plain|): f32 throughout,
     only the summation order and the exponent's rounding differ."""
     _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
 
     g = torch.Generator(device="cuda").manual_seed(13)
@@ -63,9 +67,9 @@ def test_flash_attention_f32_kernel_matches_plain(b, tq, tk, strided):
         k, v = torch.randn((2, b, tk, 20, 64), generator=g, device="cuda").mul(0.5)
         if strided:
             k, v = torch.stack((k, v), dim=3).unbind(3)
-    before = flash_attention.launches, flash_attention.launches_f32
+    before = LAUNCHES["flash_attention"], LAUNCHES["flash_attention_f32"]
     got = flash_attention(q, k, v)
-    assert (flash_attention.launches, flash_attention.launches_f32) == (before[0] + 1, before[1] + 1)
+    assert (LAUNCHES["flash_attention"], LAUNCHES["flash_attention_f32"]) == (before[0] + 1, before[1] + 1)
     want = flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (b, tq, 20, 64)
@@ -109,6 +113,7 @@ def test_flash_attention_f32_kernel_tile_edges(b, tq, tk, scale):
     running max is rescaled across tiles and exp2 sees wide arguments.
     Tolerance 1e-5 x max(1, max |plain|)."""
     _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
 
     g = torch.Generator(device="cuda").manual_seed(17)
@@ -117,9 +122,9 @@ def test_flash_attention_f32_kernel_tile_edges(b, tq, tk, scale):
     else:
         q = torch.randn((b, tq, 20, 64), generator=g, device="cuda").mul(scale)
         k, v = torch.randn((b, tk, 20, 2, 64), generator=g, device="cuda").mul(scale).unbind(3)
-    before = flash_attention.launches_f32
+    before = LAUNCHES["flash_attention_f32"]
     got = flash_attention(q, k, v)
-    assert flash_attention.launches_f32 == before + 1
+    assert LAUNCHES["flash_attention_f32"] == before + 1
     want = flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
     assert got.shape == (b, tq, 20, 64) and bool(torch.isfinite(got).all())
@@ -186,17 +191,14 @@ def test_flash_attention_both_block_shapes_match_plain(shape, b, tq, tk):
     rows, 64-key tiles) on ragged edges, counted like the kernel's own
     choice."""
     _need_card()
-    from whisper_tpu_torch.kernels.attention import (
-        flash_attention,
-        flash_attention_ref,
-        flash_attention_shape,
-    )
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.attention import flash_attention_ref, flash_attention_shape
 
     g = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = _qkv(g, b, tq, tk, True)
-    before = flash_attention.launches
+    before = LAUNCHES["flash_attention"]
     got = flash_attention_shape(q, k, v, shape)
-    assert flash_attention.launches == before + 1
+    assert LAUNCHES["flash_attention"] == before + 1
     want = flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() < 2e-2
@@ -295,6 +297,7 @@ def _int8_kv(g, u, hd, s):
 def test_decode_attention_int8_kernel_matches_plain(b, s, group, masked, qdtype):
     """K2's int8 branch: cross, kv_group=5 and masked self attention."""
     _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.decode_attention import (
         decode_attention_hd,
         decode_attention_hd_ref,
@@ -308,9 +311,9 @@ def test_decode_attention_int8_kernel_matches_plain(b, s, group, masked, qdtype)
     if masked:
         kw["start"] = (torch.arange(b, dtype=torch.int32, device="cuda") * 7) % 40
         kw["valid_len"] = torch.full((b,), s - 120, dtype=torch.int32, device="cuda")
-    counts = decode_attention_hd.launches, decode_attention_hd.launches_int8
+    counts = LAUNCHES["decode_attention_hd"], LAUNCHES["decode_attention_hd_int8"]
     got = decode_attention_hd(q, k8, v8, 20, **kw)
-    assert (decode_attention_hd.launches, decode_attention_hd.launches_int8) == \
+    assert (LAUNCHES["decode_attention_hd"], LAUNCHES["decode_attention_hd_int8"]) == \
         (counts[0] + 1, counts[1] + 1)
     err = (got - decode_attention_hd_ref(q, k8, v8, 20, **kw)).abs().max().item()
     assert err < (2e-3 if qdtype == torch.bfloat16 else 1e-5)
@@ -348,6 +351,7 @@ def test_decode_attention_kernel_vector_widths(s, shift, int8):
     one, as does a base one element past an aligned one (shift). Lanes mix
     full, partial and empty intervals, and kv_group=5 shares each K/V lane."""
     _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.decode_attention import (
         decode_attention_hd,
         decode_attention_hd_ref,
@@ -374,9 +378,9 @@ def test_decode_attention_kernel_vector_widths(s, shift, int8):
     kw = dict(kv_group=group, start=start, valid_len=valid, **kv)
     want_vec = 1 if shift or s % 2 else 2 if s % 4 else 4
     assert vector_keys(s, k8.element_size(), k8.data_ptr(), v8.data_ptr()) == want_vec
-    counts = decode_attention_hd.launches, decode_attention_hd.launches_int8
+    counts = LAUNCHES["decode_attention_hd"], LAUNCHES["decode_attention_hd_int8"]
     got = decode_attention_hd(q, k8, v8, 20, **kw)
-    assert (decode_attention_hd.launches, decode_attention_hd.launches_int8) == \
+    assert (LAUNCHES["decode_attention_hd"], LAUNCHES["decode_attention_hd_int8"]) == \
         (counts[0] + 1, counts[1] + int8)
     want = decode_attention_hd_ref(q, k8, v8, 20, **kw)
     torch.cuda.synchronize()
@@ -447,16 +451,17 @@ def _kb_inputs(d, seed):
 def test_kbench_rowsum_kernel_matches_plain(kernel, d):
     _need_card()
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     _, k, v = _kb_inputs(d, 5)
     if kernel in ("kernel_read", "kernel_rows"):
         k, v = k[1], v[1]
     arg = d["RB"] if kernel == "kernel_rows" else d["CS"]
     wrapper, ref = kb.KERNELS[kernel]
-    before = wrapper.launches
+    before = LAUNCHES[kernel]
     got = wrapper(k, v, arg)
     # the split tiling launches the partial sums and a combine
-    assert wrapper.launches == before + (1 if kernel == "kernel_rows" else 2)
+    assert LAUNCHES[kernel] == before + (1 if kernel == "kernel_rows" else 2)
     want = ref(k, v, arg)
     torch.cuda.synchronize()
     scale = (k.float().abs() + v.float().abs()).sum(-1, keepdim=True).reshape(want.shape)
@@ -470,6 +475,7 @@ def test_kbench_rowsum_kernel_matches_plain(kernel, d):
 def test_kbench_attention_kernel_matches_plain(kernel, d):
     _need_card()
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     q, k, v = _kb_inputs(d, 6)
     k, v = k[1], v[1]
@@ -483,9 +489,9 @@ def test_kbench_attention_kernel_matches_plain(kernel, d):
     else:
         args = (q, k, v, d["H"], d["S"], d["CS"])
     wrapper, ref = kb.KERNELS[kernel]
-    before = wrapper.launches
+    before = LAUNCHES[kernel]
     got = wrapper(*args)
-    assert wrapper.launches == before + 1
+    assert LAUNCHES[kernel] == before + 1
     want = ref(*args)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (d["B"], d["HD"], 1) and bool(torch.isfinite(got).all())
@@ -526,15 +532,16 @@ def test_kbench_mxu_kernel_geometry_edges(b, h, dh, s, s_pad, cs):
     a p rounded at a block's own max or at the global max would exceed."""
     _need_card()
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     g = torch.Generator(device="cuda").manual_seed(12)
     hd = h * dh
     q = torch.randn((b, hd, 1), generator=g, device="cuda").mul(0.3).bfloat16()
     k = torch.randn((b, hd, s_pad), generator=g, device="cuda").mul(0.3).bfloat16()
     v = torch.randn((b, hd, s_pad), generator=g, device="cuda").bfloat16()
-    before = kb.kernel_mxu.launches
+    before = LAUNCHES["kernel_mxu"]
     got = kb.kernel_mxu(q, k, v, h, s, cs)
-    assert kb.kernel_mxu.launches == before + 1
+    assert LAUNCHES["kernel_mxu"] == before + 1
     want = kb.KERNELS["kernel_mxu"][1](q, k, v, h, s, cs)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b, hd, 1) and bool(torch.isfinite(got).all())
@@ -574,15 +581,16 @@ def test_kbench_mxub_kernel_edges(b, h, s, s_pad, cs):
     a p rounded at a block's own max or at the global max would exceed."""
     _need_card()
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     g = torch.Generator(device="cuda").manual_seed(15)
     hd = 64 * h
     q = torch.randn((b, hd, 1), generator=g, device="cuda").mul(0.3).bfloat16()
     k = torch.randn((b, hd, s_pad), generator=g, device="cuda").mul(0.3).bfloat16()
     v = torch.randn((b, hd, s_pad), generator=g, device="cuda").bfloat16()
-    before = kb.kernel_mxub.launches
+    before = LAUNCHES["kernel_mxub"]
     got = kb.kernel_mxub(q, k, v, h, s, cs)
-    assert kb.kernel_mxub.launches == before + 1
+    assert LAUNCHES["kernel_mxub"] == before + 1
     want = kb.KERNELS["kernel_mxub"][1](q, k, v, h, s, cs)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b, hd, 1) and bool(torch.isfinite(got).all())
@@ -638,13 +646,14 @@ def test_kbench_mxub_refuses_a_block_too_large():
     beside the ring."""
     _need_card()
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     q = torch.zeros((1, 64, 1), device="cuda", dtype=torch.bfloat16)
     k = torch.zeros((1, 64, 2**19), device="cuda", dtype=torch.bfloat16)
-    before = kb.kernel_mxub.launches
+    before = LAUNCHES["kernel_mxub"]
     with pytest.raises(NotImplementedError, match="no K7 block fits"):
         kb.kernel_mxub(q, k, k, 1, 100, 2**19)
-    assert kb.kernel_mxub.launches == before
+    assert LAUNCHES["kernel_mxub"] == before
 
 
 # K8's cluster over the keys (kernels.kbench.vpu8_geometry) at its edges,
@@ -683,6 +692,7 @@ def test_kbench_vpu8_kernel_edges(b, h, dh, s, s_pad, cs, peak, offset):
     e^(m_j - M) taken wrong shows in full."""
     _need_card()
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     g = torch.Generator(device="cuda").manual_seed(14)
     hd = h * dh
@@ -699,9 +709,9 @@ def test_kbench_vpu8_kernel_edges(b, h, dh, s, s_pad, cs, peak, offset):
         assert kb.vpu8_geometry(b, h, s, s_pad).ranges[-1][0] <= s - 3
         k8[..., s - 3:s] = torch.where(q > 0, 127, -127).to(torch.int8)
         sk[..., s - 3:s] = 1e-2
-    before = kb.kernel_vpu8.launches
+    before = LAUNCHES["kernel_vpu8"]
     got = kb.kernel_vpu8(q, k8, v8, sk, sv, h, s, cs)
-    assert kb.kernel_vpu8.launches == before + 1
+    assert LAUNCHES["kernel_vpu8"] == before + 1
     want = kb.KERNELS["kernel_vpu8"][1](q, k8, v8, sk, sv, h, s, cs)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b, hd, 1) and bool(torch.isfinite(got).all())
@@ -744,6 +754,7 @@ def test_kbench_vpu_kernel_edges(b, h, dh, s, s_pad, cs, peak):
     block weight e^(m_j - M) taken wrong shows in full."""
     _need_card()
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     g = torch.Generator(device="cuda").manual_seed(16)
     hd = h * dh
@@ -754,9 +765,9 @@ def test_kbench_vpu_kernel_edges(b, h, dh, s, s_pad, cs, peak):
         # q . K at its largest on the last 3 keys
         assert kb.vpu_geometry(b, h, s, s_pad).ranges[-1][0] <= s - 3
         k[..., s - 3:s] = torch.where(q > 0, 2.0, -2.0).bfloat16()
-    before = kb.kernel_vpu.launches
+    before = LAUNCHES["kernel_vpu"]
     got = kb.kernel_vpu(q, k, v, h, s, cs)
-    assert kb.kernel_vpu.launches == before + 1
+    assert LAUNCHES["kernel_vpu"] == before + 1
     want = kb.KERNELS["kernel_vpu"][1](q, k, v, h, s, cs)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (b, hd, 1) and bool(torch.isfinite(got).all())
@@ -771,13 +782,14 @@ def test_kbench_rows_kernel_edges(lead, hd, s_pad):
     3000 in two with a tail) and at row counts off a block's 8 (39, 100)."""
     _need_card()
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     g = torch.Generator(device="cuda").manual_seed(13)
     k = torch.randn((*lead, hd, s_pad), generator=g, device="cuda").mul(0.3).bfloat16()
     v = torch.randn((*lead, hd, s_pad), generator=g, device="cuda").bfloat16()
-    before = kb.kernel_rows.launches
+    before = LAUNCHES["kernel_rows"]
     got = kb.kernel_rows(k, v, hd)
-    assert kb.kernel_rows.launches == before + 1
+    assert LAUNCHES["kernel_rows"] == before + 1
     want = kb.rowsum_ref(k, v)
     torch.cuda.synchronize()
     scale = (k.float().abs() + v.float().abs()).sum(-1, keepdim=True)
@@ -834,6 +846,7 @@ def test_kernels_at_a_ranks_share_of_the_heads(case):
     lanes of heads), against their plain versions, with the tolerances of
     the H=20 tests above."""
     _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
     from whisper_tpu_torch.kernels.decode_attention import (
         decode_attention_hd,
@@ -863,9 +876,9 @@ def test_kernels_at_a_ranks_share_of_the_heads(case):
     if case.endswith("self"):
         kw["start"] = (torch.arange(b, dtype=torch.int32, device="cuda") * 7) % 40
         kw["valid_len"] = torch.full((b,), 328, dtype=torch.int32, device="cuda")
-    before = decode_attention_hd.launches
+    before = LAUNCHES["decode_attention_hd"]
     got = decode_attention_hd(q, kt, vt, 10, **kw)
-    assert decode_attention_hd.launches == before + 1
+    assert LAUNCHES["decode_attention_hd"] == before + 1
     err = (got - decode_attention_hd_ref(q, kt, vt, 10, **kw)).abs().max().item()
     assert err < 2e-3
 
@@ -910,16 +923,17 @@ def test_beam_run_full_on_card_matches_cpu(scripted_path, tier):
     import numpy as np
 
     from whisper_tpu_torch.api.params import FullParams, SamplingStrategy
-    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     params = FullParams(strategy=SamplingStrategy.BEAM_SEARCH, beam_width=5)
     audio = np.zeros(16_000 * 2, np.float32)
     out = {}
     for device in ("cuda", "cpu"):
-        k2.launches = k2.launches_grouped = k2.launches_int8 = 0
+        LAUNCHES.clear()
         out[device] = _segments([_model(scripted_path, device, tier).create_context()
                                  .run_full(params, audio)])
-        counts = (k2.launches, k2.launches_grouped, k2.launches_int8)
+        counts = tuple(LAUNCHES[k] for k in ("decode_attention_hd", "decode_attention_hd_grouped",
+                                             "decode_attention_hd_int8"))
         if device == "cuda":
             assert counts[0] > 0 and 2 * counts[1] == counts[0]
             assert counts[2] == (counts[0] if tier == "serving" else 0)
@@ -960,19 +974,19 @@ def test_run_full_f32_policy_on_card_matches_cpu(scripted_path):
 
     from whisper_tpu_torch.api.model import Model
     from whisper_tpu_torch.api.params import FullParams
-    from whisper_tpu_torch.kernels.attention import flash_attention as k1
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.model.params import DtypePolicy
 
     audio = np.zeros(16_000 * 2, np.float32)
     out = {}
     for device in ("cuda", "cpu"):
-        k1.launches = k1.launches_f32 = 0
+        LAUNCHES.clear()
         model = Model(scripted_path, policy=DtypePolicy.f32(), device=device)
         out[device] = _segments([model.create_context().run_full(FullParams(language="en"), audio)])
         if device == "cuda":
-            assert k1.launches == k1.launches_f32 == model.dims.n_audio_layer
+            assert LAUNCHES["flash_attention"] == LAUNCHES["flash_attention_f32"] == model.dims.n_audio_layer
         else:
-            assert k1.launches == 0
+            assert LAUNCHES["flash_attention"] == 0
     assert out["cuda"] == out["cpu"] == [[(" hi", 0, 192, SCRIPT[:5])]]
 
 
@@ -991,26 +1005,26 @@ def test_run_capture_on_card_matches_cpu(scripted_path):
     from whisper_tpu_torch.api.model import Model
     from whisper_tpu_torch.api.params import Flags, FullParams
     from whisper_tpu_torch.audio.capture import CaptureParams
-    from whisper_tpu_torch.kernels.attention import flash_attention as k1
-    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     sr = 16_000
     chunks = chunks_of(np.concatenate([noise_floor(sr), speechy(sr * 4, 0), noise_floor(sr),
                                        speechy(sr * 2, 2)]))
     out = {}
     for device in ("cuda", "cpu"):
-        k1.launches = k2.launches = 0
+        LAUNCHES.clear()
         model = Model(scripted_path, device=device)
         with counting(model.runtime) as rec:
             buffers, _, res = recorded_capture(
                 model.create_context(), FullParams(language="en", flags=Flags.NO_CONTEXT), chunks,
                 CaptureParams(min_duration=1.0, max_duration=2.0))
         out[device] = (buffers, _segments([res]))
+        k1, k2 = LAUNCHES["flash_attention"], LAUNCHES["decode_attention_hd"]
         if device == "cuda":
-            assert k1.launches == model.dims.n_audio_layer * rec.encodes and rec.encodes >= 2
-            assert k2.launches == 2 * model.dims.n_text_layer * rec.launched
+            assert k1 == model.dims.n_audio_layer * rec.encodes and rec.encodes >= 2
+            assert k2 == 2 * model.dims.n_text_layer * rec.launched
         else:
-            assert k1.launches == k2.launches == 0
+            assert k1 == k2 == 0
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0][:2] == [32_000, 32_000]
     assert out["cuda"][1] == [[(" hi", 0, 192, SCRIPT[:5])] * 2]
@@ -1080,17 +1094,23 @@ def _graph_inputs(rt, lanes, seed):
     return prompts, plens, cross
 
 
+def _captured(rt):
+    return [st for slot in rt.graphs.slots.values() for st in slot.steps.values()]
+
+
 def _graph_window(rt, case, prompts, plens, cross, seek_end=10**6):
-    """One window of ``case``, the K2 counts it adds and the token steps the
-    card ran for it (replays on the graph, else the window's steps):
-    (WindowResult as numpy arrays, (launches, int8, grouped), steps run)."""
+    """One window of ``case``, the launches it adds, the token steps the
+    card ran for it (replays on the graph, else the window's steps) and
+    the captured launches of each step it replayed: (WindowResult as
+    numpy arrays, a Counter by wrapper name, steps run, [Counter])."""
     from whisper_tpu_torch.api.params import FullParams, SamplingStrategy
-    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.runtime.beam import decode_window_beam
 
     loop, lanes, force = case
-    before = (k2.launches, k2.launches_int8, k2.launches_grouped)
+    before = LAUNCHES.copy()
     replays = rt.graphs.replays()
+    was = {id(st): st.replays for st in _captured(rt)}
     seeks, ends = np.zeros(lanes, np.int32), np.full(lanes, seek_end, np.int32)
     if loop == "greedy":
         res = rt.run_window(prompts, plens, cross, seeks, ends, force_steps=force)
@@ -1098,9 +1118,9 @@ def _graph_window(rt, case, prompts, plens, cross, seek_end=10**6):
         params = FullParams(strategy=SamplingStrategy.BEAM_SEARCH, beam_width=5)
         res = decode_window_beam(rt, params, prompts, plens, cross, seeks, ends, force_steps=force)
     torch.cuda.synchronize()
-    counts = tuple(a - b for a, b in zip((k2.launches, k2.launches_int8, k2.launches_grouped), before))
     run = rt.graphs.replays() - replays if rt.replays else int(res.steps)
-    return {k: v.cpu().numpy() for k, v in res._asdict().items()}, counts, run
+    replayed = [st.launches for st in _captured(rt) if st.replays > was.get(id(st), 0)]
+    return {k: v.cpu().numpy() for k, v in res._asdict().items()}, LAUNCHES - before, run, replayed
 
 
 def _assert_identical(a, b):
@@ -1118,7 +1138,9 @@ def test_graph_window_matches_eager(graph_runtimes, dims, tier, case):
     window's WindowResult, bit for bit, and K2 counts of 2 L a step run (L
     of them grouped on the beam path; all int8 on the int8 tier). The
     graph's loop reads its flag one step behind, so a window that ends
-    before its cap runs one more step, which changes nothing. A second
+    before its cap runs one more step, which changes nothing. Each replay
+    adds exactly its capture's launches, for every wrapper: the graph's
+    window counts the eager window's launches and its extra step's. A second
     window through the same graph (other prompts and cross K/V, and a
     short seek_end) equals a fresh eager window: the runtime's tensors are
     reset between windows."""
@@ -1136,14 +1158,18 @@ def test_graph_window_matches_eager(graph_runtimes, dims, tier, case):
         finally:
             rt.cuda_graphs = True
         out[mode] = (first, second)
-    for (g_res, g_counts, g_run), (e_res, e_counts, e_run) in zip(out["graph"], out["eager"]):
+    for (g_res, g_launches, g_run, g_steps), (e_res, e_launches, e_run, _) in zip(out["graph"], out["eager"]):
         _assert_identical(g_res, e_res)
         steps = int(g_res["steps"])
         assert steps == force if force else 1 <= steps <= rt.n_max_steps
         assert e_run == steps and g_run == steps + (steps < (force or rt.n_max_steps))
-        for counts, run in ((g_counts, g_run), (e_counts, e_run)):
+        for launches, run in ((g_launches, g_run), (e_launches, e_run)):
+            counts = tuple(launches[k] for k in ("decode_attention_hd", "decode_attention_hd_int8",
+                                                 "decode_attention_hd_grouped"))
             assert counts == (2 * n_dec * run, 2 * n_dec * run if tier == "int8" else 0,
                               n_dec * run if loop == "beam" else 0)
+        assert g_steps and all(s == g_steps[0] for s in g_steps)
+        assert g_launches == e_launches + Counter({k: n * (g_run - e_run) for k, n in g_steps[0].items()})
     assert not all(np.array_equal(out["graph"][0][0][k], out["graph"][1][0][k])
                    for k in out["graph"][0][0])
 
@@ -1168,9 +1194,9 @@ def test_graph_slots_hold_static_tensors(graph_runtimes):
     assert slot.nbytes > sum(a.nbytes for a in slot.kv if a is not None) > 0
     assert vector_keys(slot.kv.k.shape[-1], 2, slot.kv.k[0].data_ptr(), slot.kv.v[0].data_ptr()) == 4
     launches = slot.steps[(0, False, 0)].launches
-    assert launches[2] == 2 * rt.dims.n_text_layer and launches[0] == 0   # K2 per step, no K1
+    assert launches["decode_attention_hd"] == 2 * rt.dims.n_text_layer and launches["flash_attention"] == 0
     replays = rt.graphs.replays()
-    _, _, run = _graph_window(rt, ("greedy", 3, 5), prompts, plens, cross)
+    _, _, run, _ = _graph_window(rt, ("greedy", 3, 5), prompts, plens, cross)
     assert run == 5 == rt.graphs.replays() - replays and slot.steps[(0, False, 5)].replays >= 10
 
 
@@ -1180,7 +1206,7 @@ def test_graph_capture_failure_raises(graph_runtimes, monkeypatch):
     state inside the step) makes run_window raise; nothing falls back to
     the eager step, and the kernel counters are left as they were."""
     _need_card()
-    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd as k2
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.runtime import context
 
     rt = graph_runtimes("tiny", "bf16")
@@ -1192,11 +1218,11 @@ def test_graph_capture_failure_raises(graph_runtimes, monkeypatch):
 
     monkeypatch.setattr(context, "greedy_step", reads_the_host)
     prompts, plens, cross = _graph_inputs(rt, 2, 4)
-    before = k2.launches
+    before = LAUNCHES.copy()
     with pytest.raises(RuntimeError):
         rt.run_window(prompts, plens, cross, np.zeros(2, np.int32), np.full(2, 10**6, np.int32),
                       force_steps=3)
-    assert k2.launches == before
+    assert LAUNCHES == before
 
 
 @pytest.fixture(scope="module")
@@ -1284,11 +1310,12 @@ def _w8a16_check(x, w, s, b):
     product's magnitude sum (|x| @ |w|, scaled) plus 1e-6 of |b|. Both sum
     exact bf16 x bf16 products in f32, in other orders: a bf16 rounding
     anywhere would be ~4e-3 of it."""
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.w8a16 import w8a16_dense, w8a16_dense_ref
 
-    before = w8a16_dense.launches
+    before = LAUNCHES["w8a16_dense"]
     got = w8a16_dense(x, w, s, b)
-    assert w8a16_dense.launches == before + 1
+    assert LAUNCHES["w8a16_dense"] == before + 1
     want = w8a16_dense_ref(x, w, s, b)
     mag = (x.float().abs() @ w.float().abs()) * (1.0 if s is None else s.abs())
     tol = 1e-5 * mag + (0.0 if b is None else 1e-6 * b.abs()) + 1e-30
@@ -1350,6 +1377,7 @@ def test_w8a16_kernel_replayed_equals_eager(name):
     the eager call's result bit for bit (a fixed summation order), and the
     capture launches it once."""
     _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
 
     k, n, layout = W8A16_SHAPES[name]
@@ -1362,10 +1390,10 @@ def test_w8a16_kernel_replayed_equals_eager(name):
         w8a16_dense(static_x, w, s, b)          # warm-up, as the graph recipe asks
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
-    before = w8a16_dense.launches
+    before = LAUNCHES["w8a16_dense"]
     with torch.cuda.graph(graph):
         static_y = w8a16_dense(static_x, w, s, b)
-    assert w8a16_dense.launches == before + 1
+    assert LAUNCHES["w8a16_dense"] == before + 1
     for inp in (x, x_new):
         static_x.copy_(inp)
         graph.replay()
@@ -1384,7 +1412,7 @@ def test_w8a16_carries_every_int8_product_of_a_serving_token_step(graph_runtimes
     _need_card()
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.obs.profiler import TRACER
 
     class Conversions(TorchDispatchMode):
@@ -1406,7 +1434,7 @@ def test_w8a16_carries_every_int8_product_of_a_serving_token_step(graph_runtimes
     n_dec = rt.dims.n_text_layer
     assert n_dec == 32
     for window in range(2):                   # the first captures; the second only replays
-        before = (w8a16_dense.launches, TRACER.counters.get("int8_dense_kernel", 0),
+        before = (LAUNCHES["w8a16_dense"], TRACER.counters.get("int8_dense_kernel", 0),
                   TRACER.counters.get("int8_dense_converted", 0))
         Conversions.n = 0
         replays = rt.graphs.replays()
@@ -1414,7 +1442,7 @@ def test_w8a16_carries_every_int8_product_of_a_serving_token_step(graph_runtimes
             _graph_window(rt, ("greedy", lanes, steps), *_graph_inputs(rt, lanes, window))
         run = rt.graphs.replays() - replays
         assert run == steps
-        launches = w8a16_dense.launches - before[0]
+        launches = LAUNCHES["w8a16_dense"] - before[0]
         assert launches == (6 * n_dec + 1) * run + 1      # + the ingest's last-row logits
         captured = 3 if window == 0 else 0                # 2 warm-up steps and the capture
         assert TRACER.counters.get("int8_dense_kernel", 0) - before[1] == \
@@ -1542,6 +1570,7 @@ def test_decode_attention_kernel_dh128_group7_matches_plain(b, s):
     """K2 as the omni step calls it: 7 query heads of 128 over each of 4 K/V
     heads folded into lanes (kv_group 7), per-lane [start, valid)."""
     _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd, decode_attention_hd_ref
 
     g = torch.Generator(device="cuda").manual_seed(11)
@@ -1551,9 +1580,9 @@ def test_decode_attention_kernel_dh128_group7_matches_plain(b, s):
     vt = torch.randn((b, hd, s), generator=g, device="cuda").bfloat16()
     start = (torch.arange(b, dtype=torch.int32, device="cuda") * 53 % (s // 2)).repeat_interleave(7)
     valid = torch.full((b * 7,), s - 5, dtype=torch.int32, device="cuda")
-    before = decode_attention_hd.launches_grouped
+    before = LAUNCHES["decode_attention_hd_grouped"]
     got = decode_attention_hd(q, kt, vt, 4, valid_len=valid, start=start, kv_group=7)
-    assert decode_attention_hd.launches_grouped == before + 1
+    assert LAUNCHES["decode_attention_hd_grouped"] == before + 1
     want = decode_attention_hd_ref(q, kt, vt, 4, valid_len=valid, start=start, kv_group=7)
     assert (got - want).abs().max().item() < 2e-3
 
@@ -1595,7 +1624,7 @@ def _moe_magnitude(h, gates, shared, routed):
     """Per output, sum over the entries of |gate| x (|a| @ |W_down|), with a
     the plain version's bf16 activations: the magnitude sum of the down
     products."""
-    from whisper_tpu_torch.model.layers import dense
+    from whisper_tpu_torch.kernels.w8a16 import dense
 
     def act(gate_up):
         gv, uv = dense(h, gate_up).chunk(2, dim=-1)
@@ -1620,6 +1649,7 @@ def test_moe_experts_kernel_matches_plain_at_the_step_shapes(moe_weights, b, kep
     few of an expert's 18,944 a lane): ~1e-6 of the sum. A dropped 256-k
     chunk of one expert moves an output by ~1e-3 of it. Two calls give the
     same bits; the counter adds the experts kept."""
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.moe import moe_experts, moe_experts_ref
 
     shared, routed = moe_weights
@@ -1628,10 +1658,10 @@ def test_moe_experts_kernel_matches_plain_at_the_step_shapes(moe_weights, b, kep
     h = torch.randn((b, MOE_D), generator=g, device="cuda").bfloat16()
     gates = _moe_gates(b, subset, 100 * b + kept)[:, :4]          # a view of the router's [b, 5]
     read = torch.zeros(1, dtype=torch.int32, device="cuda")
-    before = moe_experts.launches
+    before = LAUNCHES["moe_experts"]
     got = moe_experts(h, gates, shared, routed, read)
     again = moe_experts(h, gates, shared, routed, read)
-    assert moe_experts.launches == before + 4
+    assert LAUNCHES["moe_experts"] == before + 4
     want = moe_experts_ref(h, gates, shared, routed)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (b, MOE_D)
@@ -1660,9 +1690,14 @@ def test_moe_experts_kernel_skips_the_weights_of_unkept_experts(moe_weights):
 
 @pytest.mark.cuda
 def test_moe_experts_replayed_equals_eager(moe_weights):
-    """The pair captured in a CUDA graph and replayed on new lanes and gates
-    gives the eager call's bits, the kept experts decided on the device."""
+    """The pair captured in a CUDA graph as the omni step is
+    (``runtime/graph.py:CapturedStep``) and replayed on new lanes and gates
+    gives the eager call's bits, the kept experts decided on the device.
+    The capture records the pair's 2 launches and takes them back from the
+    ledger; each replay adds exactly those, for every wrapper."""
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.moe import moe_experts
+    from whisper_tpu_torch.runtime.graph import CapturedStep
 
     shared, routed = moe_weights
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -1675,9 +1710,15 @@ def test_moe_experts_replayed_equals_eager(moe_weights):
     with torch.cuda.stream(stream):
         moe_experts(static_h, static_g, shared, routed, read)     # warm-up, as the graph recipe asks
     torch.cuda.current_stream().wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        static_out = moe_experts(static_h, static_g, shared, routed, read)
+    out = {}
+
+    def body():
+        out["y"] = moe_experts(static_h, static_g, shared, routed, read)
+
+    before = LAUNCHES.copy()
+    graph = CapturedStep(body, torch.cuda.graph_pool_handle(), stream)
+    assert LAUNCHES == before and graph.launches == Counter(moe_experts=2)
+    static_out = out["y"]
     read.zero_()
     for seed, subset in ((9, [0, 1, 2, 3]), (10, [2]), (11, [])):
         new_h = torch.randn((8, MOE_D), generator=torch.Generator(device="cuda").manual_seed(seed),
@@ -1685,7 +1726,9 @@ def test_moe_experts_replayed_equals_eager(moe_weights):
         new_g = _moe_gates(8, subset, seed)[:, :4]
         static_h.copy_(new_h)
         static_g.copy_(new_g)
-        graph.replay()
+        before = LAUNCHES.copy()
+        graph()
+        assert LAUNCHES == before + graph.launches
         torch.cuda.synchronize()
         assert torch.equal(static_out, moe_experts(new_h, new_g, shared, routed))
     assert int(read.item()) == 4 + 1 + 0
@@ -1743,7 +1786,7 @@ def test_omni_window_reads_only_the_experts_kept():
     record's ``moe.experts_touched``), through the kernel pair: 2 launches
     a layer and step, and no cuBLAS product of an expert."""
     _need_card()
-    from whisper_tpu_torch.kernels.moe import moe_experts
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.obs.profiler import TRACER
     from whisper_tpu_torch.runtime.omni import OmniContext
 
@@ -1751,10 +1794,10 @@ def test_omni_window_reads_only_the_experts_kept():
     ctx = OmniContext(params, dims, prompt_capacity=64, max_new_tokens=12)
     for seed in (1, 2):        # the first captures; the second only replays
         before = dict(TRACER.counters)
-        launches = moe_experts.launches
+        launches = LAUNCHES["moe_experts"]
         res = _omni_window(ctx, dims, seed, steps=10)
         delta = {k: TRACER.counters.get(k, 0) - before.get(k, 0)
                  for k in ("moe.experts_read", "moe.experts_touched", "moe.step_layers")}
         assert delta["moe.experts_read"] == delta["moe.experts_touched"] == int(res.touched.sum())
         assert delta["moe.step_layers"] == 10 * dims.n_layer
-        assert moe_experts.launches - launches == 2 * dims.n_layer * 10
+        assert LAUNCHES["moe_experts"] - launches == 2 * dims.n_layer * 10

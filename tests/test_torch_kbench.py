@@ -117,6 +117,7 @@ def test_read_family_plain_matches_pallas(jkb, kernel):
     over every stored column; the wrapper on CPU tensors gives the plain
     result and launches nothing."""
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     L, cs, rb = DIMS["L"], DIMS["CS"], DIMS["RB"]
     x = _inputs(1, lead=(L, DIMS["B"]))
@@ -127,17 +128,17 @@ def test_read_family_plain_matches_pallas(jkb, kernel):
         arg = cs if kernel == "kernel_read" else rb
         calls = [(lambda f, li=li: f(k[li], v[li], arg)) for li in range(L)]
         got = np.stack([c(ref).numpy() for c in calls])
-        before = wrapper.launches
+        before = LAUNCHES[kernel]
         via = np.stack([c(wrapper).numpy() for c in calls])
     else:
         got = ref(k, v, cs).numpy()
-        before = wrapper.launches
+        before = LAUNCHES[kernel]
         via = wrapper(k, v, cs).numpy()
         want = want.reshape(got.shape)
     _assert_rowsums(got, want.reshape(got.shape), k_np.reshape(*got.shape[:-1], -1),
                     v_np.reshape(*got.shape[:-1], -1))
     np.testing.assert_array_equal(via, got)
-    assert wrapper.launches == before
+    assert LAUNCHES[kernel] == before
 
 
 @pytest.mark.parametrize("kernel,body,tol", [
@@ -149,6 +150,7 @@ def test_attention_plain_matches_pallas(jkb, kernel, body, tol):
     """K4a, K4b and K7 against the TPU bodies (interpret): unscaled q,
     columns >= S at -inf, chunked online softmax."""
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     x = _inputs(2)
     want = _jax_attention(jkb, getattr(jkb, body), x["q"][2], x["k"][2], x["v"][2])
@@ -161,9 +163,9 @@ def test_attention_plain_matches_pallas(jkb, kernel, body, tol):
     if body == "kernel_mxu":
         f32_p = _jax_attention(jkb, jkb.kernel_vpu, x["q"][2], x["k"][2], x["v"][2])
         assert np.mean(err) <= ROUNDING_SHARE * np.mean(np.abs(want - f32_p))
-    before = wrapper.launches
+    before = LAUNCHES[kernel]
     np.testing.assert_array_equal(wrapper(*args).numpy(), got)
-    assert wrapper.launches == before
+    assert LAUNCHES[kernel] == before
 
 
 def test_mxu_plain_rounds_p_to_bf16():
@@ -184,6 +186,7 @@ def test_vpu8_plain_matches_decode_attention():
     column scales (interpret), over the S real keys."""
     from whisper_tpu.kernels.decode_attention import decode_attention_hd as jax_dec
     from whisper_tpu_torch.kernels import kbench as kb
+    from whisper_tpu_torch.kernels._build import LAUNCHES
 
     rng = np.random.default_rng(4)
     b, hd, h, s, cs = DIMS["B"], DIMS["HD"], DIMS["H"], DIMS["S"], DIMS["CS"]
@@ -198,9 +201,9 @@ def test_vpu8_plain_matches_decode_attention():
     args = (q, *(torch.from_numpy(a) for a in (k8, v8, sk, sv)), h, s, cs)
     got = kb.KERNELS["kernel_vpu8"][1](*args).numpy()
     assert got.shape == want.shape and np.max(np.abs(got - want)) < TOL_F32
-    before = kb.kernel_vpu8.launches
+    before = LAUNCHES["kernel_vpu8"]
     np.testing.assert_array_equal(kb.kernel_vpu8(*args).numpy(), got)
-    assert kb.kernel_vpu8.launches == before
+    assert LAUNCHES["kernel_vpu8"] == before
 
 
 def test_kernel_rows_refuses_rows_the_grid_would_drop():

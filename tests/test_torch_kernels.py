@@ -29,6 +29,7 @@ def _flash_inputs(seed, b, tq, tk, h, dh):
 def test_flash_attention_ref_matches_pallas(seed, b, tq, tk, h):
     """Aligned 96x96 and the unaligned 75x150 case (tests/test_kernels.py)."""
     from whisper_tpu.kernels.attention import flash_attention as jax_flash
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.attention import flash_attention, flash_attention_ref
 
     q, k, v = _flash_inputs(seed, b, tq, tk, h, 64)
@@ -39,9 +40,9 @@ def test_flash_attention_ref_matches_pallas(seed, b, tq, tk, h):
     assert got.shape == want.shape and got.dtype == np.float32
     assert np.max(np.abs(got - want)) < TOL
     # the wrapper, given CPU tensors, returns the plain result
-    before = flash_attention.launches
+    before = LAUNCHES["flash_attention"]
     np.testing.assert_array_equal(flash_attention(tq_, tk_, tv_).numpy(), got)
-    assert flash_attention.launches == before
+    assert LAUNCHES["flash_attention"] == before
 
 
 def test_flash_attention_ref_reads_strided_views():
@@ -140,6 +141,7 @@ def _decode_inputs(seed, b, u, h, dh, s):
 def test_decode_attention_ref_matches_pallas(case):
     """Mirrors tests/test_kernels.py:85-146, plus kv_group=2."""
     from whisper_tpu.kernels.decode_attention import decode_attention_hd as jax_dec
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.decode_attention import (
         decode_attention_hd,
         decode_attention_hd_ref,
@@ -169,9 +171,9 @@ def test_decode_attention_ref_matches_pallas(case):
     got = decode_attention_hd_ref(*args, **kw).numpy()
     assert got.shape == want.shape == (B, H * Dh, 1) and got.dtype == np.float32
     assert np.max(np.abs(got - want)) < TOL
-    before = decode_attention_hd.launches
+    before = LAUNCHES["decode_attention_hd"]
     np.testing.assert_array_equal(decode_attention_hd(*args, **kw).numpy(), got)
-    assert decode_attention_hd.launches == before
+    assert LAUNCHES["decode_attention_hd"] == before
 
 
 def test_decode_attention_ref_empty_lane_matches_pallas():

@@ -45,16 +45,17 @@ def test_decode_attention_matches_jax_and_einsum(valid):
     """Mirrors tests/test_kernels.py:85-116 through the port's [B, H, Dh]
     wrapper (its plain version on CPU tensors; no launch counted)."""
     from whisper_tpu.kernels.decode_attention import decode_attention as jax_dec
-    from whisper_tpu_torch.kernels.decode_attention import decode_attention, decode_attention_hd
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.decode_attention import decode_attention
 
     q, k, v, kt, vt = _decode_inputs()
     vl = None if valid is None else np.array(valid, np.int32)
     want = np.asarray(jax_dec(jnp.asarray(q), jnp.asarray(kt), jnp.asarray(vt),
                               None if vl is None else jnp.asarray(vl), interpret=True))
-    before = decode_attention_hd.launches
+    before = LAUNCHES["decode_attention_hd"]
     got = decode_attention(torch.from_numpy(q), torch.from_numpy(kt), torch.from_numpy(vt),
                            None if vl is None else torch.from_numpy(vl))
-    assert decode_attention_hd.launches == before
+    assert LAUNCHES["decode_attention_hd"] == before
     assert got.shape == (2, 4, 64) and got.dtype == torch.float32
     assert np.max(np.abs(got.numpy() - want)) < 1e-5
     assert np.max(np.abs(got.numpy() - _einsum_ref(q, k, v, vl))) < 1e-5

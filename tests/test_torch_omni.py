@@ -4,11 +4,10 @@ At a tiny size on the CPU (2 layers, 6 query heads over 2 K/V heads of
 16, M-RoPE sections [2, 3, 3], 4 routed + 1 null + 2 shared experts, 97
 ids, a 2-layer Whisper encoder over 40 mel frames: 4 audio tokens), with
 the f32 policy: the window through ``OmniContext`` and the model's prefill
-and cached token steps against ``tests/omni_reference.py``'s full forward
-pass; the router on hand-set probabilities; M-RoPE; the grouped-query fold
-through K2's plain version; the loader; and the configuration file's
-published widths. The reference is a twin of the benchmark's
-(``benchmark/reference/omni_ref.py``); the two stay equal.
+and cached token steps against the benchmark's reference
+(``benchmark/reference/omni_ref.py``) full forward pass; the router on
+hand-set probabilities; M-RoPE; the grouped-query fold through K2's plain
+version; the loader; and the configuration file's published widths.
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-import omni_reference as ref
+import benchmark.reference.omni_ref as ref
 from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd_ref
 from whisper_tpu_torch.model.decoder import SelfKV
 from whisper_tpu_torch.model.omni import gqa_decode, moe_lanes, mrope, prefill, route
@@ -274,11 +273,6 @@ def test_the_configuration_file_holds_the_published_widths():
     per_layer = sum(int(np.prod(s)) for name, s in tensor_names(d).items() if name.startswith("model.layers.0."))
     # 29.36 M attention, 814.74 M routed, 50.92 M shared experts, 17,920 router, 7,168 norms
     assert per_layer == 895_054_848
-
-
-def test_the_reference_twins_are_equal():
-    assert (ROOT / "tests/omni_reference.py").read_bytes() == \
-        (ROOT / "benchmark/reference/omni_ref.py").read_bytes()
 
 
 def test_eager_and_replayed_state_layouts_agree():

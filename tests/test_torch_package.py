@@ -127,6 +127,36 @@ def test_source_imports_no_jax_or_whisper_tpu(path):
             assert top not in ("jax", "jaxlib", "whisper_tpu"), f"{path}: imports {name}"
 
 
+def _imported(path):
+    """Every module ``path`` names in an import statement, at any depth:
+    ``from a import b`` gives ``a.b``."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield from (f"{node.module}.{a.name}" for a in node.names)
+
+
+ABOVE_KERNELS = tuple(f"whisper_tpu_torch.{pkg}" for pkg in ("model", "runtime", "api", "cli"))
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted((PORT / "kernels").glob("*.py")) + [PORT / "runtime" / "graph.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_kernel_layer_imports_nothing_above_it(path):
+    """The kernel layer imports nothing of the model, runtime, api or cli
+    packages; the runtime's graph module takes from it only the build and
+    the launch ledger (``kernels._build``), no wrapper."""
+    for name in _imported(path):
+        if path.parent.name == "kernels":
+            assert not any(name == p or name.startswith(p + ".") for p in ABOVE_KERNELS), \
+                f"{path}: imports {name}"
+        elif name.startswith("whisper_tpu_torch.kernels"):
+            assert name.startswith("whisper_tpu_torch.kernels._build."), f"{path}: imports {name}"
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     import torch
 

@@ -201,6 +201,7 @@ def test_decode_attention_int8_ref_matches_pallas(case):
     with no key over the padded length."""
     from whisper_tpu.kernels.decode_attention import decode_attention_hd as jax_dec
     from whisper_tpu.kernels.quant import quantize_cols as jquant
+    from whisper_tpu_torch.kernels._build import LAUNCHES
     from whisper_tpu_torch.kernels.decode_attention import (
         decode_attention_hd,
         decode_attention_hd_ref,
@@ -241,10 +242,10 @@ def test_decode_attention_int8_ref_matches_pallas(case):
     if case == "empty_lane":               # mean of the dequantized V over [0, S)
         mean_v = dequantize(t["v8"], t["vs"], torch.float32).mean(dim=-1).numpy()
         np.testing.assert_allclose(got[1:, :, 0], mean_v[1:], rtol=0, atol=TOL_KERNEL)
-    counts = decode_attention_hd.launches, decode_attention_hd.launches_int8
+    counts = LAUNCHES["decode_attention_hd"], LAUNCHES["decode_attention_hd_int8"]
     np.testing.assert_array_equal(
         decode_attention_hd(t["q"], t["k8"], t["v8"], H, **kw).numpy(), got)
-    assert (decode_attention_hd.launches, decode_attention_hd.launches_int8) == counts
+    assert (LAUNCHES["decode_attention_hd"], LAUNCHES["decode_attention_hd_int8"]) == counts
 
 
 # ---------------------------------------------------------------------------
@@ -444,8 +445,7 @@ def test_w8a16_plain_equals_dense(layout, m, bias):
     both weight layouts the program stores (the blocks' [in, out], the
     token table read transposed), and holds the exact f64 product within
     f32 rounding."""
-    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense, weight_layout
-    from whisper_tpu_torch.model.layers import dense
+    from whisper_tpu_torch.kernels.w8a16 import dense, w8a16_dense, weight_layout
 
     x, w, s, b = _w8a16_inputs(m, 96, 72, layout, bias, seed=m)
     assert weight_layout(w) == layout
@@ -490,7 +490,7 @@ def test_dense_route_sends_token_steps_to_w8a16(case):
     under a row-parallel group (the all-reduce runs before the scale);
     more rows, f32 or CPU activations keep the converted product; calls
     without scales are no int8 calls."""
-    from whisper_tpu_torch.model.layers import dense_route
+    from whisper_tpu_torch.kernels.w8a16 import dense_route
     from whisper_tpu_torch.parallel.group import AxisGroup
 
     call, tp_size, route = W8A16_ROUTES[case]

@@ -1,17 +1,9 @@
 """Hand-written CUDA kernels (csrc/) with their wrappers and plain PyTorch versions.
 
-``flash_attention`` is re-exported as in the JAX package, resolved at first
-use: ``kernels.attention`` imports ``model.layers``, whose package leads
-back here.
+``flash_attention`` is re-exported as in the JAX package. The kernel layer
+imports nothing of the model, runtime, api or cli packages above it.
 """
 
-
-def __getattr__(name):
-    if name == "flash_attention":
-        from whisper_tpu_torch.kernels.attention import flash_attention
-
-        return flash_attention
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
+from whisper_tpu_torch.kernels.attention import flash_attention
 
 __all__ = ["flash_attention"]

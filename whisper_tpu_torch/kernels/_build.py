@@ -6,10 +6,18 @@ the repository root, at first use, and loaded with ``ctypes``. No PyTorch
 header is included, so a build takes seconds. The library's file name
 carries a hash of its source, so an edited source is never served by a
 stale build. ``build_all`` starts one ``nvcc`` per source, all at once.
+
+The module also keeps the launch ledger, ``LAUNCHES``: every wrapper adds
+the kernels it launched to the count under its own name (``flash_attention``,
+``flash_attention_f32``, ``decode_attention_hd``, ``decode_attention_hd_int8``,
+``decode_attention_hd_grouped``, ``w8a16_dense``, ``moe_experts`` and the
+kbench wrappers' names). A wrapper runs once, at capture, for a step that a
+CUDA graph replays; ``runtime/graph.py`` adds a capture's counts per replay.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -25,6 +33,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "whisper_tpu_torch"
 SOURCES = ("flash_attention", "flash_attention_f32", "decode_attention", "w8a16_dense", "moe_lanes",
            "kbench")
+LAUNCHES: collections.Counter[str] = collections.Counter()   # kernel launches, by wrapper
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -25,7 +25,8 @@ aligned bases and strides of 16-byte multiples);
 
 On a CPU tensor ``flash_attention`` runs ``flash_attention_ref``. On a CUDA
 tensor it launches the kernel of v's dtype (bf16 or f32) or raises; it never
-falls back.
+falls back. ``LAUNCHES["flash_attention"]`` counts every launch,
+``LAUNCHES["flash_attention_f32"]`` those of the f32 kernel.
 """
 
 from __future__ import annotations
@@ -35,14 +36,15 @@ import functools
 
 import torch
 
-from whisper_tpu_torch.kernels._build import load_library
-from whisper_tpu_torch.model.layers import attention
+from whisper_tpu_torch.kernels._build import LAUNCHES, load_library
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Plain version: f32 scores and softmax, P cast to v.dtype, f32 PV,
     v.dtype output [B, Tq, H, Dh]."""
-    return attention(q, k, v, compute_dtype=v.dtype).to(v.dtype)
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype).float(), v.float()).to(v.dtype)
 
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 9
@@ -121,8 +123,8 @@ def _flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention f32 kernel launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
-    flash_attention.launches_f32 += 1
+    LAUNCHES["flash_attention"] += 1
+    LAUNCHES["flash_attention_f32"] += 1
     return out
 
 
@@ -160,9 +162,5 @@ def flash_attention_shape(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
+    LAUNCHES["flash_attention"] += 1
     return out
-
-
-flash_attention.launches = 0
-flash_attention.launches_f32 = 0   # of those, launches of the f32 kernel

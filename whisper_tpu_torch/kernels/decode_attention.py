@@ -20,12 +20,13 @@ Where a row of S keys (or a base) is not aligned to that vector,
 
 On a CPU tensor ``decode_attention_hd`` runs ``decode_attention_hd_ref``.
 On a CUDA tensor it launches the kernel or raises; it never falls back.
-``decode_attention_hd.launches`` counts every launch, ``launches_int8``
-those on int8 K/V, ``launches_grouped`` those with ``kv_group`` > 1 (beam
-search's cross-attention). Inside a token step captured as a CUDA graph
+``LAUNCHES["decode_attention_hd"]`` counts every launch,
+``LAUNCHES["decode_attention_hd_int8"]`` those on int8 K/V and
+``LAUNCHES["decode_attention_hd_grouped"]`` those with ``kv_group`` > 1
+(beam search's cross-attention). Inside a token step captured as a CUDA graph
 (``runtime/graph.py``) the wrapper runs once, at capture, and allocates
 ``out`` and its scratch from the graph's pool; every replay launches the
-captured kernels at those addresses and adds to the counters what the
+captured kernels at those addresses and adds to ``LAUNCHES`` what the
 capture recorded.
 """
 
@@ -36,7 +37,7 @@ import functools
 
 import torch
 
-from whisper_tpu_torch.kernels._build import load_library
+from whisper_tpu_torch.kernels._build import LAUNCHES, load_library
 
 
 def _check_scales(k_t, v_t, k_scale, v_scale) -> bool:
@@ -190,9 +191,9 @@ def decode_attention_hd(
     )
     if rc != 0:
         raise RuntimeError(f"decode_attention_hd kernel launch failed: CUDA error {rc}")
-    decode_attention_hd.launches += 1
-    decode_attention_hd.launches_int8 += int8
-    decode_attention_hd.launches_grouped += kv_group > 1
+    LAUNCHES["decode_attention_hd"] += 1
+    LAUNCHES["decode_attention_hd_int8"] += int8
+    LAUNCHES["decode_attention_hd_grouped"] += kv_group > 1
     return out
 
 
@@ -208,8 +209,3 @@ def decode_attention(
     out = decode_attention_hd(q.reshape(b, h * dh, 1), k_t.reshape(b, h * dh, s),
                               v_t.reshape(b, h * dh, s), h, valid_len)
     return out.reshape(b, h, dh)
-
-
-decode_attention_hd.launches = 0
-decode_attention_hd.launches_int8 = 0
-decode_attention_hd.launches_grouped = 0

@@ -49,10 +49,10 @@ every load of the row in flight; its RB no longer sets a block.
 
 On a CPU tensor each wrapper runs its plain version (``KERNELS[name]``
 holds both, the plain one taking the wrapper's arguments). On a CUDA tensor
-it launches its kernel or raises; it never falls back. Each wrapper's
-``launches`` counts the kernels it launches: two a call for the split
-tiling of K3, K6 and K9 (the partial sums, then the combine; one where a
-single chunk spans S_PAD), one for the others.
+it launches its kernel or raises; it never falls back. Each wrapper counts
+the kernels it launches in ``LAUNCHES`` under its own name: two a call for
+the split tiling of K3, K6 and K9 (the partial sums, then the combine; one
+where a single chunk spans S_PAD), one for the others.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ import functools
 
 import torch
 
-from whisper_tpu_torch.kernels._build import load_library
+from whisper_tpu_torch.kernels._build import LAUNCHES, load_library
 
 SMS = 132                    # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232_448         # shared memory one H100 block may use, bytes
@@ -206,8 +206,8 @@ def _rowsum_shape(name: str, k: torch.Tensor, v: torch.Tensor) -> tuple[int, int
 
 def _rowsum(wrapper, k: torch.Tensor, v: torch.Tensor, cols: int) -> torch.Tensor:
     """Launch the split row sum over [slabs, HD, S_PAD] -> f32 [slabs, HD],
-    and count its launches on ``wrapper``: a combine follows when cols <
-    S_PAD."""
+    and count its launches under ``wrapper``'s name: a combine follows when
+    cols < S_PAD."""
     name = wrapper.__name__
     slabs, hd, s_pad = _rowsum_shape(name, k, v)
     if cols % 8 or s_pad % cols:
@@ -220,7 +220,7 @@ def _rowsum(wrapper, k: torch.Tensor, v: torch.Tensor, cols: int) -> torch.Tenso
             if cols < s_pad else out)
     _raise_on(_lib().wtt_kb_rowsum(k.data_ptr(), v.data_ptr(), out.data_ptr(), part.data_ptr(),
                                    slabs, hd, s_pad, cols, _stream(k)), name)
-    wrapper.launches += 1 if cols == s_pad else 2
+    LAUNCHES[name] += 1 if cols == s_pad else 2
     return out
 
 
@@ -245,7 +245,7 @@ def kernel_rows(k: torch.Tensor, v: torch.Tensor, rb: int) -> torch.Tensor:
     out = torch.empty((*k.shape[:-1], 1), dtype=torch.float32, device=k.device)
     _raise_on(_lib().wtt_kb_rowsum_rows(k.data_ptr(), v.data_ptr(), out.data_ptr(), slabs * hd,
                                         s_pad, _stream(k)), "kernel_rows")
-    kernel_rows.launches += 1
+    LAUNCHES["kernel_rows"] += 1
     return out
 
 
@@ -363,7 +363,7 @@ def kernel_vpu(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
     _raise_on(_lib().wtt_kb_attn_f32_split(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                            out.data_ptr(), b, hd, s_pad, s_valid, n_head,
                                            geo.cluster, _stream(k)), "kernel_vpu")
-    kernel_vpu.launches += 1
+    LAUNCHES["kernel_vpu"] += 1
     return out
 
 
@@ -437,7 +437,7 @@ def kernel_vpu8(q, k8, v8, k_scale, v_scale, n_head: int, s_valid: int, cs: int)
                                             k_scale.data_ptr(), v_scale.data_ptr(),
                                             out.data_ptr(), b, hd, s_pad, s_valid, n_head,
                                             geo.cluster, vec, _stream(k8)), "kernel_vpu8")
-    kernel_vpu8.launches += 1
+    LAUNCHES["kernel_vpu8"] += 1
     return out
 
 
@@ -589,7 +589,7 @@ def kernel_mxu(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
     _raise_on(_lib().wtt_kb_attn_mma_dense(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                            out.data_ptr(), b, hd, s_pad, s_valid, n_head, cs,
                                            geo.heads, geo.cluster, _stream(k)), "kernel_mxu")
-    kernel_mxu.launches += 1
+    LAUNCHES["kernel_mxu"] += 1
     return out
 
 
@@ -690,7 +690,7 @@ def kernel_mxub(q, k, v, n_head: int, s_valid: int, cs: int) -> torch.Tensor:
     _raise_on(_lib().wtt_kb_attn_mma_head(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                           out.data_ptr(), b, hd, s_pad, s_valid, n_head, cs,
                                           geo.cluster, geo.stages, _stream(k)), "kernel_mxub")
-    kernel_mxub.launches += 1
+    LAUNCHES["kernel_mxub"] += 1
     return out
 
 
@@ -710,5 +710,3 @@ KERNELS = {
     "kernel_vpu8": (kernel_vpu8, lambda q, k8, v8, k_scale, v_scale, *rest: attention_ref(
         q, k8, v8, *rest, k_scale=k_scale, v_scale=v_scale)),
 }
-for _fn, _ in KERNELS.values():
-    _fn.launches = 0

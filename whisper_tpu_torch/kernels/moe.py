@@ -32,7 +32,7 @@ sums and per-tile tickets), so calls on different streams share none.
 On a CPU tensor ``moe_experts`` runs ``moe_experts_ref``; on a CUDA tensor
 it launches the kernel pair or raises. Both refuse a wrong dtype, a
 weight in another layout and more than ``MAX_LANES`` lanes.
-``moe_experts.launches`` counts kernel launches (2 a call; a captured
+``LAUNCHES["moe_experts"]`` counts kernel launches (2 a call; a captured
 CUDA graph's replays add what its capture recorded: ``runtime/graph.py``).
 """
 
@@ -44,8 +44,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from whisper_tpu_torch.kernels._build import load_library
-from whisper_tpu_torch.model.layers import dense
+from whisper_tpu_torch.kernels._build import LAUNCHES, load_library
+from whisper_tpu_torch.kernels.w8a16 import dense
 
 MAX_LANES = 8        # the MMA's B operand: 8 lanes
 OUT_TILE = 32        # output columns a down block
@@ -166,8 +166,5 @@ def moe_experts(h: torch.Tensor, gates: torch.Tensor, shared: tuple, routed: lis
         b, d, torch.cuda.current_stream(h.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"moe_experts kernel launch failed: CUDA error {rc}")
-    moe_experts.launches += 2
+    LAUNCHES["moe_experts"] += 2
     return out
-
-
-moe_experts.launches = 0

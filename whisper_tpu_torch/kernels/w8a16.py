@@ -3,12 +3,13 @@ the per-column scale and the bias, in one launch. The CUDA kernel's wrapper
 and its plain PyTorch version.
 
 Replaces no TPU kernel: XLA fused the int8 -> bf16 conversion of the
-serving tier's weights into the product, and the port's ``dense``
-(``model/layers.py``) did it as a separate pass that wrote a bf16 copy of
-every weight on every call. ``dense`` sends its int8 calls of at most
-``MAX_ROWS`` rows here (the decoder's token steps, greedy and beam, and
-their logits); larger ones (the prompt ingest) keep the converted cuBLAS
-product, which is bound by operations there.
+serving tier's weights into the product, and the port's ``dense`` did it as
+a separate pass that wrote a bf16 copy of every weight on every call.
+``dense``, the model's one product, lives here beside the kernel it routes
+to: ``dense_route`` sends its int8 calls of at most ``MAX_ROWS`` rows to
+``w8a16_dense`` (the decoder's token steps, greedy and beam, and their
+logits); larger ones (the prompt ingest) keep the converted cuBLAS product,
+which is bound by operations there.
 
 ``y = (x @ w) * s + b`` in f32: x bf16 [..., K]; w int8 [K, N], either
 contiguous (the blocks' [in, out]) or the transpose of a contiguous [N, K]
@@ -24,7 +25,7 @@ thread-block cluster and summed through distributed shared memory.
 ``w8a16_geometry`` gives its launch geometry.
 
 On a CPU tensor ``w8a16_dense`` runs ``w8a16_dense_ref``; on a CUDA tensor
-it launches the kernel or raises. ``w8a16_dense.launches`` counts the
+it launches the kernel or raises. ``LAUNCHES["w8a16_dense"]`` counts the
 launches (a captured CUDA graph's replays add what its capture recorded:
 ``runtime/graph.py``).
 """
@@ -34,10 +35,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
-from whisper_tpu_torch.kernels._build import load_library
+from whisper_tpu_torch.kernels._build import LAUNCHES, load_library
+from whisper_tpu_torch.obs.profiler import TRACER
+from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 
 MAX_ROWS = 64        # rows the kernel takes: 8 batch tiles of 8
 MAX_CLUSTER = 8      # blocks a cluster (the portable limit)
@@ -173,8 +177,72 @@ def w8a16_dense(
         geo.cluster, stream)
     if rc != 0:
         raise RuntimeError(f"w8a16_dense kernel launch failed: CUDA error {rc}")
-    w8a16_dense.launches += 1
+    LAUNCHES["w8a16_dense"] += 1
     return y.reshape(*lead, n)
 
 
-w8a16_dense.launches = 0
+def dense_route(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor | None,
+                tp: AxisGroup = SINGLE) -> str:
+    """Where ``dense`` sends a call, from what the call can see: "w8a16"
+    (the W8A16 kernel with the scale and bias fused) for int8 codes with
+    scales and a bf16 CUDA ``x`` of 1 to ``MAX_ROWS`` rows (the token
+    steps); "w8a16_raw" for the same under a row-parallel ``tp`` of size
+    > 1 (the kernel's raw product, all-reduced before the scale); else
+    "converted" for any other int8 call, and "float" for the rest."""
+    if s is None or w.dtype != torch.int8:
+        return "float"
+    rows = math.prod(x.shape[:-1])
+    if x.is_cuda and x.dtype == torch.bfloat16 and 1 <= rows <= MAX_ROWS:
+        return "w8a16_raw" if tp.size > 1 else "w8a16"
+    return "converted"
+
+
+def dense(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    s: torch.Tensor | None = None,
+    tp: AxisGroup = SINGLE,
+) -> torch.Tensor:
+    """x @ w (+ b) with an f32 result.
+
+    On the card a bf16 product goes to cuBLAS with an f32 output
+    (``torch.mm(..., out_dtype=float32)``: bf16 operands, f32 accumulation
+    and no bf16 rounding of the result, as XLA's ``preferred_element_type``).
+    Elsewhere, and for f32 operands, the product runs in f32. TF32 is never
+    used here: PyTorch's default keeps f32 CUDA matmuls in full f32.
+
+    ``s`` dequantizes an int8 ``w`` as an epilogue: one f32 scale per output
+    column (``params.quantize_weight``), applied BEFORE the bias. A call of
+    at most ``MAX_ROWS`` bf16 rows on the card (a token step) takes the
+    W8A16 kernel (``w8a16_dense``), which reads the codes once and
+    applies the scale and the bias in the same launch. Any other int8 call
+    converts the weight to the activation dtype first, a separate pass that
+    writes a bf16 copy of the weight (1 byte read, 2 written per weight),
+    then multiplies. ``dense_route`` says which; ``TRACER`` counts each
+    int8 call as ``int8_dense_kernel`` or ``int8_dense_converted``, once per
+    call of this function (a captured graph's replays count nothing).
+
+    ``tp`` is the group a row-parallel ``w`` is split over (its rows, and
+    ``x``'s last dim): the rank's f32 partial product is all-reduced over
+    it before the epilogue, so the scale and the replicated bias are
+    applied once. At size 1 (the default) nothing is launched."""
+    route = dense_route(x, w, s, tp)
+    if route != "float":
+        TRACER.count("int8_dense_converted" if route == "converted" else "int8_dense_kernel")
+    if route == "w8a16":
+        return w8a16_dense(x, w, s, b)
+    if route == "w8a16_raw":
+        y = w8a16_dense(x, w)
+    elif x.is_cuda and x.dtype != torch.float32:
+        lead = x.shape[:-1]
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.to(x.dtype), out_dtype=torch.float32)
+        y = y.reshape(*lead, w.shape[-1])
+    else:
+        y = torch.matmul(x.float(), w.float())
+    y = tp.sum(y)
+    if s is not None:
+        y = y * s
+    if b is not None:
+        y = y + b
+    return y

@@ -1,27 +1,9 @@
-"""Parameters, layers, encoder and decoder of the PyTorch port.
+"""Parameters, layers, encoder and decoder of the PyTorch port, with the
+JAX package's re-exports."""
 
-The JAX package's re-exports, resolved at first use: ``kernels.attention``
-imports ``model.layers``, and ``model.encoder`` imports the kernel, so an
-eager import here would close a cycle.
-"""
+from whisper_tpu_torch.model.decoder import decode_step, init_self_kv
+from whisper_tpu_torch.model.encoder import encode, precompute_cross_kv
+from whisper_tpu_torch.model.params import DtypePolicy, load_params, params_from_checkpoint
 
-import importlib
-
-_EXPORTS = {
-    "DtypePolicy": "whisper_tpu_torch.model.params",
-    "load_params": "whisper_tpu_torch.model.params",
-    "params_from_checkpoint": "whisper_tpu_torch.model.params",
-    "encode": "whisper_tpu_torch.model.encoder",
-    "precompute_cross_kv": "whisper_tpu_torch.model.encoder",
-    "decode_step": "whisper_tpu_torch.model.decoder",
-    "init_self_kv": "whisper_tpu_torch.model.decoder",
-}
-
-
-def __getattr__(name):
-    if name in _EXPORTS:
-        return getattr(importlib.import_module(_EXPORTS[name]), name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-__all__ = list(_EXPORTS)
+__all__ = ["DtypePolicy", "load_params", "params_from_checkpoint", "encode", "precompute_cross_kv",
+           "decode_step", "init_self_kv"]

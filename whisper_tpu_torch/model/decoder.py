@@ -53,7 +53,8 @@ import torch
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
 from whisper_tpu_torch.kernels.quant import dequantize, quantize_cols
-from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, qkv_proj
+from whisper_tpu_torch.kernels.w8a16 import dense
+from whisper_tpu_torch.model.layers import gelu, layer_norm, qkv_proj
 from whisper_tpu_torch.model.params import Block, WhisperParams
 from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 

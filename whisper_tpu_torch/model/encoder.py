@@ -22,7 +22,8 @@ import torch.nn.functional as F
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.attention import flash_attention
 from whisper_tpu_torch.kernels.quant import quantize_cols
-from whisper_tpu_torch.model.layers import dense, gelu, layer_norm, merge_heads, qkv_proj
+from whisper_tpu_torch.kernels.w8a16 import dense
+from whisper_tpu_torch.model.layers import gelu, layer_norm, merge_heads, qkv_proj
 from whisper_tpu_torch.model.params import Block, WhisperParams
 from whisper_tpu_torch.parallel.group import SINGLE, AxisGroup
 

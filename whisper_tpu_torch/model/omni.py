@@ -26,7 +26,7 @@ read from ``OmniParams.enc``. Then, with d the hidden size:
     renormalised, the shared experts ungated; every expert a SwiGLU
     ``W_down(silu(W_gate x) * W_up x)``
 
-Products go through ``model/layers.py:dense`` (bf16 operands, f32 results
+Products go through ``kernels/w8a16.py:dense`` (bf16 operands, f32 results
 on the card). Activations travel in the compute dtype, norms, the router,
 softmax and rotary angles in f32.
 
@@ -55,7 +55,7 @@ import torch.nn.functional as F
 
 from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
 from whisper_tpu_torch.kernels.moe import moe_experts, swiglu
-from whisper_tpu_torch.model.layers import dense
+from whisper_tpu_torch.kernels.w8a16 import dense
 from whisper_tpu_torch.model.omni_params import OmniBlock, OmniDims, OmniParams
 
 

@@ -19,11 +19,13 @@ side stream (lazy initialisation of cuBLAS and the kernel libraries, as
 the PyTorch graph recipe asks); each window resets the state after that.
 A slot's graphs share one memory pool: they never run at once.
 
-The kernel wrappers count launches in Python, which a replay does not run.
-A capture records the counts its step's wrappers added (and takes them
-back: a capture launches nothing), and every replay adds them. The
-warm-up steps' launches are set-up, not token steps, and are taken back
-too, so the counters count the launches of the token steps a window ran.
+The kernel wrappers count launches in Python, in the kernel layer's
+ledger ``kernels._build.LAUNCHES``, which a replay does not run. A capture
+records the counts its step's wrappers added (and takes them back: a
+capture launches nothing), and every replay adds them. The warm-up steps'
+launches are set-up, not token steps, and are taken back too, so the
+ledger counts the launches of the token steps a window ran. This module
+names no kernel: a new wrapper's counts are replayed with the rest.
 
 A capture or replay that fails raises; nothing falls back to the eager
 step.
@@ -31,49 +33,33 @@ step.
 
 from __future__ import annotations
 
+import collections
 import threading
 import time
 from typing import Callable
 
 import torch
 
-from whisper_tpu_torch.kernels._build import build_all
+from whisper_tpu_torch.kernels._build import LAUNCHES, build_all
 from whisper_tpu_torch.obs.profiler import TRACER
 
 WARMUP_STEPS = 2
 
 
-def _counters() -> list[tuple[object, str]]:
-    """The kernel wrappers' launch counters, as (wrapper, attribute)."""
-    from whisper_tpu_torch.kernels.attention import flash_attention
-    from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
-    from whisper_tpu_torch.kernels.moe import moe_experts
-    from whisper_tpu_torch.kernels.w8a16 import w8a16_dense
-
-    return [(flash_attention, "launches"), (flash_attention, "launches_f32"),
-            (decode_attention_hd, "launches"), (decode_attention_hd, "launches_int8"),
-            (decode_attention_hd, "launches_grouped"), (w8a16_dense, "launches"),
-            (moe_experts, "launches")]
-
-
-def _read_counts() -> list[int]:
-    return [getattr(f, a) for f, a in _counters()]
-
-
-def _write_counts(values: list[int]) -> None:
-    for (f, a), v in zip(_counters(), values):
-        setattr(f, a, v)
+def _restore(saved: collections.Counter) -> None:
+    LAUNCHES.clear()
+    LAUNCHES.update(saved)
 
 
 class CapturedStep:
     """``step`` captured as a CUDA graph on ``stream`` in the memory pool
-    ``pool``. Calling it replays the graph and adds to each kernel counter
-    the launches the capture recorded (``launches``, in ``_counters``'
-    order). ``capture_ms``: host time of the capture and the graph's
+    ``pool``. Calling it replays the graph and adds to ``LAUNCHES`` the
+    launches the capture recorded (``launches``, a ``Counter`` by wrapper
+    name). ``capture_ms``: host time of the capture and the graph's
     instantiation; ``replays``: how often it was replayed."""
 
     def __init__(self, step: Callable[[], None], pool, stream: torch.cuda.Stream):
-        before = _read_counts()
+        before = LAUNCHES.copy()
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
@@ -81,18 +67,18 @@ class CapturedStep:
                                   capture_error_mode="thread_local"):
                 step()
             torch.cuda.synchronize()
-            self.launches = [a - b for a, b in zip(_read_counts(), before)]
+            self.launches = LAUNCHES - before
         finally:
-            _write_counts(before)
+            _restore(before)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self.replays = 0
-        self._adds = [(f, a, n) for (f, a), n in zip(_counters(), self.launches) if n]
+        self._adds = list(self.launches.items())
 
     def __call__(self) -> None:
         self.graph.replay()
         self.replays += 1
-        for f, a, n in self._adds:
-            setattr(f, a, getattr(f, a) + n)
+        for name, n in self._adds:
+            LAUNCHES[name] += n
 
 
 def _tensors(*trees):
@@ -144,13 +130,13 @@ class Slot:
             t0 = time.perf_counter()
             if not self.steps:
                 build_all()
-                before = _read_counts()
+                before = LAUNCHES.copy()
                 self.stream.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(self.stream):
                     for _ in range(WARMUP_STEPS):
                         body()
                 torch.cuda.current_stream().wait_stream(self.stream)
-                _write_counts(before)
+                _restore(before)
             self.steps[key] = CapturedStep(body, self.pool, self.stream)
             TRACER.count("graph_captures")
             TRACER.count("capture_ms", (time.perf_counter() - t0) * 1e3)

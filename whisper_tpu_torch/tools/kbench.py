@@ -138,7 +138,7 @@ def make_inputs(dims: Dims, device, names: Sequence[str]) -> dict:
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with an f32 result (bf16 operands on the card, as model/layers.py)."""
+    """a @ b with an f32 result (bf16 operands on the card, as kernels/w8a16.py:dense)."""
     if a.is_cuda and a.dtype != torch.float32:
         return torch.mm(a, b, out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
