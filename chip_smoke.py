@@ -81,7 +81,9 @@ result line:
                 Every kernel counter is set to 0 right before each of these
                 and must show the launches the path implies (32 encoder
                 layers per encode, 2 x 32 decoder layers per token step, all
-                of them on int8 K/V in the serving tier; a replay adds what
+                of them on int8 K/V in the serving tier, where the int8 self
+                cache's column write kernel launches once a layer for the
+                ingest and each step; a replay adds what
                 its capture recorded). Graph and eager ms per token step,
                 the host's cost of the loop's read of ``stop`` per step
                 (replays with and without it), each graph slot's bytes and
@@ -97,8 +99,10 @@ result line:
                 on the eager step (the same segments). The serving tier also checks the
                 bytes it stores (int8 cross K/V, decoder weights, token
                 table) and profiles the two passes XLA fused and eager
-                PyTorch does not: int8 -> bf16 weight conversion and the
-                self cache's quantize-and-write. The bf16 tier also runs
+                PyTorch did not: int8 -> bf16 weight conversion, and the
+                self cache's quantize-and-write on the split path beside the
+                kernel that replaced it (eager and replayed; the same
+                bytes, one launch a layer). The bf16 tier also runs
                 Context.run_capture over a seeded 6 s source in 100 ms
                 chunks, paced (buffers, ms per buffer, exact counts); then
                 the f32 tier (load_model with DtypePolicy.f32()) runs
@@ -1711,18 +1715,23 @@ def tier_runs(model, dims, tier: str, beam_units: tuple = (), scheduler: bool = 
                 want_w8 = (6 * n_dec + 1) * run + 1 if tier == "serving" else 0
                 check(w8 == want_w8, f"{tier} B={b} {label} {mode}: W8A16 launches {w8}, "
                                      f"want {want_w8}")
+                # int8 self cache: one column write kernel a layer, the ingest and each step
+                kvw = LAUNCHES["kv_quant_write"]
+                want_kvw = n_dec * (run + 1) if int8 else 0
+                check(kvw == want_kvw, f"{tier} B={b} {label} {mode}: kv_quant_write launches "
+                                       f"{kvw}, want {want_kvw}")
                 tok = win.tokens.cpu()
                 check(bool(((tok >= 0) & (tok < dims.n_vocab)).all()) and bool(torch.isfinite(win.p).all())
                       and bool(((win.p >= 0) & (win.p <= 1)).all()), f"B={b}: window tokens/probabilities")
                 runs[label, mode] = dict(ms=ms, steps=steps, run=run, ms_per_step=ms / steps, k2=k2,
-                                         k2_int8=k2_int8, w8a16=w8, win=win)
+                                         k2_int8=k2_int8, w8a16=w8, kv_quant_write=kvw, win=win)
             g, e = runs[label, "graph"], runs[label, "eager"]
             check(same_window(g.pop("win"), e.pop("win")),
                   f"{tier} B={b} {label}: the graph's WindowResult differs from the eager step's")
             log(f"  {tier} B={b} decode, {label} ({g['steps']} steps): graph {g['ms_per_step']:.3f} "
                 f"ms/token step, eager {e['ms_per_step']:.3f} ({g['ms']:.1f} / {e['ms']:.1f} ms incl. "
                 f"prompt ingest); identical WindowResults; launches K2 {g['k2']} ({g['k2_int8']} on "
-                f"int8 K/V), W8A16 {g['w8a16']} each")
+                f"int8 K/V), W8A16 {g['w8a16']}, kv_quant_write {g['kv_quant_write']} each")
         slot = graph_slot(rt, "greedy", b)
         gap = read_gap_ms(slot, (0, False, FORCE_STEPS), GAP_STEPS)
         step_ms = gap["ms_per_step"]["no read"]
@@ -2030,15 +2039,23 @@ def stored_bytes(params) -> dict:
 
 
 def int8_pass_costs(params, dims, compute_dtype) -> dict:
-    """Profile, on the card, one decode step's worth of the two passes that
-    XLA fused into its neighbours and eager PyTorch runs apart: converting
-    every int8 decoder weight and the token table to bf16 (kernels/w8a16.py
-    dense, model/decoder.py logits), and quantizing and writing each
-    layer's new K and V cache column at B=8 (model/decoder.py)."""
+    """Profile, on the card, one decode step's worth of two passes around
+    the serving tier's int8 data: converting every int8 decoder weight and
+    the token table to bf16 (kernels/w8a16.py's converted path, which the
+    W8A16 kernel took off the token step), and each layer's K/V column
+    write at B=8 (model/decoder.py through kernels/quant.py:kv_write): the
+    split path it replaced (the strided K/V rows copied, quantize_cols, four
+    index_copy_ and q's cast) beside the kernel (csrc/kv_quant_write.cu),
+    each eagerly and replayed as a CUDA graph at a device column. Checks
+    that both write the same bytes and that the kernel launches once a
+    layer, eagerly and in the capture; a trace short of the kernels a
+    pass launched is taken again, up to three times in all, and logged if
+    it stays short."""
     import torch
 
-    from whisper_tpu_torch.kernels.quant import quantize_cols
-    from whisper_tpu_torch.model.decoder import _cache_write, init_self_kv
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.quant import kv_quant_write, kv_quant_write_ref
+    from whisper_tpu_torch.model.decoder import init_self_kv
     from whisper_tpu_torch.model.params import _QUANT_KEYS
 
     weights = [getattr(b, k) for b in params.dec.blocks for k in sorted(_QUANT_KEYS)]
@@ -2049,30 +2066,72 @@ def int8_pass_costs(params, dims, compute_dtype) -> dict:
             w.to(compute_dtype)
         tok.T.to(compute_dtype)
 
-    b = 8
-    kv = init_self_kv(dims, b, device="cuda", quant=True)
-    new = torch.randn((b, 1, dims.n_text_state), device="cuda")
+    b, n_dec, n_head, hd = 8, dims.n_text_layer, dims.n_text_head, dims.n_text_state
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn((b, 1, 3 * hd), generator=g, device="cuda")
+    col = torch.tensor([100], device="cuda")
+    routes = {"split": kv_quant_write_ref, "kernel": kv_quant_write}
+    caches = {route: init_self_kv(dims, b, device="cuda", quant=True) for route in routes}
 
-    def quantize_and_write():
-        for li in range(dims.n_text_layer):
-            for cache, scales in ((kv.k, kv.k_s), (kv.v, kv.v_s)):
-                codes, sc = quantize_cols(new, axis=-1)
-                _cache_write(cache, li, codes, 100)
-                _cache_write(scales, li, sc, 100)
+    def write(route):
+        kv = caches[route]
+        for li in range(n_dec):
+            routes[route](qkv, kv.k[li], kv.v[li], kv.k_s[li], kv.v_s[li], col, n_head, compute_dtype)
+
+    write_bytes = n_dec * b * (3 * hd * 4 + 2 * hd + 2 * 4 + hd * compute_dtype.itemsize)
+    kernels = {"split": 23 * n_dec, "kernel": n_dec}        # what a step's pass launches
+    passes = [("int8->bf16 weight conversion", convert, 3 * (sum(w.numel() for w in weights) + tok.numel()),
+               None, len(weights) + 1)]
+    for route in routes:
+        passes.append((f"cache quantize-and-write, B={b}, {route}, eager", lambda r=route: write(r),
+                       write_bytes, route, kernels[route]))
+    for route in routes:
+        write(route)                                                           # warm-up
+        before = LAUNCHES.copy()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            write(route)
+        captured = LAUNCHES["kv_quant_write"] - before["kv_quant_write"]
+        LAUNCHES.clear()
+        LAUNCHES.update(before)                      # the capture launched nothing
+        check(captured == (n_dec if route == "kernel" else 0),
+              f"kv write {route}: the capture recorded {captured} kv_quant_write launches")
+        passes.append((f"cache quantize-and-write, B={b}, {route}, replayed", graph.replay,
+                       write_bytes, route, kernels[route]))
 
     out = {}
-    for name, fn, n_bytes in (
-        ("int8->bf16 weight conversion", convert, 3 * (sum(w.numel() for w in weights) + tok.numel())),
-        ("cache quantize-and-write, B=8", quantize_and_write, None),
-    ):
+    for name, fn, n_bytes, route, want in passes:
         fn()                                                                   # warm-up
-        bd = breakdown(fn)
+        for _ in range(3):          # torch.profiler's traces here can lose kernels: take it again
+            before = LAUNCHES["kv_quant_write"]
+            bd = breakdown(fn)
+            launched = LAUNCHES["kv_quant_write"] - before
+            if bd["launches"] >= want:
+                break
+        else:
+            log(f"    (the trace holds {bd['launches']} of the {want} kernels launched)")
         show_breakdown(f"serving, {name}, per decode step", bd)
         out[name] = dict(busy_ms=bd["busy_ms"], wall_ms=bd["wall_ms"], launches=bd["launches"],
-                         bytes=n_bytes)
-        if n_bytes:
+                         bytes=n_bytes, kv_quant_write=launched)
+        if route is None:
             log(f"    {n_bytes / 1e9:.3f} GB moved (1 B read + 2 B written per weight): "
                 f"{n_bytes / bd['busy_ms'] / 1e6:.0f} GB/s of device time")
+            continue
+        kernel_ms = sum(ms for k, ms in bd["top_kernels_ms"].items() if "kv_quant_write" in k)
+        out[name]["kernel_ms"] = kernel_ms
+        log(f"    {route}: {bd['launches']} kernels, {n_bytes / 1e6:.2f} MB of rows, codes, scales and "
+            f"q ({n_bytes / 3.35e12 * 1e3:.4f} ms at 3.35 TB/s); kv_quant_write kernels "
+            f"{kernel_ms:.4f} ms, {kernel_ms / n_dec * 1e3:.2f} us a launch")
+        if route == "kernel":
+            check(launched == (n_dec if name.endswith("eager") else 0),
+                  f"{name}: LAUNCHES['kv_quant_write'] counted {launched}")
+    for a, w in zip(caches["kernel"], caches["split"]):
+        check(torch.equal(a, w), "kv write: the kernel's cache bytes differ from the split path's")
+    for kind in ("eager", "replayed"):
+        split, kern = (out[f"cache quantize-and-write, B={b}, {r}, {kind}"] for r in routes)
+        log(f"  serving, the column write {kind}: split {split['busy_ms']:.3f} busy ms / "
+            f"{split['launches']} kernels, kernel {kern['busy_ms']:.3f} / {kern['launches']} a step "
+            f"({split['busy_ms'] / kern['busy_ms']:.1f}x)")
     return out
 
 

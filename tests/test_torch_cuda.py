@@ -1451,6 +1451,218 @@ def test_w8a16_carries_every_int8_product_of_a_serving_token_step(graph_runtimes
         assert Conversions.n == 6 * n_dec                 # the ingest's, and no step's
 
 
+# The int8 self cache's column write (csrc/kv_quant_write.cu)
+
+def _kv_card_rows(b, s, seed, n_head=20, dh=64):
+    """Seeded f32 qkv rows [B, S, 3 HD] on the card (large-v2's widths by
+    default), with tests/test_torch_quant.py's edge rows: K of (lane 0,
+    token 0) on half-step ties with amax 127, V of (0, 0) holding +-amax,
+    and K of the last (lane, token) all zero where there are two rows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn((b, s, n_head, 3, dh), generator=g, device="cuda") * 0.7
+    ties = torch.arange(n_head * dh, dtype=torch.float32, device="cuda").remainder(21) - 10.5
+    ties[0] = 127.0
+    y[0, 0, :, 1] = ties.reshape(n_head, dh)
+    y[0, 0, 0, 2, 0], y[0, 0, -1, 2, -1] = 3.25, -3.25
+    if b * s > 1:
+        y[-1, -1, :, 1] = 0.0
+    return y.reshape(b, s, 3 * n_head * dh)
+
+
+def _kv_card_caches(b, seed, hd=1280, c=448):
+    """A layer's int8 K and V [B, HD, C] and f32 scales [B, 1, C] holding
+    stale values, so that a write off its columns shows."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k, v = torch.randint(-127, 128, (2, b, hd, c), generator=g, device="cuda",
+                         dtype=torch.int8).unbind(0)
+    k_s, v_s = torch.rand((2, b, 1, c), generator=g, device="cuda").unbind(0)
+    return [k, v, k_s, v_s]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col", [447, "device", 0], ids=["S1-host", "S1-device", "S228-host"])
+@pytest.mark.parametrize("b", [1, 8, 32, 40])
+def test_kv_quant_write_kernel_matches_plain(b, col):
+    """The kernel writes the plain version's (the split path's) codes and
+    scales bit for bit, at a host column (the last one; the ingest's 228
+    columns from 0) or a device one, touches nothing else, and returns its
+    q in bf16 and in f32, contiguous; one launch a call."""
+    _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.quant import kv_quant_write, kv_quant_write_ref
+
+    s = 228 if col == 0 else 1
+    if col == "device":
+        col = torch.tensor([200], device="cuda")
+    qkv = _kv_card_rows(b, s, seed=b + s)
+    for q_dtype in (torch.bfloat16, torch.float32):
+        got = _kv_card_caches(b, seed=b)
+        want = [a.clone() for a in got]
+        before = LAUNCHES["kv_quant_write"]
+        q = kv_quant_write(qkv, *got, col, 20, q_dtype)
+        assert LAUNCHES["kv_quant_write"] == before + 1
+        want_q = kv_quant_write_ref(qkv, *want, col, 20, q_dtype)
+        torch.cuda.synchronize()
+        assert q.dtype == q_dtype and q.shape == (b, s, 20, 64) and q.is_contiguous()
+        assert torch.equal(q, want_q)
+        for name, a, w in zip(("k", "v", "k_s", "v_s"), got, want):
+            assert torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+def test_kv_quant_write_replayed_at_an_advancing_device_column():
+    """Captured in a CUDA graph with a device column, the kernel writes the
+    column the device holds at each replay: three replays at columns 101,
+    102 and 103 on new rows equal the plain version's writes bit for bit.
+    The capture counts one launch."""
+    _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.quant import kv_quant_write, kv_quant_write_ref
+
+    b = 8
+    static_qkv = _kv_card_rows(b, 1, seed=1)
+    col = torch.tensor([100], device="cuda")
+    got = _kv_card_caches(b, seed=2)
+    want = [a.clone() for a in got]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        kv_quant_write(static_qkv, *got, col, 20)          # warm-up, as the graph recipe asks
+    torch.cuda.current_stream().wait_stream(stream)
+    kv_quant_write_ref(static_qkv, *want, col, 20, torch.bfloat16)
+    graph = torch.cuda.CUDAGraph()
+    before = LAUNCHES["kv_quant_write"]
+    with torch.cuda.graph(graph):
+        static_q = kv_quant_write(static_qkv, *got, col, 20)
+    assert LAUNCHES["kv_quant_write"] == before + 1
+    for step in range(3):
+        col.fill_(101 + step)
+        static_qkv.copy_(_kv_card_rows(b, 1, seed=10 + step))
+        graph.replay()
+        want_q = kv_quant_write_ref(static_qkv, *want, col, 20, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(static_q, want_q), step
+        for name, a, w in zip(("k", "v", "k_s", "v_s"), got, want):
+            assert torch.equal(a, w), (step, name)
+
+
+@pytest.mark.cuda
+def test_kv_quant_write_refuses_what_the_kernel_cannot_take():
+    _need_card()
+    from whisper_tpu_torch.kernels.quant import kv_quant_write
+
+    qkv = _kv_card_rows(2, 1, seed=3)
+    k, v, k_s, v_s = _kv_card_caches(2, seed=4)
+    cases = [
+        ((qkv.bfloat16(), k, v, k_s, v_s, 0, 20), ValueError),                     # bf16 rows
+        ((_kv_card_rows(2, 2, 3).transpose(0, 1), k, v, k_s, v_s, 0, 20), ValueError),  # strided
+        ((qkv, k, v, k_s, v_s, 0, 7), ValueError),                                 # heads
+        ((qkv, k, v, k_s, v_s, 448, 20), ValueError),                              # past the end
+        ((qkv, k, v, k_s, v_s, -1, 20), ValueError),
+        ((qkv, k.float(), v, k_s, v_s, 0, 20), ValueError),                        # f32 codes
+        ((qkv, k, v, k_s.half(), v_s, 0, 20), ValueError),                         # f16 scales
+        ((qkv, k, v, k_s[:, :, :100], v_s, 0, 20), ValueError),                    # other C
+        ((qkv, k[:1], v, k_s, v_s, 0, 20), ValueError),                            # other B
+        ((qkv, k, v, k_s, v_s, torch.tensor([3], device="cuda", dtype=torch.int32), 20), ValueError),
+        ((qkv, k, v, k_s, v_s, torch.tensor([3]), 20), ValueError),                # host tensor
+        ((qkv, k, v, k_s, v_s, 0, 20, torch.float16), NotImplementedError),
+    ]
+    for args, err in cases:
+        with pytest.raises(err):
+            kv_quant_write(*args)
+
+
+@pytest.mark.cuda
+def test_kv_write_kernel_route_equals_split_route_in_a_greedy_window(graph_runtimes, monkeypatch):
+    """One int8 greedy window at large-v2 width (one layer), eagerly on the
+    kernel route and on the split route (forced by replacing
+    ``kv_write_route``), and replayed on the graph: the same tokens,
+    probabilities, last logits and cache bytes, bit for bit. The kernel
+    launches once a layer for the ingest and for each step, and ``TRACER``
+    counts every int8 write call under its route."""
+    _need_card()
+    from whisper_tpu_torch.kernels import quant
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.obs.profiler import TRACER
+    from whisper_tpu_torch.runtime.decode import GreedyState, decode_window
+
+    rt = graph_runtimes("large-v2-1", "int8")
+    lanes, steps, n_dec = 3, 17, rt.dims.n_text_layer
+    prompts, plens, cross = _graph_inputs(rt, lanes, 9)
+    seeks, ends = np.zeros(lanes, np.int32), np.full(lanes, 10**6, np.int32)
+
+    def counts():
+        return (LAUNCHES["kv_quant_write"], TRACER.counters.get("kv_write_kernel", 0),
+                TRACER.counters.get("kv_write_split", 0))
+
+    @torch.inference_mode()
+    def eager_window():
+        kv = rt.self_kv(lanes)
+        st = GreedyState.zeros(lanes, rt.n_max_steps, rt.dims.n_vocab, rt.device)
+        res = decode_window(rt.params, rt.dims, rt.ids, *(torch.from_numpy(a).cuda() for a in
+                                                           (prompts, plens)),
+                            kv, cross, *(torch.from_numpy(a).cuda() for a in (seeks, ends)),
+                            compute_dtype=rt.compute_dtype, force_steps=steps, state=st)
+        torch.cuda.synchronize()
+        return {k: v.cpu().numpy() for k, v in res._asdict().items()}, st.logits.clone(), kv
+
+    calls = n_dec * (steps + 1)                         # the ingest and each step, a layer each
+    before = counts()
+    kernel = eager_window()
+    assert np.subtract(counts(), before).tolist() == [calls, calls, 0]
+    with monkeypatch.context() as m:
+        m.setattr(quant, "kv_write_route", lambda *a: "split")
+        before = counts()
+        split = eager_window()
+        assert np.subtract(counts(), before).tolist() == [0, 0, calls]
+    _assert_identical(kernel[0], split[0])
+    assert int(kernel[0]["steps"]) == steps
+    assert torch.equal(kernel[1], split[1])
+    for name, a, b in zip(("k", "v", "k_s", "v_s"), kernel[2], split[2]):
+        assert torch.equal(a, b), name
+    assert kernel[2].k.any() and kernel[2].k_s.any()
+
+    replayed, _, _, _ = _graph_window(rt, ("greedy", lanes, steps), prompts, plens, cross)
+    _assert_identical(replayed, split[0])
+    slot = next(sl for key, sl in rt.graphs.slots.items()
+                if key[:3] == ("greedy", lanes, rt.prompt_capacity))
+    for name, a, b in zip(("k", "v", "k_s", "v_s"), slot.kv, split[2]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_kv_quant_write_launches_once_a_layer_of_a_replayed_step(graph_runtimes):
+    """A serving greedy window on a 32-layer decoder (TINY widths, the
+    large-v2 depth): each replayed token step launches the column write
+    32 times and the ingest 32 times; ``TRACER`` counts the calls of the
+    ingest and of the steps run in Python (a capture, and the 2 warm-up
+    steps before a slot's first capture), all on the kernel route."""
+    _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.obs.profiler import TRACER
+
+    rt = graph_runtimes("tiny-32", "int8")
+    lanes, steps, n_dec = 3, 11, rt.dims.n_text_layer
+    assert n_dec == 32
+    for window in range(2):                   # the first captures; the second only replays
+        before = (LAUNCHES["kv_quant_write"], TRACER.counters.get("kv_write_kernel", 0),
+                  TRACER.counters.get("kv_write_split", 0))
+        captured = len(_captured(rt))
+        warm = not any(sl.steps for key, sl in rt.graphs.slots.items() if key[:2] == ("greedy", lanes))
+        replays = rt.graphs.replays()
+        _, launched, _, replayed = _graph_window(rt, ("greedy", lanes, steps),
+                                                 *_graph_inputs(rt, lanes, 20 + window))
+        run = rt.graphs.replays() - replays
+        assert run == steps and all(st["kv_quant_write"] == n_dec for st in replayed)
+        assert launched["kv_quant_write"] == LAUNCHES["kv_quant_write"] - before[0] == \
+            n_dec * (run + 1)
+        new = len(_captured(rt)) - captured
+        assert new == (1 if window == 0 else 0)
+        python_steps = new + 2 * new * warm
+        assert TRACER.counters.get("kv_write_kernel", 0) - before[1] == n_dec * (python_steps + 1)
+        assert TRACER.counters.get("kv_write_split", 0) == before[2]
+
+
 # Uni-MoE-2.0-Omni's audio-to-text path (model/omni.py, runtime/omni.py) on the card
 
 OMNI_CARD = {

@@ -15,7 +15,7 @@ p, pt and ptsum agree within TOL, f32 softmax sums in another order (the
 int8 tier: the decoder's 1e-4, as tests/test_torch_beam.py holds it). The
 pieces the device step is made of are held against what they replace: the
 ``index_copy_`` cache write against the slice write, the range check made
-once on the host where ``_cache_write`` raised, and the beam reorder over
+once on the host where ``write_cols`` raises, and the beam reorder over
 whole column ranges against ``reorder_self_kv`` over the written columns.
 """
 
@@ -290,8 +290,8 @@ def test_index_copy_cache_write_matches_slice_write(quant):
     """The single-token step's cache write (``index_copy_`` at a device
     column) against the prompt ingest's (slice assignment at a host
     column): codes and, for int8, the scale columns, bit for bit."""
-    from whisper_tpu_torch.kernels.quant import quantize_cols
-    from whisper_tpu_torch.model.decoder import _cache_write, init_self_kv
+    from whisper_tpu_torch.kernels.quant import quantize_cols, write_cols
+    from whisper_tpu_torch.model.decoder import init_self_kv
 
     g = torch.Generator().manual_seed(0)
     dims = TINY_TEST_DIMS
@@ -306,8 +306,8 @@ def test_index_copy_cache_write_matches_slice_write(quant):
         else:
             writes = ((by_index.k, by_slice.k, new.to(torch.bfloat16)),)
         for a, s, x in writes:
-            _cache_write(a, li, x, torch.tensor([col]))
-            _cache_write(s, li, x, col)
+            write_cols(a[li], x, torch.tensor([col]))
+            write_cols(s[li], x, col)
             assert bool(a[li, ..., col].float().abs().sum() > 0)
     for a, s in zip(by_index, by_slice):
         if a is not None:
@@ -338,7 +338,7 @@ def test_decode_step_device_column_matches_host_column(random_setup):
 def test_host_range_check_raises_before_any_step(random_setup):
     """A device column is not range-checked where it is written; the loops
     check p_max + n_max <= n_text_ctx once, on the host, before they write
-    anything, and raise where ``_cache_write`` raised at the first column
+    anything, and raise where ``write_cols`` raises at the first column
     past the cache. A single-token step at a host column still checks it."""
     from whisper_tpu_torch.model.decoder import decode_step
     from whisper_tpu_torch.runtime.beam import _beam_window

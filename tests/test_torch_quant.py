@@ -496,3 +496,150 @@ def test_dense_route_sends_token_steps_to_w8a16(case):
     call, tp_size, route = W8A16_ROUTES[case]
     x, w, s = _fake_call(**call)
     assert dense_route(x, w, s, AxisGroup(size=tp_size)) == route
+
+
+# ---------------------------------------------------------------------------
+# the int8 self cache's column write: plain version and route
+# ---------------------------------------------------------------------------
+
+def _kv_rows(b, s, n_head, dh, seed):
+    """Seeded f32 qkv rows [B, S, H, 3, Dh] (as [B, S, 3 HD]) with edge rows:
+    K of (lane 0, token 0) on half-step ties (its amax 127 makes the scale
+    1), V of (0, 0) holding both +amax and -amax (codes +127 and -127), and,
+    where there is more than one row, K of the last (lane, token) all zero
+    (scale 1e-8 / 127)."""
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn((b, s, n_head, 3, dh), generator=g) * 0.7
+    ties = torch.arange(n_head * dh, dtype=torch.float32).remainder(21) - 10.5   # k + 0.5
+    ties[0] = 127.0
+    y[0, 0, :, 1] = ties.reshape(n_head, dh)
+    y[0, 0, 0, 2, 0], y[0, 0, -1, 2, -1] = 3.25, -3.25
+    if b * s > 1:
+        y[-1, -1, :, 1] = 0.0
+    return y.reshape(b, s, 3 * n_head * dh)
+
+
+def _split_write(qkv, kv, li, col, n_head, q_dtype):
+    """The decoder's int8 column write before the kernel, as it was written:
+    the strided K/V views copied to rows, ``quantize_cols`` and two column
+    writes each into layer ``li`` of the [L, B, ., C] caches, q cast."""
+    from whisper_tpu_torch.kernels.quant import quantize_cols, write_cols
+
+    b, s, _ = qkv.shape
+    y = qkv.reshape(b, s, n_head, 3, -1)
+    q, k_new, v_new = y[:, :, :, 0], y[:, :, :, 1], y[:, :, :, 2]
+    for cache, scales, new in ((kv.k, kv.k_s, k_new), (kv.v, kv.v_s, v_new)):
+        codes, sc = quantize_cols(new.reshape(b, s, -1), axis=-1)
+        write_cols(cache[li], codes, col)
+        write_cols(scales[li], sc, col)
+    return q.to(q_dtype)
+
+
+KV_WRITES = {   # name: (lanes, tokens, column: a host int or ("device", c))
+    **{f"B{b}-S{s}-host": (b, s, {1: 447, 3: 5, 228: 0}[s]) for b in (1, 8, 32, 40)
+       for s in (1, 3, 228)},
+    **{f"B{b}-S1-device": (b, 1, ("device", 200)) for b in (1, 8, 32, 40)},
+}
+
+
+@pytest.mark.parametrize("case", list(KV_WRITES), ids=list(KV_WRITES))
+def test_kv_quant_write_plain_equals_split(case):
+    """The column write's plain version (the kernel's on the CPU) writes the
+    codes and scales of ``quantize_cols`` + the column writes bit for bit,
+    touches no other column or layer, and returns their q in bf16 and f32:
+    ties round half to even, a zero row takes the scale 1e-8 / 127, +-amax
+    code to +-127. ``kv_write`` on the CPU takes the split route and counts
+    it once."""
+    from whisper_tpu_torch.hparams import ModelDims
+    from whisper_tpu_torch.kernels.quant import kv_quant_write, kv_write
+    from whisper_tpu_torch.model.decoder import init_self_kv
+    from whisper_tpu_torch.obs.profiler import TRACER
+
+    b, s, col = KV_WRITES[case]
+    if isinstance(col, tuple):
+        col = torch.tensor([col[1]])
+    n_head, dh, li = 2, 64, 1
+    dims = ModelDims(51_864, 96, 64, 4, 2, 448, n_head * dh, n_head, 2, 80, 1)
+    qkv = _kv_rows(b, s, n_head, dh, seed=b * 1000 + s)
+    g = torch.Generator().manual_seed(s)
+    want = init_self_kv(dims, b, device="cpu", quant=True)
+    for a in want:                      # stale bytes everywhere: only the columns may change
+        a.copy_(torch.randint(-127, 128, a.shape, generator=g).to(a.dtype))
+    for q_dtype in (torch.bfloat16, torch.float32):
+        got = type(want)(*(a.clone() for a in want))
+        dispatched = type(want)(*(a.clone() for a in want))
+        want_l = type(want)(*(a.clone() for a in want))
+        want_q = _split_write(qkv, want_l, li, col, n_head, q_dtype)
+        q = kv_quant_write(qkv, got.k[li], got.v[li], got.k_s[li], got.v_s[li], col, n_head, q_dtype)
+        before = (TRACER.counters.get("kv_write_split", 0), TRACER.counters.get("kv_write_kernel", 0))
+        q2 = kv_write(qkv, dispatched.k[li], dispatched.v[li], dispatched.k_s[li],
+                      dispatched.v_s[li], col, n_head, q_dtype)
+        assert (TRACER.counters.get("kv_write_split", 0),
+                TRACER.counters.get("kv_write_kernel", 0)) == (before[0] + 1, before[1])
+        assert q.dtype == q_dtype and q.shape == (b, s, n_head, dh)
+        assert torch.equal(q, want_q) and torch.equal(q2, want_q)
+        for name in ("k", "v", "k_s", "v_s"):
+            assert torch.equal(getattr(got, name), getattr(want_l, name)), name
+            assert torch.equal(getattr(dispatched, name), getattr(want_l, name)), name
+    c0 = int(col) if isinstance(col, int) else int(col[0])
+    cols = slice(c0, c0 + s)
+    assert not torch.equal(got.k[li, :, :, cols], want.k[li, :, :, cols])
+    mask = torch.ones(want.k.shape[-1], dtype=torch.bool)
+    mask[cols] = False
+    for name in ("k", "v", "k_s", "v_s"):        # every other column and layer as it was
+        assert torch.equal(getattr(got, name)[..., mask], getattr(want, name)[..., mask]), name
+        assert torch.equal(getattr(got, name)[0], getattr(want, name)[0]), name
+    k0 = got.k[li, 0, :, c0]                         # the ties: amax 127, scale 1
+    assert got.k_s[li, 0, 0, c0] == 1.0
+    assert torch.equal(k0.float(), torch.round(qkv.reshape(b, s, n_head, 3, dh)[0, 0, :, 1].reshape(-1)))
+    assert set(k0[1:].abs().tolist()) <= {10, 8, 6, 4, 2, 0}   # |k + 0.5| to even
+    v0 = got.v[li, 0, :, c0]
+    assert v0[0] == 127 and v0[-1] == -127
+    if b * s > 1:
+        last = c0 + s - 1
+        assert got.k_s[li, -1, 0, last] == torch.tensor(1e-8, dtype=torch.float32) / 127.0
+        assert not got.k[li, -1, :, last].any()
+
+
+def _fake_kv_call(cache_dtype, device):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        qkv = torch.empty((8, 1, 3 * 1280), dtype=torch.float32, device=device)
+        cache = torch.empty((8, 1280, 448), dtype=cache_dtype, device=device)
+    return qkv, cache
+
+
+KV_ROUTES = {   # name: (cache dtype, device, tensor-parallel size, route)
+    "int8-card": (torch.int8, "cuda", 1, "kernel"),
+    "int8-card-tp2": (torch.int8, "cuda", 2, "split"),
+    "int8-cpu": (torch.int8, "cpu", 1, "split"),
+    "int8-cpu-tp2": (torch.int8, "cpu", 2, "split"),
+    "bf16-card": (torch.bfloat16, "cuda", 1, "cast"),
+    "f32-card": (torch.float32, "cuda", 1, "cast"),
+    "bf16-card-tp2": (torch.bfloat16, "cuda", 2, "cast"),
+    "f32-cpu": (torch.float32, "cpu", 1, "cast"),
+}
+
+
+@pytest.mark.parametrize("case", list(KV_ROUTES), ids=list(KV_ROUTES))
+def test_kv_write_route_sends_int8_caches_on_the_card_to_the_kernel(case):
+    """The column write's rule, on fake tensors (no card needed): an int8
+    cache on the card at tensor-parallel size 1 takes the kernel; under a
+    group of 2 ranks (the MAX all-reduce between amax and scale) and on the
+    CPU the split path; bf16 and f32 caches stay with the decoder's cast."""
+    from whisper_tpu_torch.kernels.quant import kv_write_route
+    from whisper_tpu_torch.parallel.group import AxisGroup
+
+    cache_dtype, device, tp_size, route = KV_ROUTES[case]
+    qkv, cache = _fake_kv_call(cache_dtype, device)
+    assert kv_write_route(qkv, cache, AxisGroup(size=tp_size)) == route
+
+
+def test_kv_write_refuses_a_cache_that_is_not_int8():
+    from whisper_tpu_torch.kernels.quant import kv_write
+
+    qkv = torch.zeros((1, 1, 3 * 64))
+    cache, scales = torch.zeros((1, 64, 8), dtype=torch.bfloat16), torch.zeros((1, 1, 8))
+    with pytest.raises(ValueError, match="int8"):
+        kv_write(qkv, cache, cache, scales, scales, 0, 2, torch.bfloat16)

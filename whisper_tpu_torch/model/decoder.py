@@ -13,8 +13,9 @@ The cache is one stacked [L, B, H*Dh, C] pair per K and V. A step writes its
 new column IN PLACE (never a copy of the cache: on large-v2 at B=8 a
 whole-cache copy per step would cost more than the step): the prompt
 ingest by slice assignment at a host column, a single-token step by
-``index_copy_`` at ``write_pos`` given as a device int32 scalar, so that
-the step reads no host value and can be captured as a CUDA graph. A
+``index_copy_`` at ``write_pos`` given as a device int32 scalar (an int8
+cache on the card: the column write kernel at either), so that the step
+reads no host value and can be captured as a CUDA graph. A
 device column cannot be range-checked without a host read: the token
 loops check ``p_max + n_max <= n_text_ctx`` once, before their first step.
 Padded prompts are LEFT-aligned, so every lane's last real token sits in
@@ -24,8 +25,11 @@ hides. Prompt ingest (S > 1) takes the einsum path; single-token steps take
 the decode-attention kernel, for self- and cross-attention alike.
 
 int8 caches (the serving tier): the self cache is int8 with one f32 scale
-per column [L, B, 1, C]; each new column is quantized (``quantize_cols``)
-and written, codes and scales, in place. The kernel reads codes and scales
+per column [L, B, 1, C]; each new column is quantized and written, codes
+and scales, in place, from the f32 qkv product (``kernels/quant.py:
+kv_write``: on the card one kernel launch a layer, which also casts q; on
+the CPU and under tensor parallelism ``quantize_cols`` and ``write_cols``).
+The kernel reads codes and scales
 directly; the einsum path of prompt ingest dequantizes to compute_dtype
 first. Int8 weights carry ``<key>_s`` scales that every ``dense`` applies,
 and an int8 token embedding ``tok_s``: gathered rows are dequantized, the
@@ -52,7 +56,7 @@ import torch
 
 from whisper_tpu_torch.hparams import ModelDims
 from whisper_tpu_torch.kernels.decode_attention import decode_attention_hd
-from whisper_tpu_torch.kernels.quant import dequantize, quantize_cols
+from whisper_tpu_torch.kernels.quant import dequantize, kv_write, write_cols
 from whisper_tpu_torch.kernels.w8a16 import dense
 from whisper_tpu_torch.model.layers import gelu, layer_norm, qkv_proj
 from whisper_tpu_torch.model.params import Block, WhisperParams
@@ -99,21 +103,6 @@ def reorder_self_kv(kv: SelfKV, parent: torch.Tensor, col0: int, n_cols: int) ->
         if a is not None:
             gen = a[..., col0 : col0 + n_cols]
             gen.copy_(gen.index_select(1, parent))
-
-
-def _cache_write(cache: torch.Tensor, li: int, new: torch.Tensor, col) -> None:
-    """In-place column write: cache [L,B,HD,C], new [B,S,HD] at columns
-    col..col+S-1 of layer li. A host ``col`` is checked: where JAX's
-    dynamic_update_slice would clamp the start (and silently overwrite the
-    last columns), this raises. A device ``col`` (int64 [1], S = 1) is
-    written by ``index_copy_`` unchecked; its caller checks the range."""
-    if isinstance(col, torch.Tensor):
-        cache[li].index_copy_(2, col, new.transpose(1, 2))
-        return
-    s, c = new.shape[1], cache.shape[-1]
-    if col < 0 or col + s > c:
-        raise ValueError(f"cache write at columns [{col}, {col + s}) outside cache length {c}")
-    cache[li, :, :, col : col + s] = new.transpose(1, 2)
 
 
 def _cross_attention(h, blk: Block, xk, xv, xk_s, xv_s, n_head: int, compute_dtype,
@@ -188,22 +177,18 @@ def _decoder_block(x, blk: Block, kv: SelfKV, li: int, write_pos, attn_start, va
     quant = kv.k_s is not None
 
     h = layer_norm(x, blk.attn_ln_w, blk.attn_ln_b).to(compute_dtype)
-    # an int8 cache quantizes the f32 projection, as the JAX package does
-    q, k_new, v_new = qkv_proj(h, blk.qkv_w, blk.qkv_b, n_head,
-                               dtype=torch.float32 if quant else compute_dtype,
-                               qkv_s=getattr(blk, "qkv_w_s", None))
-    q = q.to(compute_dtype)
-    k_new, v_new = k_new.reshape(b, s, -1), v_new.reshape(b, s, -1)
+    qkv_s = getattr(blk, "qkv_w_s", None)
     if quant:
-        for cache, scales, new in ((kv.k, kv.k_s, k_new), (kv.v, kv.v_s, v_new)):
-            # int8 [B,S,HD], f32 [B,S,1]; each scale the max over all ranks' rows
-            codes, sc = quantize_cols(new, axis=-1, reduce_max=tp.max)
-            _cache_write(cache, li, codes, write_pos)
-            _cache_write(scales, li, sc, write_pos)
+        # an int8 cache quantizes the f32 projection [B,S,H,3,Dh], as the JAX
+        # package does; each scale the max over all ranks' rows
         k_s, v_s = kv.k_s[li], kv.v_s[li]
+        q = kv_write(dense(h, blk.qkv_w, blk.qkv_b, s=qkv_s), kv.k[li], kv.v[li], k_s, v_s,
+                     write_pos, n_head, compute_dtype, tp)
     else:
-        _cache_write(kv.k, li, k_new.to(kv.k.dtype), write_pos)
-        _cache_write(kv.v, li, v_new.to(kv.v.dtype), write_pos)
+        q, k_new, v_new = qkv_proj(h, blk.qkv_w, blk.qkv_b, n_head, dtype=compute_dtype,
+                                   qkv_s=qkv_s)
+        write_cols(kv.k[li], k_new.reshape(b, s, -1).to(kv.k.dtype), write_pos)
+        write_cols(kv.v[li], v_new.reshape(b, s, -1).to(kv.v.dtype), write_pos)
         k_s = v_s = None
     att = _self_attention(q, kv.k[li], kv.v[li], k_s, v_s, write_pos, attn_start, valid_len,
                           n_head, compute_dtype)
