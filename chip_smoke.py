@@ -132,7 +132,18 @@ result line:
                 launches a layer and step, moe.experts_read equal to
                 moe.experts_touched, and the same tokens, probabilities and
                 routing record
-  6. report    one JSON line of every kernel's numbers (with the serving
+  5d. longcat   LongCat-Flash-Omni's window (runtime/longcat.py's
+                LongcatContext) as the longcat cell runs it: the published
+                widths and vocabulary, 8 held of 512 routed experts, cut to
+                2 of 28 double layers and 2 of 32 encoder layers; B=64, 448
+                prompt columns, 112 steps. As 5c: the ledger set to 0
+                before a replayed and an eager window, each showing
+                mla_decode 2 x 2 layers x 112 (x 2 where the keys are
+                split) and the expert pair 2 launches a layer and step,
+                held experts read equal to those chosen, and the same
+                result. These windows are the launches_by_path of
+                mla_decode and of the pair's 64-lane instance
+  6. report   one JSON line of every kernel's numbers (with the serving
                 path's in ``serving_path``), then
                 the result line
                 {"ok": true, "device": {...}}
@@ -759,6 +770,121 @@ def moe_case(b: int, kept: int, path: str = "") -> dict:
         geometry=dict(gate_up_blocks=(MOE_SHARED + 4 * MOE_W) // 16,
                       gate_up_blocks_run=(MOE_SHARED + kept * MOE_W) // 16,
                       down_blocks=MOE_D // OUT_TILE * DOWN_SPLITS, down_splits=DOWN_SPLITS),
+    )
+
+
+LC_D, LC_W = 6144, 2048   # LongCat-Flash: d, a routed expert
+
+
+def moe_longcat_case(b: int, per_expert: tuple, path: str = "") -> dict:
+    """The expert pair at LongCat-Flash's share: ``b`` lanes, 8 held experts
+    of 6144 x 2048 and no shared one, expert e kept by ``per_expert[e]``
+    lanes: against its plain version, of the down products' magnitude sum."""
+    import torch
+
+    from whisper_tpu_torch.kernels.moe import moe_experts, moe_experts_ref, swiglu
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    routed = []
+    for _ in range(8):
+        gate_up = (torch.randn((2 * LC_W, LC_D), generator=g, device="cuda") * LC_D ** -0.5).bfloat16()
+        down = (torch.randn((LC_D, LC_W), generator=g, device="cuda") * LC_W ** -0.5).bfloat16()
+        routed.append((gate_up.T, down.T))
+    h = torch.randn((b, LC_D), generator=g, device="cuda").bfloat16()
+    gates = torch.zeros((b, 8), device="cuda")
+    rng = np.random.default_rng(b)
+    for e, n in enumerate(per_expert):
+        lanes = torch.from_numpy(rng.choice(b, size=n, replace=False)).cuda()
+        gates[lanes, e] = torch.rand((n,), generator=g, device="cuda") * 0.5 + 0.05
+
+    def kernel(_):
+        return moe_experts(h, gates, None, routed)
+
+    def plain(_):
+        return moe_experts_ref(h, gates, None, routed)
+
+    def chain(_):
+        out = torch.zeros((b, LC_D), device="cuda")
+        for e, (gate_up, down) in enumerate(routed):
+            out = out + gates[:, e:e + 1] * swiglu(h, gate_up, down)
+        return out
+
+    got, want = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    check(got.shape == (b, LC_D) and bool(torch.isfinite(got).all()), f"moe_experts longcat B={b}: shape or finite")
+    mag = torch.zeros_like(want)
+    for e, (gate_up, down) in enumerate(routed):
+        gv, uv = (h.float() @ gate_up.float()).chunk(2, dim=-1)
+        mag += gates[:, e:e + 1].abs() * ((torch.nn.functional.silu(gv) * uv).bfloat16().float().abs() @ down.float().abs())
+    rel = ((got - want).abs() / (mag + 1e-30)).max().item()
+    kept = sum(1 for n in per_expert if n)
+    streamed = 3 * LC_D * LC_W * kept * 2
+    bytes_ = streamed + 2 * b * LC_D + 4 * b * LC_D + 4 * b * 8
+    bound_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    bound_flops = 2 * sum(per_expert) * 3 * LC_D * LC_W / BF16_FLOPS * 1e3   # each (lane, expert): its own products
+    return dict(
+        case=f"B={b} d={LC_D} held {kept} of 8 kept (lanes {list(per_expert)}) x w={LC_W}, no shared", path=path,
+        max_abs_err=rel, tol=1e-4,
+        tol_reason="relative to the down products' magnitude sum, as at the omni shape",
+        ms=event_ms(kernel, 1, 20),
+        device_ms=device_ms(kernel, 1, 10, "moe_", 2),
+        gate_up_device_ms=device_ms(kernel, 1, 10, "moe_gate_up_kernel", 1),
+        down_device_ms=device_ms(kernel, 1, 10, "moe_down_kernel", 1),
+        plain_ms=event_ms(plain, 1, 5),
+        library_ms=event_ms(chain, 1, 10),
+        library_device_ms=library_device_ms(chain, 1, 5),
+        bound_ms=max(bound_bytes, bound_flops),
+        bound_by="bytes" if bound_bytes >= bound_flops else "operations",
+    )
+
+
+def mla_case(b: int, cols: int, keys: int, path: str = "") -> dict:
+    """The step's latent attention (kernels/mla.py) at LongCat-Flash's
+    widths: ``b`` lanes of 64 heads over the last ``keys`` of ``cols``
+    cache columns of 576, on rotating caches; against its plain version,
+    of the magnitude sum sum_t p_t |c_t|, and beside the plain version's
+    PyTorch calls (two einsums, a mask and a softmax)."""
+    import torch
+
+    from whisper_tpu_torch.kernels.mla import mla_decode, mla_decode_ref, mla_splits
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    n = _n_sets(b * cols * 576 * 2)
+    caches = [(torch.randn((b, cols, 576), generator=g, device="cuda") * 2).bfloat16() for _ in range(n)]
+    q = torch.randn((b, 64, 576), generator=g, device="cuda").bfloat16()
+    start = torch.full((b,), cols - keys, dtype=torch.int32, device="cuda")
+    valid = torch.full((b,), cols, dtype=torch.int32, device="cuda")
+    scale = 192 ** -0.5
+
+    def kernel(i):
+        return mla_decode(q, caches[i], start, valid, scale, 512)
+
+    def plain(i):
+        return mla_decode_ref(q, caches[i], start, valid, scale, 512)
+
+    got, want = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    check(got.shape == (b, 64, 512) and bool(torch.isfinite(got).all()), f"mla_decode B={b}: shape or finite")
+    c = caches[0][:, cols - keys:].float()
+    p = torch.softmax(torch.einsum("bhd,bcd->bhc", q.float(), c) * scale, -1)
+    mag = torch.einsum("bhc,bcd->bhd", p, c[..., :512].abs())
+    rel = ((got - want).abs() / (mag + 1e-30)).max().item()
+    bytes_ = b * keys * 1152 + b * 64 * 576 * 2 + b * 64 * 512 * 4
+    flops = 2 * 64 * (576 + 512) * b * keys
+    bound_bytes, bound_flops = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    splits = mla_splits(b, cols, torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(
+        case=f"B={b} H=64 keys {keys} of {cols} columns of 576, {splits} key range(s) a lane", path=path,
+        max_abs_err=rel, tol=2 ** -8,
+        tol_reason="relative to sum_t p_t |c_t|: P rounded to bf16 for P V (at most 2^-8 of each term), sums reordered",
+        ms=event_ms(kernel, n, 50),
+        device_ms=device_ms(kernel, n, 20, "mla_", 1 if splits == 1 else 2),
+        plain_ms=event_ms(plain, n, 10),
+        library_ms=event_ms(plain, n, 10),
+        library_device_ms=library_device_ms(plain, n, 5),
+        bound_ms=max(bound_bytes, bound_flops),
+        bound_by="bytes" if bound_bytes >= bound_flops else "operations",
+        geometry=dict(blocks=2 * b * splits, splits=splits),
     )
 
 
@@ -2641,6 +2767,105 @@ def omni_phase() -> dict:
     return dict(layers=OMNI_LAYERS, lanes=OMNI_LANES, steps=OMNI_STEPS, runs=runs)
 
 
+LONGCAT_CONFIG = "benchmark/configs/longcat-flash-omni.ep64-bf16.json"   # the published config.json's keys
+LONGCAT_LAYERS = 2               # double layers (of 28) and encoder layers (of 32) kept
+LONGCAT_LANES, LONGCAT_COLS, LONGCAT_STEPS = 64, 448, 112   # lanes, prompt columns and steps of the longcat cell
+
+
+def longcat_phase() -> dict:
+    """[longcat]: LongCat-Flash-Omni's window through ``LongcatContext`` at
+    the published widths, cut in depth only (``LONGCAT_LAYERS``), 64 lanes
+    of 448-column prompts, on seeded random weights drawn on the card as
+    the benchmark draws them (its router bias as drawn, before the
+    benchmark's set-up balances it). A first window captures the token step; then
+    the launch ledger is cleared right before a replayed window and before
+    the same window on the eager step: each must launch ``mla_decode`` 2L
+    times a step (twice that where a lane's keys are split) and the expert
+    pair 2 times a layer and step, read exactly the held experts some lane
+    chose, and give the same result."""
+    import torch
+
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.mla import mla_splits
+    from whisper_tpu_torch.model.longcat_params import LongcatDims, params_from_tensors, tensor_names
+    from whisper_tpu_torch.obs.profiler import TRACER
+    from whisper_tpu_torch.runtime.longcat import LongcatContext
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), LONGCAT_CONFIG)) as f:
+        cfg = json.load(f)
+    cfg.update(num_layers=LONGCAT_LAYERS)
+    cfg["audio_config"] = dict(cfg["audio_config"], whisper_encoder_layers=LONGCAT_LAYERS)
+    dims = LongcatDims.from_config(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    raw = {}
+    for name, shape in tensor_names(dims).items():
+        x = torch.randn(shape, generator=g, device="cuda")
+        if name.endswith("e_score_correction_bias"):
+            raw[name] = x * (0.1 / dims.n_experts)
+        elif name.endswith("bias"):
+            raw[name] = x * 0.02
+        elif "norm" in name:
+            raw[name] = 1 + 0.05 * x
+        elif name.endswith("router.classifier.weight"):
+            raw[name] = x * dims.d ** -0.5
+        elif name.endswith(("q_b_proj.weight", "kv_b_proj.weight")):
+            raw[name] = (x * dims.d ** -0.5).bfloat16()
+        elif name.endswith(("embed_tokens.weight", "embed_positions.weight")):
+            raw[name] = (x * 0.02).bfloat16()
+        else:
+            raw[name] = (x * int(np.prod(shape[1:])) ** -0.5).bfloat16()
+        del x
+    params = params_from_tensors(dims, raw)
+    log(f"  {LONGCAT_LAYERS} of 28 double layers at d {dims.d}, {dims.n_head} latent heads, held experts "
+        f"{dims.n_held} of {dims.n_published} x {dims.expert_width}, vocab {dims.n_vocab}: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+
+    rng = np.random.default_rng(SEED + 25)
+    text = min(cfg["text_ids"], dims.audio_token_id)
+    prompt = np.zeros((LONGCAT_LANES, LONGCAT_COLS), np.int32)
+    plen = np.zeros(LONGCAT_LANES, np.int32)
+    for b in range(LONGCAT_LANES):    # 24 head ids, 0-112 carried, the audio positions, 12 tail ids
+        seq = (rng.integers(0, text, 24 + (7 * b) % 113).tolist() + [dims.audio_token_id] * dims.audio_tokens
+               + rng.integers(0, text, 12).tolist())
+        prompt[b, :len(seq)], plen[b] = seq, len(seq)
+    mel = torch.from_numpy(rng.normal(size=(LONGCAT_LANES, dims.audio.n_mels, 3000)).astype(np.float32))
+    kw = dict(prompt_capacity=LONGCAT_COLS, max_new_tokens=LONGCAT_STEPS)
+    ctx = LongcatContext(params, dims, **kw)
+    audio = ctx.encode_window(mel)
+    ctx.run_window(prompt, plen, audio, LONGCAT_STEPS)          # captures the step
+    splits = mla_splits(LONGCAT_LANES, ctx.cache_len, torch.cuda.get_device_properties(0).multi_processor_count)
+    want = dict(mla=2 * LONGCAT_LAYERS * LONGCAT_STEPS * (1 if splits == 1 else 2),
+                moe=2 * LONGCAT_LAYERS * LONGCAT_STEPS)
+    runs, results = {}, {}
+    for label, c in (("replayed", ctx), ("eager", LongcatContext(params, dims, cuda_graphs=False, **kw))):
+        before = dict(TRACER.counters)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        results[label] = c.run_window(prompt, plen, audio, LONGCAT_STEPS)
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[label] = dict(mla_launches=LAUNCHES["mla_decode"], moe_launches=LAUNCHES["moe_experts"], window_ms=ms,
+                           **{k.split(".")[1]: TRACER.counters[k] - before.get(k, 0)
+                              for k in ("moe.experts_read", "moe.experts_touched", "moe.step_layers",
+                                        "moe.tokens", "moe.held_slots")})
+        r = runs[label]
+        log(f"  {label} window, B={LONGCAT_LANES}, {LONGCAT_STEPS} steps: mla_decode launches {r['mla_launches']} "
+            f"(2 x {LONGCAT_LAYERS} layers x {LONGCAT_STEPS} steps x {1 if splits == 1 else 2} = {want['mla']}), "
+            f"moe_experts launches {r['moe_launches']} ({want['moe']}), held experts read {r['experts_read']} / "
+            f"chosen {r['experts_touched']} over {r['step_layers']} step-layers "
+            f"({r['experts_read'] / r['step_layers']:.3f} a layer), held choices {r['held_slots']} over "
+            f"{r['tokens']} token-layers, {ms:.1f} ms")
+        check(r["mla_launches"] == want["mla"] and r["moe_launches"] == want["moe"]
+              and r["step_layers"] == LONGCAT_LAYERS * LONGCAT_STEPS
+              and r["experts_read"] == r["experts_touched"] > 0, f"longcat {label} window: {r}")
+    for k in ("tokens", "p", "routes", "attn_start", "touched"):
+        check(np.array_equal(getattr(results["replayed"], k), getattr(results["eager"], k)),
+              f"longcat window: the replayed step's {k} differ from the eager step's")
+    del ctx, params, audio
+    torch.cuda.empty_cache()
+    return dict(layers=LONGCAT_LAYERS, lanes=LONGCAT_LANES, steps=LONGCAT_STEPS, key_ranges=splits, runs=runs)
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -2722,6 +2947,18 @@ def main() -> int:
         log("    error against f64 with unrounded activations, of the magnitude sum: " + ", ".join(
             f"{side} mean {e['mean']:.3e} max {e['max']:.3e}" for side, e in c["err_f64"].items()))
 
+    # LongCat-Flash's token step at 64 lanes: the expert pair over the 8 held experts (~1 lane an
+    # expert, ~5 of 8 kept) and the latent attention at 500 of 560 columns; and single lanes
+    moe_cases += [moe_longcat_case(64, (1, 0, 2, 1, 0, 1, 1, 1), "longcat step B=64"),
+                  moe_longcat_case(64, (64,) * 8, "longcat B=64, every lane every expert")]
+    mla_before = LAUNCHES["mla_decode"]
+    mla_cases = [mla_case(64, 560, 500, "longcat step B=64"), mla_case(64, 560, 560, "longcat step B=64, full"),
+                 mla_case(1, 560, 500, "single lane")]
+    mla_launches = LAUNCHES["mla_decode"] - mla_before
+    for c in moe_cases[3:]:
+        show_case("moe_experts", c)
+    for c in mla_cases:
+        show_case("mla_decode", c)
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log("[kbench] python -m whisper_tpu_torch.tools.kbench at large-v2, every variant")
@@ -2746,6 +2983,11 @@ def main() -> int:
         "replayed and eager steps")
     omni = omni_phase()
     phase_s["omni"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log(f"[longcat] LongCat-Flash-Omni's window at the published widths, {LONGCAT_LAYERS} of 28 double layers, "
+        f"{LONGCAT_LANES} lanes: replayed and eager steps")
+    longcat = longcat_phase()
+    phase_s["longcat"] = time.perf_counter() - t0
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     # the serving path: beam windows (natural end) per tier and U, and the
@@ -2817,23 +3059,36 @@ def main() -> int:
              step_at_b8=step, cases=w8_cases),
         dict(name="moe_experts", route="cuda", source="whisper_tpu_torch/csrc/moe_lanes.cu",
              replaces="none: the JAX package has no omni path (the cuBLAS chain of model/omni.py's step)",
-             launches_by_path={f"omni run_window B={omni['lanes']}, {omni['steps']} steps, {label} "
-                               f"({omni['layers']} of 28 layers)": r["launches"]
-                               for label, r in omni["runs"].items()},
+             launches_by_path={**{f"omni run_window B={omni['lanes']}, {omni['steps']} steps, {label} "
+                                  f"({omni['layers']} of 28 layers)": r["launches"]
+                                  for label, r in omni["runs"].items()},
+                               **{f"longcat run_window B={longcat['lanes']}, {longcat['steps']} steps, {label} "
+                                  f"({longcat['layers']} of 28 double layers)": r["moe_launches"]
+                                  for label, r in longcat["runs"].items()}},
              launches_cases=moe_launches,
              max_abs_err=max(c["max_abs_err"] for c in moe_cases), shape=moe_cases[0]["case"],
              **{p: moe_cases[0][p] for p in ("ms", "device_ms", "plain_ms", "library_ms",
                                               "library_device_ms", "bound_ms", "bound_by")},
              cases=moe_cases),
+        dict(name="mla_decode", route="cuda", source="whisper_tpu_torch/csrc/mla_decode.cu",
+             replaces="none: the JAX package has no latent attention (the LongCat step's absorbed MLA)",
+             launches_by_path={f"longcat run_window B={longcat['lanes']}, {longcat['steps']} steps, {label} "
+                               f"({longcat['layers']} of 28 double layers)": r["mla_launches"]
+                               for label, r in longcat["runs"].items()},
+             launches_cases=mla_launches,
+             max_abs_err=max(c["max_abs_err"] for c in mla_cases), shape=mla_cases[0]["case"],
+             **{p: mla_cases[0][p] for p in ("ms", "device_ms", "plain_ms", "library_ms",
+                                              "library_device_ms", "bound_ms", "bound_by")},
+             cases=mla_cases),
         *kb_entries,
     ]
-    for k in kernels[3:5]:
+    for k in kernels[3:6]:
         k["launches"] = sum(k["launches_by_path"].values())
     kernels[1]["library_backend"] = k1_f32_cases[0]["library_backend"]
-    for k in kernels[:5]:
+    for k in kernels[:6]:
         check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels, "serving_path": serving_path, "main_path": main,
-                      "parallel": par, "omni": omni, "kbench": kb_records, "card": smi,
+                      "parallel": par, "omni": omni, "longcat": longcat, "kbench": kb_records, "card": smi,
                       "phase_s": phase_s}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

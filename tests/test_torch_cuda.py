@@ -1971,7 +1971,7 @@ def test_moe_experts_calls_on_two_streams_at_once_share_no_scratch(moe_weights):
 
 @pytest.mark.cuda
 def test_moe_experts_refuses_what_the_kernel_cannot_take(moe_weights):
-    """f32 on the card, a width off the kernel's step of 64, more than 8
+    """f32 on the card, a width off the kernel's step of 64, more than 64
     lanes, gates whose rows are not contiguous."""
     from whisper_tpu_torch.kernels.moe import moe_experts
 
@@ -1985,7 +1985,7 @@ def test_moe_experts_refuses_what_the_kernel_cannot_take(moe_weights):
     with pytest.raises(ValueError, match="multiples of 64"):
         moe_experts(h, gates, odd, routed)
     with pytest.raises(ValueError, match="lanes"):
-        moe_experts(torch.zeros((9, MOE_D), dtype=torch.bfloat16, device="cuda"), torch.zeros((9, 4), device="cuda"),
+        moe_experts(torch.zeros((65, MOE_D), dtype=torch.bfloat16, device="cuda"), torch.zeros((65, 4), device="cuda"),
                     shared, routed)
     with pytest.raises(ValueError, match="contiguous"):
         moe_experts(h, torch.zeros((4, 2), device="cuda").T, shared, routed)
@@ -2013,3 +2013,225 @@ def test_omni_window_reads_only_the_experts_kept():
         assert delta["moe.experts_read"] == delta["moe.experts_touched"] == int(res.touched.sum())
         assert delta["moe.step_layers"] == 10 * dims.n_layer
         assert LAUNCHES["moe_experts"] - launches == 2 * dims.n_layer * 10
+
+
+# LongCat-Flash-Omni's token step: the expert layer at 64 lanes without a shared expert, the latent
+# attention kernel (kernels/mla.py, csrc/mla_decode.cu), and the window replayed as a graph
+
+LC_D, LC_W = 6144, 2048          # LongCat-Flash's hidden size and routed expert width
+
+
+@pytest.fixture(scope="module")
+def longcat_experts():
+    """8 held experts at the published widths, as longcat_params lays them out."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(25)
+
+    def pair(w):
+        gate_up = (torch.randn((2 * w, LC_D), generator=g, device="cuda") * LC_D ** -0.5).bfloat16()
+        down = (torch.randn((LC_D, w), generator=g, device="cuda") * w ** -0.5).bfloat16()
+        return gate_up.T, down.T
+
+    return [pair(LC_W) for _ in range(8)]
+
+
+def _lc_gates(b, seed, per_expert):
+    """f32 gates [b, 8]: expert e kept by ``per_expert[e]`` lanes drawn from
+    the seed (0: by none), each weight in (0.05, 0.6) as 6 x a router score."""
+    rng = np.random.default_rng(seed)
+    gates = np.zeros((b, 8), np.float32)
+    for e, n in enumerate(per_expert):
+        lanes = rng.choice(b, size=min(n, b), replace=False)
+        gates[lanes, e] = rng.uniform(0.05, 0.6, len(lanes))
+    return torch.from_numpy(gates).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,per_expert", [(64, (1, 0, 2, 1, 0, 1, 3, 1)), (64, (64,) * 8), (9, (1,) * 8),
+                                          (33, (0, 5, 0, 0, 0, 0, 0, 1))],
+                         ids=["b64-step", "b64-all", "b9", "b33-two"])
+def test_moe_experts_kernel_at_64_lanes_without_a_shared_expert_matches_plain(longcat_experts, b, per_expert):
+    """LongCat-Flash's expert share at the step's shape (64 lanes, 8 held
+    experts of 6144 x 2048, no shared expert; ~1 lane an expert), every lane
+    keeping every expert, and lane counts off the 8-lane tiles: within 1e-4
+    of the down products' magnitude sum of the plain version, as at the
+    omni shape; the experts read counted on the device."""
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.moe import moe_experts, moe_experts_ref
+    from whisper_tpu_torch.kernels.w8a16 import dense
+
+    routed = longcat_experts
+    h = torch.randn((b, LC_D), generator=torch.Generator(device="cuda").manual_seed(b), device="cuda").bfloat16()
+    gates = _lc_gates(b, 7 * b, per_expert)
+    read = torch.zeros(1, dtype=torch.int32, device="cuda")
+    before = LAUNCHES["moe_experts"]
+    got = moe_experts(h, gates, None, routed, read)
+    assert LAUNCHES["moe_experts"] == before + 2
+    assert int(read) == sum(1 for n in per_expert if n)
+    want = moe_experts_ref(h, gates, None, routed)
+    mag = torch.zeros_like(want)
+    for e, (gate_up, down) in enumerate(routed):
+        gv, uv = dense(h, gate_up).chunk(2, dim=-1)
+        mag += gates[:, e:e + 1].abs() * ((torch.nn.functional.silu(gv) * uv).bfloat16().float().abs() @ down.float().abs())
+    assert bool(torch.isfinite(got).all())
+    excess = ((got - want).abs() - 1e-4 * mag).max().item()
+    assert excess <= 0, excess
+    assert (got[gates.sum(1) == 0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_moe_experts_lane_results_do_not_depend_on_the_other_lanes(longcat_experts):
+    """In the 64-lane instance, 9 lanes alone and the same 9 among 40, whose
+    other lanes keep experts of their own, give the same bits for the 9: a
+    lane's sums run in one order whatever the other lanes keep."""
+    from whisper_tpu_torch.kernels.moe import moe_experts
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    h = torch.randn((40, LC_D), generator=g, device="cuda").bfloat16()
+    gates = _lc_gates(40, 11, (3, 0, 5, 1, 8, 0, 2, 1))
+    alone = moe_experts(h[:9], gates[:9].contiguous(), None, longcat_experts)
+    among = moe_experts(h, gates, None, longcat_experts)
+    assert torch.equal(among[:9], alone)
+
+
+def _mla_inputs(b, cols, seed, starts=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, 64, 576), generator=g, device="cuda").bfloat16()
+    cache = (torch.randn((b, cols + 3, 576), generator=g, device="cuda") * 2).bfloat16()[:, :cols]
+    rng = np.random.default_rng(seed)
+    start = torch.tensor(rng.integers(0, max(1, cols // 4), b) if starts is None else starts, dtype=torch.int32,
+                         device="cuda")
+    valid = torch.tensor([int(rng.integers(int(s) + 1, cols + 1)) for s in start.tolist()], dtype=torch.int32,
+                         device="cuda")
+    return q, cache, start, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,cols", [(64, 560), (1, 560), (8, 560), (3, 33), (64, 1)])
+def test_mla_decode_kernel_matches_plain(b, cols):
+    """64 lanes x 560 columns (the LongCat step), one lane (keys split over
+    ranges and combined), 8 lanes, a cache of 33 columns and of one: within
+    2^-8 of the magnitude sum sum_t p_t |c_t| of the plain version. The
+    kernel rounds P to bf16 for P V (at most 2^-8, bf16's unit roundoff, of each term) and sums
+    in other orders (~1e-6)."""
+    _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.mla import mla_decode, mla_decode_ref, mla_splits
+
+    q, cache, start, valid = _mla_inputs(b, cols, b + cols)
+    if cols == 1:
+        start.zero_()
+        valid.fill_(1)
+    before = LAUNCHES["mla_decode"]
+    got = mla_decode(q, cache, start, valid, 192 ** -0.5, 512)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert LAUNCHES["mla_decode"] == before + (1 if mla_splits(b, cols, sms) == 1 else 2)
+    want = mla_decode_ref(q, cache, start, valid, 192 ** -0.5, 512)
+    col = torch.arange(cols, device="cuda")
+    live = (col[None] >= start[:, None]) & (col[None] < valid[:, None])
+    p = torch.softmax((torch.einsum("bhd,bcd->bhc", q.float(), cache.float()) * 192 ** -0.5)
+                      .masked_fill(~live[:, None], float("-inf")), -1)
+    mag = torch.einsum("bhc,bcd->bhd", p, cache[..., :512].float().abs())
+    assert bool(torch.isfinite(got).all())
+    excess = ((got - want).abs() - 2 ** -8 * mag - 1e-6).max().item()
+    assert excess <= 0, excess
+
+
+@pytest.mark.cuda
+def test_mla_decode_reads_only_each_lanes_columns():
+    """NaN outside every lane's [start, valid) changes nothing, split or not."""
+    _need_card()
+    from whisper_tpu_torch.kernels.mla import mla_decode
+
+    for b in (64, 2):
+        q, cache, start, valid = _mla_inputs(b, 200, 5 + b)
+        want = mla_decode(q, cache, start, valid, 192 ** -0.5, 512)
+        poisoned = cache.clone()
+        for i in range(b):
+            poisoned[i, : int(start[i])] = float("nan")
+            poisoned[i, int(valid[i]):] = float("nan")
+        assert torch.equal(mla_decode(q, poisoned, start, valid, 192 ** -0.5, 512), want)
+
+
+LONGCAT_CARD = {
+    "hidden_size": 6144, "num_layers": 2, "num_attention_heads": 64, "q_lora_rank": 1536, "kv_lora_rank": 512,
+    "qk_rope_head_dim": 64, "qk_nope_head_dim": 128, "v_head_dim": 128, "ffn_hidden_size": 12288,
+    "expert_ffn_hidden_size": 2048, "n_routed_experts": 8, "zero_expert_num": 256, "moe_topk": 12,
+    "routed_scaling_factor": 6, "rms_norm_eps": 1e-5, "rope_theta": 10000000, "vocab_size": 1000,
+    "expert_share": {"published": 32, "cards": 4, "rank": 0, "held": [0, 8]},
+    "audio_config": {"whisper_hidden_size": 1280, "whisper_encoder_layers": 1, "whisper_encoder_attention_heads": 20,
+                     "whisper_encoder_ffn_dim": 5120, "whisper_num_mel_bins": 128, "whisper_max_source_positions": 100,
+                     "whisper_audio_time": 20, "whisper_query_tokens_size": 200},
+    "audio_token_id": 999,
+}
+
+
+def _longcat_card_model(seed=3):
+    """The published widths cut to 2 double layers, 32 published routed
+    experts (so a lane keeps a held one often) and a 1000-id vocabulary."""
+    from whisper_tpu_torch.model.longcat_params import LongcatDims, params_from_tensors, tensor_names
+
+    dims = LongcatDims.from_config(LONGCAT_CARD)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    raw = {}
+    for name, shape in tensor_names(dims).items():
+        x = torch.randn(shape, generator=g, device="cuda")
+        if name.endswith("e_score_correction_bias"):
+            raw[name] = x * 0.1 / dims.n_experts
+        elif name.endswith("bias"):
+            raw[name] = x * 0.02
+        elif "norm" in name:
+            raw[name] = 1 + 0.05 * x
+        else:
+            raw[name] = (x * int(np.prod(shape[1:])) ** -0.5).bfloat16()
+    return dims, params_from_tensors(dims, raw)
+
+
+def _longcat_window(ctx, dims, seed, lanes=20, width=64, steps=9):
+    """A window of ``lanes`` prompts of different lengths (3 + b ids, the 20
+    audio placeholders, 4 ids), right-padded to ``width``."""
+    rng = np.random.default_rng(seed)
+    prompt = np.zeros((lanes, width), np.int32)
+    plen = np.zeros(lanes, np.int32)
+    for b in range(lanes):
+        seq = rng.integers(0, 999, 3 + b).tolist() + [999] * dims.audio_tokens + rng.integers(0, 999, 4).tolist()
+        prompt[b, : len(seq)] = seq
+        plen[b] = len(seq)
+    mel = torch.from_numpy(rng.normal(size=(lanes, 128, 200)).astype(np.float32))
+    return ctx.run_window(prompt, plen, ctx.encode_window(mel), force_steps=steps)
+
+
+@pytest.mark.cuda
+def test_longcat_window_replayed_as_a_graph_matches_eager():
+    """The LongCat token step captured and replayed (two windows over one
+    graph, 20 lanes) gives the eager step's tokens, probabilities and
+    int16 routing record bit for bit; a step launches the MLA kernel 4
+    times (2 sublayers x 2 layers) and the expert pair twice a layer; the
+    held experts read are those some lane chose."""
+    _need_card()
+    from whisper_tpu_torch.kernels._build import LAUNCHES
+    from whisper_tpu_torch.kernels.mla import mla_splits
+    from whisper_tpu_torch.obs.profiler import TRACER
+    from whisper_tpu_torch.runtime.longcat import LongcatContext
+
+    dims, params = _longcat_card_model()
+    out = {}
+    for graphs in (True, False):
+        ctx = LongcatContext(params, dims, cuda_graphs=graphs, prompt_capacity=64, max_new_tokens=12)
+        out[graphs] = []
+        for seed in (1, 2):
+            before, mla, moe = dict(TRACER.counters), LAUNCHES["mla_decode"], LAUNCHES["moe_experts"]
+            out[graphs].append(_longcat_window(ctx, dims, seed))
+            per_call = 1 if mla_splits(20, ctx.cache_len, torch.cuda.get_device_properties(0).multi_processor_count) == 1 else 2
+            assert LAUNCHES["mla_decode"] - mla == 9 * 4 * per_call
+            assert LAUNCHES["moe_experts"] - moe == 9 * 2 * 2
+            delta = {k: TRACER.counters.get(k, 0) - before.get(k, 0)
+                     for k in ("moe.experts_read", "moe.experts_touched", "moe.step_layers")}
+            assert delta["moe.experts_read"] == delta["moe.experts_touched"] == int(out[graphs][-1].touched.sum()) > 0
+        if graphs:
+            assert len(ctx.graphs.slots) == 1 and ctx.graphs.replays() == 18
+    for g, e in zip(out[True], out[False]):
+        assert g.routes.dtype == np.int16
+        for k in ("tokens", "p", "routes", "attn_start", "touched"):
+            assert np.array_equal(getattr(g, k), getattr(e, k)), k
+    assert not np.array_equal(out[True][0].tokens, out[True][1].tokens)

@@ -359,17 +359,17 @@ def _refused(case):
     elif case == "layout":
         routed[1] = (routed[1][0].contiguous(), routed[1][1])
     elif case == "lanes":
-        h, gates = torch.randn(9, d, generator=g), torch.rand(9, 4, generator=g)
+        h, gates = torch.randn(65, d, generator=g), torch.rand(65, 4, generator=g)
     return h, gates, shared, routed
 
 
 @pytest.mark.parametrize("case,match", [("dtype", "is torch.float32, h torch.bfloat16"),
                                         ("gates dtype", "gates must be f32"),
                                         ("layout", "not the transpose of a contiguous"),
-                                        ("lanes", "1 to 8 lanes")])
+                                        ("lanes", "1 to 64 lanes")])
 def test_expert_layer_wrapper_refuses_what_it_does_not_take(case, match):
     """A weight of another dtype than h, gates not f32, a gate_up that is not
-    the transposed view of a contiguous [2w, d], more than 8 lanes: refused
+    the transposed view of a contiguous [2w, d], more than 64 lanes: refused
     on the CPU as on the card (the inputs are otherwise well formed)."""
     from whisper_tpu_torch.kernels.moe import moe_experts
 

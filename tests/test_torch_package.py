@@ -27,10 +27,13 @@ SLICE_MODULES = [
     "whisper_tpu_torch.model.decoder",
     "whisper_tpu_torch.model.omni_params",
     "whisper_tpu_torch.model.omni",
+    "whisper_tpu_torch.model.longcat_params",
+    "whisper_tpu_torch.model.longcat",
     "whisper_tpu_torch.kernels.attention",
     "whisper_tpu_torch.kernels.decode_attention",
     "whisper_tpu_torch.kernels.w8a16",
     "whisper_tpu_torch.kernels.moe",
+    "whisper_tpu_torch.kernels.mla",
     "whisper_tpu_torch.kernels.quant",
     "whisper_tpu_torch.kernels.kbench",
     "whisper_tpu_torch.tools.kbench",
@@ -41,6 +44,7 @@ SLICE_MODULES = [
     "whisper_tpu_torch.runtime.graph",
     "whisper_tpu_torch.runtime.batch",
     "whisper_tpu_torch.runtime.omni",
+    "whisper_tpu_torch.runtime.longcat",
     "whisper_tpu_torch.features.mel",
     "whisper_tpu_torch.features.stream",
     "whisper_tpu_torch.api.params",

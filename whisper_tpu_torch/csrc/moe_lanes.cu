@@ -3,12 +3,18 @@
 //   act_e = bf16(silu(h @ G_e) * (h @ U_e))           launch 1, every entry e kept
 //   out   = y_0 + g_1 * y_1 + g_2 * y_2 + ...,  y_e = act_e @ D_e    launch 2
 //
-// for B = 1..8 lanes of bf16 h [B, d]. Entry 0 is the shared SwiGLU (the
-// shared experts side by side, always taken, gate 1); entries 1.. are the
-// routed experts, entry e gated by column e - 1 of gates [B, n_routed] (f32,
-// the kept experts' probabilities and 0 elsewhere, as the router gives them).
-// An entry that no lane kept contributes out + 0 * y_e = out, so it is not
-// read at all. out is f32 [B, d].
+// for B = 1..64 lanes of bf16 h [B, d]. With a shared entry, entry 0 is the
+// shared SwiGLU (the shared experts side by side, always taken, gate 1); the
+// other entries are routed experts, the k-th routed one gated by column k of
+// gates [B, n_routed] (f32, the kept experts' weights and 0 elsewhere, as the
+// router gives them). An entry that no lane kept contributes
+// out + 0 * y_e = out, so it is not read at all. out is f32 [B, d].
+//
+// Two instances: up to 8 lanes (one 8-lane tile: Uni-MoE-2.0-Omni's step,
+// whose arithmetic and speed this instance keeps), and up to 64 lanes (eight
+// tiles: LongCat-Flash-Omni's step at 64 lanes, 8 routed experts, no shared
+// entry). In both, a lane tile in which no lane kept an entry is neither
+// loaded nor multiplied for that entry.
 //
 // Replaces no TPU kernel: the JAX package has no omni path. Before it the
 // step ran every routed expert over every lane through cuBLAS with gate 0
@@ -69,6 +75,16 @@
 //    bytes' bound against 87 % now (chip_smoke.py's moe rows, PERF.md).
 //  - Launch 2's first block adds the routed experts it streamed to a device
 //    counter (one writer, an integer): the runtime's moe.experts_read.
+//  - Up to 64 lanes: the B operand's 8-lane tiles are looped over inside a
+//    stage, each weight fragment loaded once for all of them; a stage holds
+//    32 weight rows and up to 64 lane rows (55 KB), two stages a block and
+//    two blocks an SM, and launch 2 takes 4 blocks a tile. Only the lane
+//    tiles in which some lane kept the entry are copied in, multiplied and
+//    reduced: at LongCat-Flash's 64 lanes a held expert is kept by ~1 lane a
+//    step, so ~1 tile of 8. A block's threads read the B x n gates together
+//    (one thread reading all 512 made the down launch ~4x slower). Measured
+//    (PERF.md, H100 SXM, 700 W): 6 of 8 experts of 6144 x 2048 kept by 7 of
+//    64 lanes, ~49 % of the bytes' bound for the pair.
 //  - Three blocks an SM (69 KB of ring each): up to 9 stages of 20 KB in
 //    flight an SM, several times what 3.35 TB/s needs over a memory round trip.
 //    Measured at the published widths, B = 8, 3 experts kept (H100 SXM, 700 W;
@@ -84,17 +100,25 @@ namespace {
 
 constexpr int kConsumers = 4;                  // consumer warps a block
 constexpr int kThreads = 32 * (kConsumers + 1);  // and a producer warp
-constexpr int kMaxLanes = 8;
+constexpr int kMaxLanes = 64;
 constexpr int kMaxEntries = 8;
 constexpr int kRows = 32;                      // weight rows a stage: two 16-row MMA tiles
 constexpr int kChunk = 256;                    // k a stage
 constexpr int kPitch = 2 * kChunk + 64;        // bytes between rows in shared memory
-constexpr int kStageBytes = (kRows + kMaxLanes) * kPitch;
-constexpr int kStages = 3;
-constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kOutTile = 32;                   // output columns a launch-2 tile
 constexpr int kActTile = 16;                   // activation columns a launch-1 block
-constexpr int kSplits = 7;                     // launch-2 blocks a 32-column tile (kernels/moe.py: DOWN_SPLITS)
+
+// An instance's ring: NT 8-lane tiles of the B operand beside the weight rows.
+template <int NT>
+struct Ring {
+  static constexpr int kStages = NT == 1 ? 3 : 2;
+  static constexpr int kBlocksPerSm = NT == 1 ? 3 : 2;
+  // launch-2 blocks a 32-column tile (kernels/moe.py: DOWN_SPLITS, WIDE_DOWN_SPLITS)
+  static constexpr int kSplits = NT == 1 ? 7 : 4;
+  static constexpr int kStageBytes = (kRows + 8 * NT) * kPitch;
+  static constexpr int kRingBytes = kStages * kStageBytes;
+  static constexpr size_t kSmemBytes = kRingBytes + 2 * kStages * sizeof(uint64_t);
+};
 
 struct Entry {
   const __nv_bfloat16* gate_up;  // contiguous [2w, d]: w gate rows, then w up rows
@@ -105,14 +129,15 @@ struct Entry {
 
 struct Args {
   const __nv_bfloat16* h;  // [B, d]
-  const float* gates;      // [B, *] with row stride gate_stride: routed entry e's column e - 1
+  const float* gates;      // [B, *] with row stride gate_stride: routed entry e's column e - shared
   float* out;              // [B, d]
   int* read;               // one int: += routed entries streamed (launch 2), or null
-  float* partial;          // launch 2: [d / 32][kSplits][256], each block's sums
+  float* partial;          // launch 2: [d / 32][Ring<NT>::kSplits][256 NT], each block's sums
   int* tickets;            // launch 2: [d / 32], zeroed by launch 1
   Entry e[kMaxEntries];
   int tile0[kMaxEntries + 1];  // launch 1: each entry's first tile; tile0[n] = the grid
   int n, B, d, gate_stride;
+  int shared;              // 1: entry 0 is the shared SwiGLU; 0: every entry is routed
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -194,48 +219,80 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(32 * kConsumers) : "memory");
 }
 
-// Whether any of the B lanes kept entry e (the shared entry 0 always).
-__device__ __forceinline__ bool entry_kept(const Args& a, int e) {
-  if (e == 0) return true;
-  bool any = false;
-  for (int m = 0; m < a.B; ++m) any |= __ldg(a.gates + m * a.gate_stride + e - 1) != 0.f;
-  return any;
+// Into tiles[e] (shared, zeroed by the caller) for each entry e < n_e from
+// e0: the 8-lane tiles of the B lanes in which some lane kept entry e, a bit
+// a tile (every tile of the shared entry); the block's threads read one gate
+// each. The caller synchronises after.
+__device__ __forceinline__ void live_tiles(const Args& a, int e0, int n_e, int* tiles) {
+  for (int k = threadIdx.x; k < n_e * a.B; k += blockDim.x) {
+    const int e = e0 + k / a.B, m = k % a.B;
+    if ((a.shared && e == 0) || __ldg(a.gates + m * a.gate_stride + e - a.shared) != 0.f)
+      atomicOr(tiles + e - e0, 1 << (m >> 3));
+  }
 }
 
 __device__ __forceinline__ float gate_of(const Args& a, int e, int m) {
-  return m < a.B ? __ldg(a.gates + m * a.gate_stride + e - 1) : 0.f;
+  return m < a.B ? __ldg(a.gates + m * a.gate_stride + e - a.shared) : 0.f;
 }
 
 // k [k0, k0 + len) of one stage: rows 0..31 from `row(r)`, the B operand's
-// rows 32..32 + B from `lane_row(m)`; issued by the producer warp's lanes,
-// row r by lane r, lane row m by lane m.
-template <class RowFn, class LaneFn>
-__device__ __forceinline__ void load_stage(uint8_t* stage, uint64_t* full, int lane, int B, int len,
+// rows 32 + m from `lane_row(m)` for the lanes m < B of the `tiles` live;
+// issued by the producer warp's lanes, row r by lane r, lane row m by lane
+// m % 32. The 8-lane instance's one tile is live whenever it is called.
+template <int NT, class RowFn, class LaneFn>
+__device__ __forceinline__ void load_stage(uint8_t* stage, uint64_t* full, int lane, int B, int tiles, int len,
                                            uint64_t policy, RowFn row, LaneFn lane_row) {
   const uint32_t bytes = 2u * static_cast<uint32_t>(len);
-  if (lane == 0) mbar_expect_tx(full, bytes * static_cast<uint32_t>(kRows + B));
-  __syncwarp();
-  bulk_copy_hint(stage + lane * kPitch, row(lane), bytes, full, policy);
-  if (lane < B) bulk_copy(stage + (kRows + lane) * kPitch, lane_row(lane), bytes, full);
+  if constexpr (NT == 1) {
+    if (lane == 0) mbar_expect_tx(full, bytes * static_cast<uint32_t>(kRows + B));
+    __syncwarp();
+    bulk_copy_hint(stage + lane * kPitch, row(lane), bytes, full, policy);
+    if (lane < B) bulk_copy(stage + (kRows + lane) * kPitch, lane_row(lane), bytes, full);
+  } else {
+    int lanes = 0;
+    for (int m = 0; m < B; ++m) lanes += tiles >> (m >> 3) & 1;
+    if (lane == 0) mbar_expect_tx(full, bytes * static_cast<uint32_t>(kRows + lanes));
+    __syncwarp();
+    bulk_copy_hint(stage + lane * kPitch, row(lane), bytes, full, policy);
+    for (int m = lane; m < B; m += 32)
+      if (tiles >> (m >> 3) & 1) bulk_copy(stage + (kRows + m) * kPitch, lane_row(m), bytes, full);
+  }
+}
+
+// Whether lane tile nt is live: the 8-lane instance's one tile always is
+// where a block runs, so its code tests nothing.
+template <int NT>
+__device__ __forceinline__ bool live_tile(int tiles, int nt) {
+  return NT == 1 || (tiles >> nt & 1);
 }
 
 // A consumer warp's MMAs of one stage: the 64-k pieces cw, cw + 4, ... of
-// the stage's len, into acc[tile] (tile 0: rows 0..15, tile 1: rows 16..31).
-// Thread (g, t) holds k 8t..8t + 7 of each 32-k block: slots of two MMA steps.
-__device__ __forceinline__ void mma_stage(const uint8_t* stage, float (&acc)[2][4], int cw, int len,
-                                          int g, int t, bool lane_live) {
+// the stage's len, into acc[tile][lane tile] (tile 0: rows 0..15, tile 1:
+// rows 16..31), for the live lane tiles. Thread (g, t) holds k 8t..8t + 7 of
+// each 32-k block: slots of two MMA steps.
+template <int NT>
+__device__ __forceinline__ void mma_stage(const uint8_t* stage, float (&acc)[2][NT][4], int cw, int len,
+                                          int g, int t, int B, int tiles) {
   for (int k = 64 * cw; k < len; k += 64 * kConsumers) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int off = 2 * (k + 32 * i) + 16 * t;
-      uint4 b = make_uint4(0u, 0u, 0u, 0u);
-      if (lane_live) b = lds128(stage + (kRows + g) * kPitch + off);
+      uint4 b[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        b[nt] = make_uint4(0u, 0u, 0u, 0u);
+        if (live_tile<NT>(tiles, nt) && 8 * nt + g < B) b[nt] = lds128(stage + (kRows + 8 * nt + g) * kPitch + off);
+      }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const uint4 lo = lds128(stage + (16 * r + g) * kPitch + off);
         const uint4 hi = lds128(stage + (16 * r + 8 + g) * kPitch + off);
-        mma_bf16(acc[r], lo.x, hi.x, lo.y, hi.y, b.x, b.y);
-        mma_bf16(acc[r], lo.z, hi.z, lo.w, hi.w, b.z, b.w);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (!live_tile<NT>(tiles, nt)) continue;
+          mma_bf16(acc[r][nt], lo.x, hi.x, lo.y, hi.y, b[nt].x, b[nt].y);
+          mma_bf16(acc[r][nt], lo.z, hi.z, lo.w, hi.w, b[nt].z, b[nt].w);
+        }
       }
     }
   }
@@ -246,10 +303,11 @@ __device__ __forceinline__ void mma_stage(const uint8_t* stage, float (&acc)[2][
 __device__ __forceinline__ int frag_row(int ln, int i) { return (ln >> 2) + 8 * (i >> 1); }
 __device__ __forceinline__ int frag_lane(int ln, int i) { return 2 * (ln & 3) + (i & 1); }
 
+template <int NT>
 __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
   if (threadIdx.x == 0) {
 #pragma unroll 1
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < Ring<NT>::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers);  // one arrival a consumer warp
     }
@@ -258,33 +316,42 @@ __device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty) {
 }
 
 // Launch 1. Grid: tile0[n] blocks, entry e's tiles from tile0[e]; a block
-// writes act_e[:, 16 j .. 16 j + 15] of its tile j. Block 0 (the shared
-// entry's, always run) also zeroes launch 2's tickets.
-__global__ void __launch_bounds__(kThreads, 3) moe_gate_up_kernel(const __grid_constant__ Args a) {
+// writes act_e[:, 16 j .. 16 j + 15] of its tile j, for the lanes of the
+// entry's live lane tiles. Block 0 also zeroes launch 2's tickets, before
+// it looks at its entry.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, Ring<NT>::kBlocksPerSm) moe_gate_up_kernel(const __grid_constant__ Args a) {
+  using R = Ring<NT>;
   const int tile = static_cast<int>(blockIdx.x);
   if (tile == 0)
     for (int q = threadIdx.x; q < a.d / kOutTile; q += kThreads) a.tickets[q] = 0;
   int e = 0;
   while (e + 1 < a.n && tile >= a.tile0[e + 1]) ++e;
-  if (!entry_kept(a, e)) return;  // no lane kept the expert: not a byte read
+  __shared__ int tiles_s;
+  if (threadIdx.x == 0) tiles_s = 0;
+  __syncthreads();
+  live_tiles(a, e, 1, &tiles_s);
+  __syncthreads();
+  const int tiles = tiles_s;
+  if (!tiles) return;  // no lane kept the expert: not a byte read
   extern __shared__ __align__(128) uint8_t smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRingBytes);
-  uint64_t* empty = full + kStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::kRingBytes);
+  uint64_t* empty = full + R::kStages;
   const Entry& en = a.e[e];
   const int j0 = (tile - a.tile0[e]) * kActTile;
   const int n_chunks = (a.d + kChunk - 1) / kChunk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  init_ring(full, empty);
+  init_ring<NT>(full, empty);
   __syncthreads();
 
   if (warp == kConsumers) {
-    // producer: the tile's 16 gate rows, its 16 up rows and the lanes' h rows
+    // producer: the tile's 16 gate rows, its 16 up rows and the live lanes' h rows
     const uint64_t policy = evict_first_policy();
     for (int c = 0; c < n_chunks; ++c) {
-      const int s = c % kStages, k0 = c * kChunk;
-      if (c >= kStages) mbar_wait(&empty[s], ((c / kStages) - 1) & 1);
-      load_stage(
-          smem + s * kStageBytes, &full[s], lane, a.B, min(kChunk, a.d - k0), policy,
+      const int s = c % R::kStages, k0 = c * kChunk;
+      if (c >= R::kStages) mbar_wait(&empty[s], ((c / R::kStages) - 1) & 1);
+      load_stage<NT>(
+          smem + s * R::kStageBytes, &full[s], lane, a.B, tiles, min(kChunk, a.d - k0), policy,
           [&](int r) {
             const int row = r < 16 ? j0 + r : en.w + j0 + r - 16;
             return en.gate_up + static_cast<long long>(row) * a.d + k0;
@@ -295,76 +362,89 @@ __global__ void __launch_bounds__(kThreads, 3) moe_gate_up_kernel(const __grid_c
   }
 
   const int g = lane >> 2, t = lane & 3;
-  float acc[2][4] = {};
+  float acc[2][NT][4] = {};
   for (int c = 0; c < n_chunks; ++c) {
-    const int s = c % kStages;
-    mbar_wait(&full[s], (c / kStages) & 1);
-    mma_stage(smem + s * kStageBytes, acc, warp, min(kChunk, a.d - c * kChunk), g, t, g < a.B);
+    const int s = c % R::kStages;
+    mbar_wait(&full[s], (c / R::kStages) & 1);
+    mma_stage<NT>(smem + s * R::kStageBytes, acc, warp, min(kChunk, a.d - c * kChunk), g, t, a.B, tiles);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
   // the warps' sums in a fixed order; g and u of an output share a thread
   consumers_sync();  // every stage read: the ring is free
-  float* red = reinterpret_cast<float*>(smem);  // [warp][tile][128]
+  float* red = reinterpret_cast<float*>(smem);  // [warp][tile][lane tile][128]
 #pragma unroll
   for (int r = 0; r < 2; ++r)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) red[(warp * 2 + r) * 128 + lane * 4 + i] = acc[r][i];
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[((warp * 2 + r) * NT + nt) * 128 + lane * 4 + i] = acc[r][nt][i];
   consumers_sync();
   const int idx = threadIdx.x, ln = idx >> 2, i = idx & 3;
-  const int m = frag_lane(ln, i);
-  if (m >= a.B) return;
-  float gv = red[idx], uv = red[128 + idx];
 #pragma unroll
-  for (int w = 1; w < kConsumers; ++w) {
-    gv += red[(w * 2) * 128 + idx];
-    uv += red[(w * 2 + 1) * 128 + idx];
+  for (int nt = 0; nt < NT; ++nt) {
+    const int m = 8 * nt + frag_lane(ln, i);
+    if (m >= a.B || !(tiles >> nt & 1)) continue;
+    float gv = red[nt * 128 + idx], uv = red[(NT + nt) * 128 + idx];
+#pragma unroll
+    for (int w = 1; w < kConsumers; ++w) {
+      gv += red[((w * 2) * NT + nt) * 128 + idx];
+      uv += red[((w * 2 + 1) * NT + nt) * 128 + idx];
+    }
+    const float y = gv / (1.f + expf(-gv)) * uv;
+    en.act[static_cast<long long>(m) * en.w + j0 + frag_row(ln, i)] = __float2bfloat16_rn(y);
   }
-  const float y = gv / (1.f + expf(-gv)) * uv;
-  en.act[static_cast<long long>(m) * en.w + j0 + frag_row(ln, i)] = __float2bfloat16_rn(y);
 }
 
 // Launch 2. Grid: (d / 32) x kSplits blocks; block (q, r) takes split r of
 // tile q's chunks and writes partial[q][r]; the tile's last block to finish
 // (an integer ticket) adds the splits in order r = 0, 1, ... into
-// out[:, 32 q .. 32 q + 31].
-__global__ void __launch_bounds__(kThreads, 3) moe_down_kernel(const __grid_constant__ Args a) {
+// out[:, 32 q .. 32 q + 31]. Only the lane tiles some entry keeps are
+// reduced and added; the others' outputs are written 0.
+template <int NT>
+__global__ void __launch_bounds__(kThreads, Ring<NT>::kBlocksPerSm) moe_down_kernel(const __grid_constant__ Args a) {
+  using R = Ring<NT>;
   extern __shared__ __align__(128) uint8_t smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRingBytes);
-  uint64_t* empty = full + kStages;
-  __shared__ int kept_s, last_s;
-  constexpr int S = kSplits;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + R::kRingBytes);
+  uint64_t* empty = full + R::kStages;
+  __shared__ int tiles_s[kMaxEntries];
+  __shared__ int last_s, any_s;
+  constexpr int S = R::kSplits;
+  constexpr int kPart = 256 * NT;               // a block's sums: 32 columns x 8 NT lanes
   const int q = static_cast<int>(blockIdx.x) / S, rank = static_cast<int>(blockIdx.x) % S;
   const int n0 = q * kOutTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  init_ring(full, empty);
+  init_ring<NT>(full, empty);
+  if (threadIdx.x < kMaxEntries) tiles_s[threadIdx.x] = 0;
+  __syncthreads();
+  live_tiles(a, 0, a.n, tiles_s);
+  __syncthreads();
   if (threadIdx.x == 0) {
-    int kept = 1, routed = 0;
-    for (int e = 1; e < a.n; ++e)
-      if (entry_kept(a, e)) {
-        kept |= 1 << e;
-        ++routed;
-      }
-    kept_s = kept;
+    int routed = 0, any = 0;
+    for (int e = 0; e < a.n; ++e) {
+      routed += e >= a.shared && tiles_s[e];
+      any |= tiles_s[e];
+    }
+    any_s = any;
     if (a.read && blockIdx.x == 0) *a.read += routed;
   }
   __syncthreads();
-  const int kept = kept_s;
 
   if (warp == kConsumers) {
-    // producer: each kept entry's share of this split, its 32 down rows and the lanes' act rows
+    // producer: each kept entry's share of this split, its 32 down rows and the live lanes' act rows
     const uint64_t policy = evict_first_policy();
     int u = 0;
     for (int e = 0; e < a.n; ++e) {
-      if (!(kept >> e & 1)) continue;
+      const int tiles = tiles_s[e];
+      if (!tiles) continue;
       const Entry& en = a.e[e];
       const int nc = (en.w + kChunk - 1) / kChunk;
       for (int c = rank * nc / S; c < (rank + 1) * nc / S; ++c, ++u) {
-        const int s = u % kStages, k0 = c * kChunk;
-        if (u >= kStages) mbar_wait(&empty[s], ((u / kStages) - 1) & 1);
-        load_stage(
-            smem + s * kStageBytes, &full[s], lane, a.B, min(kChunk, en.w - k0), policy,
+        const int s = u % R::kStages, k0 = c * kChunk;
+        if (u >= R::kStages) mbar_wait(&empty[s], ((u / R::kStages) - 1) & 1);
+        load_stage<NT>(
+            smem + s * R::kStageBytes, &full[s], lane, a.B, tiles, min(kChunk, en.w - k0), policy,
             [&](int r) { return en.down + static_cast<long long>(n0 + r) * en.w + k0; },
             [&](int m) { return en.act + static_cast<long long>(m) * en.w + k0; });
       }
@@ -373,49 +453,62 @@ __global__ void __launch_bounds__(kThreads, 3) moe_down_kernel(const __grid_cons
   }
 
   const int g = lane >> 2, t = lane & 3;
-  float total[2][4] = {};
+  float total[2][NT][4] = {};
   int u = 0;
   for (int e = 0; e < a.n; ++e) {
-    if (!(kept >> e & 1)) continue;
+    const int tiles = tiles_s[e];
+    if (!tiles) continue;
     const int w = a.e[e].w, nc = (w + kChunk - 1) / kChunk;
-    float acc[2][4] = {};
+    float acc[2][NT][4] = {};
     for (int c = rank * nc / S; c < (rank + 1) * nc / S; ++c, ++u) {
-      const int s = u % kStages;
-      mbar_wait(&full[s], (u / kStages) & 1);
-      mma_stage(smem + s * kStageBytes, acc, warp, min(kChunk, w - c * kChunk), g, t, g < a.B);
+      const int s = u % R::kStages;
+      mbar_wait(&full[s], (u / R::kStages) & 1);
+      mma_stage<NT>(smem + s * R::kStageBytes, acc, warp, min(kChunk, w - c * kChunk), g, t, a.B, tiles);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[s]);
     }
-    if (e == 0) {
+    if (a.shared && e == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) total[r][i] = acc[r][i];
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) total[r][nt][i] = acc[r][nt][i];
     } else {
-      const float g0 = gate_of(a, e, 2 * t), g1 = gate_of(a, e, 2 * t + 1);
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+      for (int nt = 0; nt < NT; ++nt) {
+        if (!(tiles >> nt & 1)) continue;
+        const float g0 = gate_of(a, e, 8 * nt + 2 * t), g1 = gate_of(a, e, 8 * nt + 2 * t + 1);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          total[r][i] = __fadd_rn(total[r][i], __fmul_rn(i & 1 ? g1 : g0, acc[r][i]));
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            total[r][nt][i] = __fadd_rn(total[r][nt][i], __fmul_rn(i & 1 ? g1 : g0, acc[r][nt][i]));
+      }
     }
   }
 
   // the warps' totals in shared memory, added in a fixed order into this
   // block's partial; then the tile's last block adds the splits in order
   consumers_sync();  // every stage read: the ring is free
-  float* red = reinterpret_cast<float*>(smem);  // [warp][256]
+  const int any = any_s;
+  float* red = reinterpret_cast<float*>(smem);  // [warp][kPart]: [lane tile][tile][128]
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int nt = 0; nt < NT; ++nt) {
+    if (!live_tile<NT>(any, nt)) continue;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) red[warp * 256 + r * 128 + lane * 4 + i] = total[r][i];
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[warp * kPart + (nt * 2 + r) * 128 + lane * 4 + i] = total[r][nt][i];
+  }
   consumers_sync();
   const int tid = threadIdx.x;
-  float* mine = a.partial + (static_cast<long long>(q) * S + rank) * 256;
-  for (int v = tid; v < 256; v += 32 * kConsumers) {
+  float* mine = a.partial + (static_cast<long long>(q) * S + rank) * kPart;
+  for (int v = tid; v < kPart; v += 32 * kConsumers) {
+    if (!live_tile<NT>(any, v >> 8)) continue;
     float sum = red[v];
 #pragma unroll
-    for (int w = 1; w < kConsumers; ++w) sum += red[w * 256 + v];
+    for (int w = 1; w < kConsumers; ++w) sum += red[w * kPart + v];
     mine[v] = sum;
   }
   __threadfence();  // this block's partial before its ticket
@@ -424,37 +517,57 @@ __global__ void __launch_bounds__(kThreads, 3) moe_down_kernel(const __grid_cons
   consumers_sync();
   if (!last_s) return;
   __threadfence();  // every split's partial after the last ticket
-  const float* tile = a.partial + static_cast<long long>(q) * S * 256;
-  for (int v = tid; v < 256; v += 32 * kConsumers) {
-    const int r = v >> 7, idx = v & 127, ln = idx >> 2, i = idx & 3, m = frag_lane(ln, i);
+  const float* tile = a.partial + static_cast<long long>(q) * S * kPart;
+  for (int v = tid; v < kPart; v += 32 * kConsumers) {
+    const int nt = v >> 8, r = (v >> 7) & 1, idx = v & 127, ln = idx >> 2, i = idx & 3;
+    const int m = 8 * nt + frag_lane(ln, i);
     if (m >= a.B) continue;
     float sum = 0.f;
-    for (int src = 0; src < S; ++src) sum += __ldcg(tile + src * 256 + v);
+    if (live_tile<NT>(any, nt))
+      for (int src = 0; src < S; ++src) sum += __ldcg(tile + src * kPart + v);
     a.out[static_cast<long long>(m) * a.d + n0 + 16 * r + frag_row(ln, i)] = sum;
   }
 }
 
-constexpr size_t kSmemBytes = kRingBytes + 2 * kStages * sizeof(uint64_t);
+template <int NT>
+int launch(const Args& a, cudaStream_t st) {
+  using R = Ring<NT>;
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    cudaError_t err = cudaFuncSetAttribute(moe_gate_up_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(R::kSmemBytes));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(moe_down_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(R::kSmemBytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attrs_set = true;
+  }
+  moe_gate_up_kernel<NT><<<a.tile0[a.n], kThreads, R::kSmemBytes, st>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  moe_down_kernel<NT><<<a.d / kOutTile * R::kSplits, kThreads, R::kSmemBytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
-// One step's expert layer of B lanes (1..8): h bf16 [B, d] contiguous; gates
-// f32 [B, *] with row stride gate_stride (routed entry e's column e - 1);
-// for each of the n entries (entry 0 the shared SwiGLU): gate_up[e] a
-// contiguous bf16 [2 w_e, d], down[e] a contiguous bf16 [d, w_e], act[e] a
-// bf16 scratch [B, w_e]; out f32 [B, d]; read an int counter or null;
-// partial an f32 scratch [d / 32][kSplits][256]; tickets an int scratch
-// [d / 32] (launch 1 zeroes it). d and every w_e multiples of 64, every base
-// 16-byte aligned. Two launches on `stream`. Returns
-// cudaGetLastError() after them, or cudaErrorInvalidValue for what it does
-// not take.
+// One step's expert layer of B lanes (1..64): h bf16 [B, d] contiguous;
+// gates f32 [B, *] with row stride gate_stride (the k-th routed entry's
+// column k); for each of the n entries (entry 0 the shared SwiGLU where
+// `shared` is 1): gate_up[e] a contiguous bf16 [2 w_e, d], down[e] a
+// contiguous bf16 [d, w_e], act[e] a bf16 scratch [B, w_e]; out f32 [B, d];
+// read an int counter or null; partial an f32 scratch [d / 32][kSplits][256
+// NT] (NT = 1 for B <= 8, else 8); tickets an int scratch [d / 32] (launch 1
+// zeroes it). d and every w_e multiples of 64, every base 16-byte aligned.
+// Two launches on `stream`. Returns cudaGetLastError() after them, or
+// cudaErrorInvalidValue for what it does not take.
 extern "C" int wtt_moe_lanes(const void* h, const float* gates, int gate_stride, const void* const* gate_up,
-                             const void* const* down, void* const* act, const int* widths, int n, float* out,
-                             int* read, float* partial, int* tickets, int B, int d, void* stream) {
-  if (B < 1 || B > kMaxLanes || n < 1 || n > kMaxEntries || d < kOutTile || d % 64 || gate_stride < n - 1 ||
-      !aligned16(h) || !aligned16(out) || !partial || !tickets)
+                             const void* const* down, void* const* act, const int* widths, int n, int shared,
+                             float* out, int* read, float* partial, int* tickets, int B, int d, void* stream) {
+  if (B < 1 || B > kMaxLanes || n < 1 || n > kMaxEntries || (shared != 0 && shared != 1) || d < kOutTile ||
+      d % 64 || gate_stride < n - shared || !aligned16(h) || !aligned16(out) || !partial || !tickets)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a = {};
   a.h = static_cast<const __nv_bfloat16*>(h);
@@ -467,6 +580,7 @@ extern "C" int wtt_moe_lanes(const void* h, const float* gates, int gate_stride,
   a.B = B;
   a.d = d;
   a.gate_stride = gate_stride;
+  a.shared = shared;
   a.tile0[0] = 0;
   for (int e = 0; e < n; ++e) {
     const int w = widths[e];
@@ -477,19 +591,5 @@ extern "C" int wtt_moe_lanes(const void* h, const float* gates, int gate_stride,
     a.tile0[e + 1] = a.tile0[e] + w / kActTile;
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  static bool attrs_set = false;
-  if (!attrs_set) {
-    cudaError_t err = cudaFuncSetAttribute(moe_gate_up_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(kSmemBytes));
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(moe_down_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    attrs_set = true;
-  }
-  moe_gate_up_kernel<<<a.tile0[n], kThreads, kSmemBytes, st>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  moe_down_kernel<<<d / kOutTile * kSplits, kThreads, kSmemBytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return B <= 8 ? launch<1>(a, st) : launch<8>(a, st);
 }

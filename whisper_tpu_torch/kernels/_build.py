@@ -11,7 +11,7 @@ The module also keeps the launch ledger, ``LAUNCHES``: every wrapper adds
 the kernels it launched to the count under its own name (``flash_attention``,
 ``flash_attention_f32``, ``decode_attention_hd``, ``decode_attention_hd_int8``,
 ``decode_attention_hd_grouped``, ``w8a16_dense``, ``moe_experts``,
-``kv_quant_write`` and the kbench wrappers' names). A wrapper runs once, at capture, for a step that a
+``kv_quant_write``, ``mla_decode`` and the kbench wrappers' names). A wrapper runs once, at capture, for a step that a
 CUDA graph replays; ``runtime/graph.py`` adds a capture's counts per replay.
 """
 
@@ -32,7 +32,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "whisper_tpu_torch"
 SOURCES = ("flash_attention", "flash_attention_f32", "decode_attention", "w8a16_dense", "moe_lanes",
-           "kv_quant_write", "kbench")
+           "kv_quant_write", "mla_decode", "kbench")
 LAUNCHES: collections.Counter[str] = collections.Counter()   # kernel launches, by wrapper
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",

@@ -1,7 +1,7 @@
-"""The omni token step's expert layer: a grouped kernel pair over the experts some lane kept.
+"""The token steps' expert layer: a grouped kernel pair over the experts some lane kept.
 The CUDA kernel's wrapper and its plain PyTorch version.
 
-Replaces no TPU kernel: the JAX package has no omni path. The step
+Replaces no TPU kernel: the JAX package has no omni path. The omni step
 (``model/omni.py:moe_lanes``) ran every routed expert over every lane
 through cuBLAS, gate 0 where a lane did not keep it, around a chain of
 elementwise launches. ``moe_experts`` computes
@@ -9,12 +9,15 @@ elementwise launches. ``moe_experts`` computes
     out = S(h) + sum_e gates[:, e] * E_e(h),   E(h) = W_down(silu(W_gate h) * W_up h)
 
 over B = 1..``MAX_LANES`` lanes of h [B, d], with ``shared`` = (gate_up,
-down) the shared SwiGLU (ungated) and ``routed`` a (gate_up, down) pair a
-routed expert, gated by column e of ``gates`` [B, >= n_routed] (f32, the
-router's output: the kept experts' probabilities, 0 elsewhere). Weights
-are the views ``model/omni_params.py`` holds: ``gate_up`` [d, 2w] the
-transpose of a contiguous [2w, d] (gate rows, then up rows), ``down`` [w,
-d] the transpose of a contiguous [d, w]. Returns out [B, d] f32.
+down) the shared SwiGLU (ungated), or None where there is none
+(LongCat-Flash's expert share, ``model/longcat.py:moe_lanes``), and
+``routed`` a (gate_up, down) pair a routed expert, gated by column e of
+``gates`` [B, >= n_routed] (f32, the router's output: the kept experts'
+weights, 0 elsewhere). At most ``MAX_ENTRIES`` entries, the shared one
+included. Weights are the views ``model/omni_params.py`` and
+``model/longcat_params.py`` hold: ``gate_up`` [d, 2w] the transpose of a
+contiguous [2w, d] (gate rows, then up rows), ``down`` [w, d] the
+transpose of a contiguous [d, w]. Returns out [B, d] f32.
 
 An expert that no lane kept adds ``out + 0 * E_e(h) = out``, so it is not
 computed: the plain version skips it, and the kernel's blocks see it from
@@ -25,13 +28,17 @@ The kernel is ``csrc/moe_lanes.cu``; its header says what bounds it
 (bytes: 407 MB an expert, ~42.8 GB a Uni-MoE-2.0-Omni step) and what its
 design does about that: two launches, the first gate/up with SiLU·up into
 a bf16 scratch [B, w] an expert, the second the down products with the
-gates and the expert sum, ``DOWN_SPLITS`` blocks an output tile. Each
+gates and the expert sum, ``DOWN_SPLITS`` blocks an output tile. Up to 8
+lanes take the instance the omni step was measured on; 9 to 64 lanes an
+instance that loops over 8-lane tiles, loading and multiplying only the
+tiles in which some lane kept an expert. Each
 call allocates its own scratch (activations, the down blocks' partial
 sums and per-tile tickets), so calls on different streams share none.
 
 On a CPU tensor ``moe_experts`` runs ``moe_experts_ref``; on a CUDA tensor
 it launches the kernel pair or raises. Both refuse a wrong dtype, a
-weight in another layout and more than ``MAX_LANES`` lanes.
+weight in another layout, more than ``MAX_LANES`` lanes and more than
+``MAX_ENTRIES`` entries.
 ``LAUNCHES["moe_experts"]`` counts kernel launches (2 a call; a captured
 CUDA graph's replays add what its capture recorded: ``runtime/graph.py``).
 """
@@ -47,11 +54,12 @@ import torch.nn.functional as F
 from whisper_tpu_torch.kernels._build import LAUNCHES, load_library
 from whisper_tpu_torch.kernels.w8a16 import dense
 
-MAX_LANES = 8        # the MMA's B operand: 8 lanes
+MAX_LANES = 64       # the MMA's B operand: up to 8 tiles of 8 lanes
 OUT_TILE = 32        # output columns a down block
 WIDTH_STEP = 64      # d and every expert width: multiples of it on the card
-MAX_EXPERTS = 7      # routed experts the kernel takes, beside the shared one
-DOWN_SPLITS = 7      # down blocks an output tile: kSplits in csrc/moe_lanes.cu
+MAX_ENTRIES = 8      # experts the kernel takes, the shared one (if any) included
+DOWN_SPLITS = 7      # down blocks an output tile, up to 8 lanes: Ring<1>::kSplits in csrc/moe_lanes.cu
+WIDE_DOWN_SPLITS = 4  # the same, 9 to 64 lanes: Ring<8>::kSplits
 
 
 def swiglu(h: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor) -> torch.Tensor:
@@ -64,9 +72,10 @@ def swiglu(h: torch.Tensor, gate_up: torch.Tensor, down: torch.Tensor) -> torch.
 
 def moe_experts_ref(h: torch.Tensor, gates: torch.Tensor, shared: tuple, routed: list,
                     read: torch.Tensor | None = None) -> torch.Tensor:
-    """Plain version: the shared SwiGLU, then each routed expert some lane
-    kept, in order, times its gates (reads the host: CPU only)."""
-    out = swiglu(h, *shared)
+    """Plain version: the shared SwiGLU (or zeros), then each routed expert
+    some lane kept, in order, times its gates (reads the host: CPU only)."""
+    out = swiglu(h, *shared) if shared is not None else torch.zeros(h.shape, dtype=torch.float32,
+                                                                      device=h.device)
     kept = (gates[:, : len(routed)] != 0).any(0)
     for e, (gate_up, down) in enumerate(routed):
         if kept[e]:
@@ -83,10 +92,10 @@ def _transposed(w: torch.Tensor, name: str) -> None:
                          f"the transpose of a contiguous [{w.shape[-1]}, {w.shape[0]}]")
 
 
-def _check_inputs(h: torch.Tensor, gates: torch.Tensor, shared: tuple, routed: list,
+def _check_inputs(h: torch.Tensor, gates: torch.Tensor, shared: tuple | None, routed: list,
                  read: torch.Tensor | None) -> list[int]:
     """Raises on what neither version takes; returns the entries' widths
-    (the shared SwiGLU's first)."""
+    (the shared SwiGLU's first, if any)."""
     if h.dim() != 2 or not 1 <= h.shape[0] <= MAX_LANES:
         raise ValueError(f"moe_experts takes h [B, d] of 1 to {MAX_LANES} lanes, got {list(h.shape)}")
     if not h.is_floating_point():
@@ -95,13 +104,15 @@ def _check_inputs(h: torch.Tensor, gates: torch.Tensor, shared: tuple, routed: l
     if gates.dtype != torch.float32 or gates.dim() != 2 or gates.shape[0] != b or gates.shape[1] < len(routed):
         raise ValueError(f"moe_experts: gates must be f32 [{b}, >= {len(routed)}], got {gates.dtype} "
                          f"{list(gates.shape)}")
-    if len(routed) > MAX_EXPERTS:
-        raise ValueError(f"moe_experts takes at most {MAX_EXPERTS} routed experts, got {len(routed)}")
+    pairs = routed if shared is None else [shared, *routed]
+    if not 1 <= len(pairs) <= MAX_ENTRIES:
+        raise ValueError(f"moe_experts takes 1 to {MAX_ENTRIES} experts, the shared one included, got {len(pairs)}")
     if read is not None and (read.dtype != torch.int32 or read.numel() != 1):
         raise ValueError(f"moe_experts: read must be one int32, got {read.dtype} {list(read.shape)}")
     widths = []
-    for i, (gate_up, down) in enumerate([shared, *routed]):
-        name = "shared" if i == 0 else f"expert {i - 1}"
+    first = 0 if shared is None else 1
+    for i, (gate_up, down) in enumerate(pairs):
+        name = "shared" if i < first else f"expert {i - first}"
         for w, part in ((gate_up, "gate_up"), (down, "down")):
             if w.dtype != h.dtype:
                 raise ValueError(f"moe_experts: {name} {part} is {w.dtype}, h {h.dtype}")
@@ -124,12 +135,12 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("moe_lanes")
     fn = lib.wtt_moe_lanes
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-def moe_experts(h: torch.Tensor, gates: torch.Tensor, shared: tuple, routed: list,
+def moe_experts(h: torch.Tensor, gates: torch.Tensor, shared: tuple | None, routed: list,
                 read: torch.Tensor | None = None) -> torch.Tensor:
     """``S(h) + sum_e gates[:, e] * E_e(h)`` over the experts some lane
     kept -> [B, d] f32 (see the module's docstring)."""
@@ -150,18 +161,20 @@ def moe_experts(h: torch.Tensor, gates: torch.Tensor, shared: tuple, routed: lis
     out = torch.empty((b, d), dtype=torch.float32, device=h.device)
     act = torch.empty((b * sum(widths),), dtype=torch.bfloat16, device=h.device)
     tiles = d // OUT_TILE
-    partial = torch.empty((tiles * DOWN_SPLITS * 256,), dtype=torch.float32, device=h.device)
+    lane_tiles, splits = (1, DOWN_SPLITS) if b <= 8 else (8, WIDE_DOWN_SPLITS)   # the kernel instance's
+    partial = torch.empty((tiles * splits * 256 * lane_tiles,), dtype=torch.float32, device=h.device)
     tickets = torch.empty((tiles,), dtype=torch.int32, device=h.device)     # the first launch zeroes it
     offsets = [0]
     for w in widths[:-1]:
         offsets.append(offsets[-1] + b * w)
     n = len(widths)
     ptrs = ctypes.c_void_p * n
-    pairs = [shared, *routed]
+    pairs = routed if shared is None else [shared, *routed]
     rc = _lib().wtt_moe_lanes(
         h.data_ptr(), gates.data_ptr(), gates.stride(0),
         ptrs(*[gu.data_ptr() for gu, _ in pairs]), ptrs(*[dn.data_ptr() for _, dn in pairs]),
-        ptrs(*[act.data_ptr() + 2 * o for o in offsets]), (ctypes.c_int * n)(*widths), n, out.data_ptr(),
+        ptrs(*[act.data_ptr() + 2 * o for o in offsets]), (ctypes.c_int * n)(*widths), n,
+        int(shared is not None), out.data_ptr(),
         None if read is None else read.data_ptr(), partial.data_ptr(), tickets.data_ptr(),
         b, d, torch.cuda.current_stream(h.device).cuda_stream)
     if rc != 0:

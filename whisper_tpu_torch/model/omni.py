@@ -154,9 +154,10 @@ def _qkv(x: torch.Tensor, blk: OmniBlock, dims: OmniDims, cos, sin):
 def _record(routes: torch.Tensor, counts: torch.Tensor, li: int, choice: torch.Tensor,
             kept: torch.Tensor, real: torch.Tensor, cols) -> None:
     """Writes a layer's routing of rows [B, S] at cache columns ``cols`` (a
-    host slice, or a device index for S = 1) and adds its counts."""
+    host slice, or a device index for S = 1) in the record's dtype (int8
+    here; int16 for a router of more than 127 outputs) and adds its counts."""
     b = routes.shape[1]
-    rec = choice.to(torch.int8).reshape(b, -1, choice.shape[-1])
+    rec = choice.to(routes.dtype).reshape(b, -1, choice.shape[-1])
     if isinstance(cols, torch.Tensor):
         routes[li].index_copy_(1, cols, rec)
     else:

@@ -92,16 +92,7 @@ class OmniDims:
         ``whisper_audio_time`` seconds of the encoder's 50 frames a second."""
         if cfg.get("use_sliding_window"):
             raise ValueError("sliding-window attention is not on this path")
-        frames_per_token = 50 * cfg["whisper_audio_time"] / cfg["whisper_query_tokens_size"]
-        if frames_per_token != int(frames_per_token):
-            raise ValueError(f"{frames_per_token} encoder frames an audio token: not whole")
-        wd = cfg["whisper_hidden_size"]
-        ctx = cfg["whisper_max_source_positions"]
-        audio = ModelDims(n_vocab=0, n_audio_ctx=ctx, n_audio_state=wd,
-                          n_audio_head=cfg["whisper_encoder_attention_heads"],
-                          n_audio_layer=cfg["whisper_encoder_layers"], n_text_ctx=0,
-                          n_text_state=wd, n_text_head=cfg["whisper_encoder_attention_heads"],
-                          n_text_layer=0, n_mels=cfg["whisper_num_mel_bins"])
+        audio, pool = whisper_tower(cfg)
         dims = OmniDims(
             d=cfg["hidden_size"], n_layer=cfg["num_hidden_layers"], n_head=cfg["num_attention_heads"],
             n_kv_head=cfg["num_key_value_heads"], n_vocab=cfg["vocab_size"],
@@ -111,7 +102,7 @@ class OmniDims:
             top_k=cfg["mlp_dynamic_top_k"], rms_eps=float(cfg["rms_norm_eps"]),
             rope_theta=float(cfg["rope_theta"]),
             mrope_section=tuple(cfg["rope_scaling"]["mrope_section"]), audio=audio,
-            audio_pool=int(frames_per_token), audio_token_id=cfg["audio_token_id"])
+            audio_pool=pool, audio_token_id=cfg["audio_token_id"])
         dims.validate()
         return dims
 
@@ -124,10 +115,27 @@ class OmniDims:
             raise ValueError(f"{self.audio.n_audio_ctx} frames do not pool by {self.audio_pool}")
 
 
-def tensor_names(dims: OmniDims) -> dict[str, tuple[int, ...]]:
-    """Every tensor of the audio-to-text path by its checkpoint name, with
-    its shape (torch's [out, in] for a linear layer)."""
-    d, kv, a = dims.d, dims.kv_dim, dims.audio
+def whisper_tower(cfg: dict) -> tuple[ModelDims, int]:
+    """The Whisper encoder's sizes from a configuration's ``whisper_*`` keys
+    (``whisper_hidden_size``, ``whisper_encoder_layers``,
+    ``whisper_encoder_attention_heads``, ``whisper_num_mel_bins``,
+    ``whisper_max_source_positions``), and the encoder frames averaged into
+    one audio token: ``whisper_query_tokens_size`` tokens per
+    ``whisper_audio_time`` seconds of the encoder's 50 frames a second."""
+    frames_per_token = 50 * cfg["whisper_audio_time"] / cfg["whisper_query_tokens_size"]
+    if frames_per_token != int(frames_per_token):
+        raise ValueError(f"{frames_per_token} encoder frames an audio token: not whole")
+    wd, heads = cfg["whisper_hidden_size"], cfg["whisper_encoder_attention_heads"]
+    audio = ModelDims(n_vocab=0, n_audio_ctx=cfg["whisper_max_source_positions"], n_audio_state=wd,
+                      n_audio_head=heads, n_audio_layer=cfg["whisper_encoder_layers"], n_text_ctx=0,
+                      n_text_state=wd, n_text_head=heads, n_text_layer=0, n_mels=cfg["whisper_num_mel_bins"])
+    return audio, int(frames_per_token)
+
+
+def audio_tensor_names(a: ModelDims, d: int, n_vocab: int) -> dict[str, tuple[int, ...]]:
+    """The audio tower's, the connector's (Whisper width -> ``d``), the
+    embedding's, the final norm's and the head's tensors by checkpoint
+    name, with their shapes."""
     wd, f = a.n_audio_state, 4 * a.n_audio_state
     out = {
         f"{AUDIO}.conv1.weight": (wd, a.n_mels, 3), f"{AUDIO}.conv1.bias": (wd,),
@@ -135,8 +143,8 @@ def tensor_names(dims: OmniDims) -> dict[str, tuple[int, ...]]:
         f"{AUDIO}.embed_positions.weight": (a.n_audio_ctx, wd),
         f"{AUDIO}.layer_norm.weight": (wd,), f"{AUDIO}.layer_norm.bias": (wd,),
         f"{PROJECTOR}.weight": (d, wd), f"{PROJECTOR}.bias": (d,),
-        f"{LM}.embed_tokens.weight": (dims.n_vocab, d), f"{LM}.norm.weight": (d,),
-        "lm_head.weight": (dims.n_vocab, d),
+        f"{LM}.embed_tokens.weight": (n_vocab, d), f"{LM}.norm.weight": (d,),
+        "lm_head.weight": (n_vocab, d),
     }
     for i in range(a.n_audio_layer):
         p = f"{AUDIO}.layers.{i}"
@@ -148,6 +156,14 @@ def tensor_names(dims: OmniDims) -> dict[str, tuple[int, ...]]:
                     f"{p}.fc1.weight": (f, wd), f"{p}.fc1.bias": (f,),
                     f"{p}.fc2.weight": (wd, f), f"{p}.fc2.bias": (wd,),
                     f"{p}.final_layer_norm.weight": (wd,), f"{p}.final_layer_norm.bias": (wd,)})
+    return out
+
+
+def tensor_names(dims: OmniDims) -> dict[str, tuple[int, ...]]:
+    """Every tensor of the audio-to-text path by its checkpoint name, with
+    its shape (torch's [out, in] for a linear layer)."""
+    d, kv = dims.d, dims.kv_dim
+    out = audio_tensor_names(dims.audio, d, dims.n_vocab)
     for i in range(dims.n_layer):
         p = f"{LM}.layers.{i}"
         out.update({f"{p}.input_layernorm.weight": (d,), f"{p}.post_attention_layernorm.weight": (d,),
@@ -194,7 +210,7 @@ class OmniParams(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
 
-def _pop(tensors: dict, name: str, shape: tuple[int, ...]) -> torch.Tensor:
+def pop_tensor(tensors: dict, name: str, shape: tuple[int, ...]) -> torch.Tensor:
     if name not in tensors:
         raise ValueError(f"missing tensor {name!r}")
     t = tensors.pop(name)
@@ -203,7 +219,7 @@ def _pop(tensors: dict, name: str, shape: tuple[int, ...]) -> torch.Tensor:
     return t
 
 
-def _encoder(dims: OmniDims, tensors: dict, policy: DtypePolicy) -> Encoder:
+def encoder_from_tensors(dims, tensors: dict, policy: DtypePolicy) -> Encoder:
     """The Whisper encoder in the port's layout (``model/params.py``): the
     conv stem as [3, in, out], a head-major fused QKV [d, 3d] with
     (d/h)^-0.25 folded into q and k, [in, out] views of the rest."""
@@ -214,7 +230,7 @@ def _encoder(dims: OmniDims, tensors: dict, policy: DtypePolicy) -> Encoder:
     scale = dh ** -0.25
 
     def get(name, shape, dtype=dt):
-        return _pop(tensors, f"{AUDIO}.{name}", shape).to(dtype)
+        return pop_tensor(tensors, f"{AUDIO}.{name}", shape).to(dtype)
 
     blocks = []
     for i in range(a.n_audio_layer):
@@ -254,7 +270,7 @@ def _block(dims: OmniDims, tensors: dict, i: int, policy: DtypePolicy) -> OmniBl
     p = f"{LM}.layers.{i}"
 
     def get(name, shape, dtype=dt):
-        return _pop(tensors, f"{p}.{name}", shape).to(dtype)
+        return pop_tensor(tensors, f"{p}.{name}", shape).to(dtype)
 
     qkv_w = torch.cat([get("self_attn.q_proj.weight", (d, d)), get("self_attn.k_proj.weight", (kv, d)),
                        get("self_attn.v_proj.weight", (kv, d))])
@@ -288,13 +304,13 @@ def params_from_tensors(dims: OmniDims, tensors: dict[str, torch.Tensor],
     norms, biases and the router f32. Raises on a missing, misshapen or
     unexpected tensor."""
     d = dims.d
-    enc = _encoder(dims, tensors, policy)
+    enc = encoder_from_tensors(dims, tensors, policy)
     dt, nt = policy.param_dtype, policy.norm_dtype
-    top = {"proj_w": _pop(tensors, f"{PROJECTOR}.weight", (d, dims.audio.n_audio_state)).to(dt).T,
-           "proj_b": _pop(tensors, f"{PROJECTOR}.bias", (d,)).to(nt),
-           "embed": _pop(tensors, f"{LM}.embed_tokens.weight", (dims.n_vocab, d)).to(dt),
-           "norm_w": _pop(tensors, f"{LM}.norm.weight", (d,)).to(nt),
-           "head_w": _pop(tensors, "lm_head.weight", (dims.n_vocab, d)).to(dt).T}
+    top = {"proj_w": pop_tensor(tensors, f"{PROJECTOR}.weight", (d, dims.audio.n_audio_state)).to(dt).T,
+           "proj_b": pop_tensor(tensors, f"{PROJECTOR}.bias", (d,)).to(nt),
+           "embed": pop_tensor(tensors, f"{LM}.embed_tokens.weight", (dims.n_vocab, d)).to(dt),
+           "norm_w": pop_tensor(tensors, f"{LM}.norm.weight", (d,)).to(nt),
+           "head_w": pop_tensor(tensors, "lm_head.weight", (dims.n_vocab, d)).to(dt).T}
     blocks = [_block(dims, tensors, i, policy) for i in range(dims.n_layer)]
     if tensors:
         raise ValueError(f"unexpected tensors: {sorted(tensors)[:5]}")

@@ -43,6 +43,11 @@ The runtime's spans and counters (name: where it is recorded):
                   choices, the routed experts some lane chose at each step's
                   layers, the routed experts those layers read (counted on the
                   device by kernels/moe.py), and the steps' layers
+  longcat_encode, longcat_prefill, longcat_steps
+                  runtime/longcat.py LongcatContext: the same spans of the
+                  longcat family; its counters are the moe.* above (the
+                  experts read and touched being this card's held ones),
+                  with moe.zero_slots and moe.held_slots for moe.null_slots
 
 Inside ``device_trace`` (an ``annotated()`` scope) each span is also a
 ``record_function`` range named ``wtt:<name>``, so the program's spans sit

@@ -90,13 +90,14 @@ def _tensors(*trees):
 
 class Slot:
     """The static tensors of one loop shape (``state``, ``kv``: the self
-    cache, ``cross``: the window's cross K/V), all zeros at first, and the
-    steps captured over them, by the loop's constants."""
+    cache, a NamedTuple of tensors (K and V, or one latent tensor),
+    ``cross``: the window's cross K/V), all zeros at first, and the steps
+    captured over them, by the loop's constants."""
 
     def __init__(self, state, kv, cross):
         self.state, self.kv, self.cross = state, kv, cross
         self.pool = torch.cuda.graph_pool_handle()
-        self.stream = torch.cuda.Stream(device=kv.k.device)
+        self.stream = torch.cuda.Stream(device=next(_tensors(kv)).device)
         self.steps: dict[tuple, CapturedStep] = {}
 
     @property
